@@ -1,0 +1,167 @@
+"""VQGAN-style conv decoder: GroupNorm-32 (eps 1e-6), swish, 3x3 resblocks,
+single-head spatial attention with 1x1-conv QKV, nearest 2x upsampling.
+
+Counterpart of the decode side of `hqtransformer_tpu/models/stage1/
+layers.py`. The JAX modules run NHWC; these run NCHW, PyTorch's conv
+layout, and the generator converts at its public functions. Parameter names
+follow the PyTorch reference (`up.3.block.0.conv1.weight`,
+`mid.attn_1.q.weight`, ...).
+
+Convolutions run in their input's dtype (weights may be stored in bf16);
+GroupNorm computes in f32 and returns the input dtype; attention scores and
+softmax are f32.
+
+Reproduced quirk: the `curr_res` bookkeeping that places attention blocks
+counts `use_init_downsample` (the decoder starts at resolution /
+2**len(ch_mult) then), and with `use_init_downsample` level 0 upsamples too.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm(32 groups, eps 1e-6, affine) computed in f32."""
+
+    def __init__(self, channels: int):
+        super().__init__(num_groups=32, num_channels=channels, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that computes in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+def conv(cin: int, cout: int, kernel: int) -> Conv2d:
+    """Stride-1 conv with 'same' padding."""
+    return Conv2d(cin, cout, kernel, padding=kernel // 2)
+
+
+class Upsample(nn.Module):
+    """Nearest 2x upsample, then a 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = conv(channels, channels, 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2, mode='nearest'))
+
+
+class ResnetBlock(nn.Module):
+    """norm-swish-conv twice, with a 1x1 shortcut when the width changes."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.norm1 = GroupNorm(cin)
+        self.conv1 = conv(cin, cout, 3)
+        self.norm2 = GroupNorm(cout)
+        self.conv2 = conv(cout, cout, 3)
+        if cin != cout:
+            self.nin_shortcut = conv(cin, cout, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(swish(self.norm1(x)))
+        h = self.conv2(swish(self.norm2(h)))
+        if hasattr(self, 'nin_shortcut'):
+            x = self.nin_shortcut(x)
+        return x + h
+
+
+class AttnBlock(nn.Module):
+    """Single-head attention over spatial positions, scale C**-0.5."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.norm = GroupNorm(channels)
+        self.q = conv(channels, channels, 1)
+        self.k = conv(channels, channels, 1)
+        self.v = conv(channels, channels, 1)
+        self.proj_out = conv(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        h = self.norm(x)
+        q = self.q(h).reshape(B, C, H * W).transpose(1, 2)     # [B, HW, C]
+        k = self.k(h).reshape(B, C, H * W)                     # [B, C, HW]
+        v = self.v(h).reshape(B, C, H * W).transpose(1, 2)     # [B, HW, C]
+        att = torch.matmul(q.float(), k.float()) * (C ** -0.5)
+        att = torch.softmax(att, dim=-1).to(v.dtype)
+        out = torch.matmul(att, v).transpose(1, 2).reshape(B, C, H, W)
+        return x + self.proj_out(out)
+
+
+class Decoder(nn.Module):
+    """Upsampling decoder: z [B, z_channels, h, w] -> [B, out_ch, H, W]."""
+
+    def __init__(self, ch: int, out_ch: int, ch_mult: Sequence[int],
+                 num_res_blocks: int, attn_resolutions: Sequence[int],
+                 resolution: int, z_channels: int,
+                 use_init_downsample: bool = False,
+                 use_mid_block: bool = True, use_attn: bool = True):
+        super().__init__()
+        n_levels = len(ch_mult)
+        block_in = ch * ch_mult[-1]
+        curr_res = resolution // 2 ** (
+            n_levels if use_init_downsample else n_levels - 1)
+        self.conv_in = conv(z_channels, block_in, 3)
+
+        self.mid = None
+        if use_mid_block:
+            self.mid = nn.Module()
+            self.mid.block_1 = ResnetBlock(block_in, block_in)
+            self.mid.attn_1 = AttnBlock(block_in) if use_attn else None
+            self.mid.block_2 = ResnetBlock(block_in, block_in)
+
+        levels = [None] * n_levels
+        for i_level in reversed(range(n_levels)):
+            block_out = ch * ch_mult[i_level]
+            level = nn.Module()
+            level.block = nn.ModuleList()
+            level.attn = nn.ModuleList()
+            for _ in range(num_res_blocks + 1):
+                level.block.append(ResnetBlock(block_in, block_out))
+                block_in = block_out
+                if use_attn and curr_res in attn_resolutions:
+                    level.attn.append(AttnBlock(block_in))
+            level.upsample = None
+            if i_level != 0 or use_init_downsample:
+                level.upsample = Upsample(block_in)
+                curr_res *= 2
+            levels[i_level] = level
+        self.up = nn.ModuleList(levels)
+
+        self.norm_out = GroupNorm(block_in)
+        self.conv_out = conv(block_in, out_ch, 3)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(z)
+        if self.mid is not None:
+            h = self.mid.block_1(h)
+            if self.mid.attn_1 is not None:
+                h = self.mid.attn_1(h)
+            h = self.mid.block_2(h)
+        for level in reversed(self.up):
+            for i_block, block in enumerate(level.block):
+                h = block(h)
+                if len(level.attn):
+                    h = level.attn[i_block](h)
+            if level.upsample is not None:
+                h = level.upsample(h)
+        return self.conv_out(swish(self.norm_out(h)))
