@@ -29,9 +29,31 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
    and 128 sampling launches per call. Prints samples/s and peak memory,
    then a breakdown: the AR loop and the stage-1 decode timed apart, with
    the device's busy time and largest kernels from torch.profiler.
-4. A reference on a small input: the tiny config, f32, greedy (top-k 1),
+4. Nearest-code search (K3) against its plain version (TF32 off): N=8191,
+   D in {256, 1024, 4096}, K in {8192, 1000}, f32 and bf16: codes equal but
+   for rows whose two codes' distances, recomputed in f64, lie within
+   1e-5 (|z|^2 + |e|^2) of each other, at most 0.1% of rows; and
+   integer-valued inputs with every code four times in the codebook, where
+   both versions must take the lowest index of each exact tie. Then, in
+   bf16 at every shape the encode paths launch it at (the flagship top and
+   bottom levels, which the 3-level middle and bottom share at batch 32,
+   and the 3-level top at batch 32), compares it with its plain version
+   by the same rule and times the kernel, its plain version and cuBLAS
+   addmm + argmin (extra peak memory of each beside); the bound takes the
+   bf16 tensor-core rate.
+5. The encode slice at full width: `make_reconstructor` on the flagship
+   stage-1 HQ-VAE (seeded random bf16 weights) on 128 seeded images, twice:
+   pixels [128, 256, 256, 3] finite in [-1, 1], codes in range, exactly 2
+   K3 and no K1 or K2 launches per call. Prints images/s, peak memory and a
+   breakdown (encoder, quantize with its K3 launches, decoder) from
+   torch.profiler. Then `TwoStageModel.extract_codes` and `forward` on the
+   flagship two-stage model at batch 128 (logits [128, 64, 8192] and
+   [128, 256, 8192], finite, 2 K3 launches per call), and
+   `make_reconstructor` on the 3-level HQ-VAE at batch 32 (3 K3 launches).
+6. A reference on a small input: the tiny config, f32, greedy (top-k 1),
    sampled through the CUDA kernels and through the CPU plain versions with
-   the same weights: equal codes, pixels within 1e-3.
+   the same weights: equal codes, pixels within 1e-3; and the same images
+   encoded on both: `extract_codes` equal, reconstructions within 1e-3.
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
@@ -54,6 +76,7 @@ FLAGSHIP = ROOT / 'configs/imagenet/stage2/hqtransformer-l12-top8x8.yaml'
 TINY = ROOT / 'configs/tiny/stage2-tiny.yaml'
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 
 # K1 at the flagship main path: 12 layers, 64 cache rows, batch 128,
 # d=1536, 24 heads; 12 launches per spatial step x 63 steps.
@@ -63,6 +86,17 @@ K1_LAUNCHES = L * 63
 V = 8192
 K2_LAUNCHES = 2 * 64
 TIMED_POS = 33
+# K3: one launch per code level; N = batch x level area, K = 8192 codes.
+# The 3-level middle and bottom levels at batch 32 have the flagship top's
+# and bottom's (N, D), so these three shapes are every K3 launch of the
+# encode paths, and every codebook split they take (4, 1, 16 on 132 SMs).
+LEVEL3 = ROOT / 'configs/imagenet/stage1/hqvae-pixelshuffle-top8x8-level3.yaml'
+N_CODES = 8192
+K3_SHAPES = (('flagship top = 3-level middle', 8192, 1024),
+             ('flagship bottom = 3-level bottom', 32768, 256),
+             ('3-level top, batch 32', 2048, 4096))
+B_LEVEL3 = 32
+NEAR_TIE = 1e-5
 
 
 def require(ok, message) -> None:
@@ -115,9 +149,11 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, flops: float):
+def bound(n_bytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
+    """The least time in ms: bytes over the memory rate or operations over
+    the card's peak for the operands' type, whichever is larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -260,6 +296,121 @@ def time_sample_topk(st):
     return kernel, plain, lib, bound(n_bytes, flops)
 
 
+# ----------------------------------------------------- K3 nearest-code search
+
+def compare_codes(z, e, c1, c2):
+    """Rows where codes c1 and c2 differ must be near-ties: their two
+    squared distances, recomputed in f64, within NEAR_TIE (|z|^2 + |e|^2);
+    at most 0.1% of rows. Returns (rows differing, max f64 distance gap)."""
+    rows = torch.nonzero(c1 != c2).flatten()
+    if rows.numel() == 0:
+        return 0, 0.0
+    z64, e1, e2 = z[rows].double(), e[c1[rows]].double(), e[c2[rows]].double()
+    gap = ((z64 - e1).square().sum(1) - (z64 - e2).square().sum(1)).abs()
+    scale = z64.square().sum(1) + torch.maximum(e1.square().sum(1),
+                                                e2.square().sum(1))
+    require(bool((gap <= NEAR_TIE * scale).all()),
+            f'K3 codes differ away from a near-tie: gap {gap.max().item()}')
+    require(rows.numel() <= 1e-3 * z.shape[0],
+            f'K3 {rows.numel()} of {z.shape[0]} rows differ')
+    return rows.numel(), gap.max().item()
+
+
+def check_vq_argmin(vq):
+    N = 8191   # ragged: not a multiple of the kernel's 128-row tile
+    max_err = 0.0
+    for D in (256, 1024, 4096):
+        for K in (N_CODES, 1000):
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.Generator(device='cuda').manual_seed(D + K)
+                z = torch.randn((N, D), generator=g, device='cuda').to(dtype)
+                e = torch.randn((K, D), generator=g, device='cuda').to(dtype)
+                c1 = vq.vq_argmin(z, e)
+                c2 = vq.vq_argmin_plain(z, e)
+                torch.cuda.synchronize()
+                n_diff, err = compare_codes(z, e, c1, c2)
+                max_err = max(max_err, err)
+                print(f'K3 D={D:4d} K={K:4d} {str(dtype):14s}: {n_diff} of '
+                      f'{N} rows differ from plain, each a near-tie')
+    # Exact ties: integer values keep every distance exact in f32 whatever
+    # the summation order. Code c equals codes c^1 and c^1 +- K/2.
+    g = torch.Generator(device='cuda').manual_seed(11)
+    base = torch.randint(-3, 4, (N_CODES // 4, 256), generator=g,
+                         device='cuda').repeat_interleave(2, dim=0)
+    e = torch.cat([base, base]).float()
+    z = torch.randint(-3, 4, (N, 256), generator=g, device='cuda').float()
+    for dtype in (torch.float32, torch.bfloat16):
+        c1 = vq.vq_argmin(z.to(dtype), e.to(dtype))
+        c2 = vq.vq_argmin_plain(z.to(dtype), e.to(dtype))
+        torch.cuda.synchronize()
+        require(torch.equal(c1, c2), f'K3 exact ties resolved differently '
+                f'from plain ({dtype})')
+        require(bool((c1 % 2 == 0).all() and (c1 < N_CODES // 2).all()),
+                f'K3 exact ties not resolved to the lowest index ({dtype})')
+        print(f'K3 exact ties {str(dtype):14s}: equal to plain, every row '
+              f'on the lowest index of its tie')
+    return max_err
+
+
+def extra_peak_mib(fn) -> float:
+    """Device memory one call of fn allocates at its peak beyond what is
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def time_vq_argmin(vq):
+    """bf16 z and codebooks, as served, at each K3_SHAPES shape: first the
+    kernel's codes against the plain version's on these inputs (the
+    near-tie rule of compare_codes), then the times. The library yardstick
+    is cuBLAS SGEMM (TF32 off) + argmin, which writes the [N, K] f32 score
+    matrix; the port never calls it. The bound takes the bf16 tensor-core
+    rate: a bf16 x bf16 product is exact in f32, so a bf16 wgmma with f32
+    accumulation gives the same scores up to summation order. Returns
+    (one (ms, plain, lib, bound, memory) per shape, max f64 gap)."""
+    out, max_err = [], 0.0
+    for name, N, D in K3_SHAPES:
+        g = torch.Generator(device='cuda').manual_seed(N + D)
+        z = torch.randn((N, D), generator=g, device='cuda').bfloat16()
+        e = torch.randn((N_CODES, D), generator=g,
+                        device='cuda').bfloat16()
+        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = vq.codebook_splits(N, N_CODES, n_sms)
+        n_diff, err = compare_codes(z, e, vq.vq_argmin(z, e),
+                                    vq.vq_argmin_plain(z, e))
+        max_err = max(max_err, err)
+        print(f'K3 {name} N={N} D={D} bf16, {splits} codebook slices: '
+              f'{n_diff} of {N} rows differ from plain, each a near-tie')
+
+        def library(i=0):
+            ef = e.float()
+            return torch.addmm(ef.square().sum(1), z.float(), ef.T,
+                               alpha=-2).argmin(1)
+
+        def kernel(i=0):
+            return vq.vq_argmin(z, e)
+
+        ms = time_ms(kernel, 10)
+        plain = time_ms(lambda i: vq.vq_argmin_plain(z, e), 3)
+        lib = time_ms(library, 10)
+        mem = (extra_peak_mib(kernel), extra_peak_mib(library))
+        # bytes: z and e read once, the codes written once; operations:
+        # one multiply and one add per (row, code, dim), at the bf16 rate.
+        n_bytes = (N + N_CODES) * D * 2 + N * 8
+        flops = 2 * N * N_CODES * D
+        bnd = bound(n_bytes, flops, BF16_FLOPS_PER_S)
+        out.append((ms, plain, lib, bnd, mem))
+        print(f'K3 {name} N={N} K={N_CODES} D={D} bf16: kernel {ms:.4f} ms, '
+              f'plain {plain:.4f} ms, addmm+argmin {lib:.4f} ms, bound '
+              f'{bnd[0]:.4f} ms ({bnd[1]}, bf16 rate); extra peak memory '
+              f'kernel {mem[0]:.1f} MiB, addmm+argmin {mem[1]:.1f} MiB')
+    return out, max_err
+
+
 # ------------------------------------------------------------ main path
 
 def run_main_path(da, st):
@@ -309,14 +460,13 @@ def run_main_path(da, st):
               f'{peak:.2f} GiB, launches K1={launches[0]} K2={launches[1]}, '
               f'pixels {tuple(pixels.shape)} {pixels.dtype}')
     breakdown(model, weights, params, labels, gen)
-    return launches, B / seconds
+    return launches, B / seconds, model, weights
 
 
 def breakdown(model, weights, params, labels, gen):
     """Where one batch's time goes: the AR loop (stage 2) and the stage-1
     decode, each timed alone on the host clock, then run once more under
     torch.profiler for the device's busy time and its largest kernels."""
-    from torch.profiler import ProfilerActivity, profile
     from hqtransformer_tpu_torch.models.stage2.hierarchical import \
         cells_to_raster
     from hqtransformer_tpu_torch.sampling.engine import \
@@ -334,8 +484,18 @@ def breakdown(model, weights, params, labels, gen):
             -1, n_top * win, n_top * win)
         return model.stage1.decode_code(ct, cb)
 
-    for name, fn in (('AR loop', lambda: sampler(gen, labels)),
-                     ('stage-1 decode', decode)):
+    profile_phases((('AR loop', lambda: sampler(gen, labels)),
+                    ('stage-1 decode', decode)))
+
+
+def profile_phases(phases):
+    """Each (name, fn) timed alone on the host clock, then run once more
+    under torch.profiler for the device's busy time and its largest
+    kernels. Returns {name: {kernel name: (runs, device ms)}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in phases:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -350,19 +510,198 @@ def breakdown(model, weights, params, labels, gen):
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 n, us = per_kernel.get(e.name, (0, 0.0))
                 per_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
-        busy_ms = sum(us for _, us in per_kernel.values()) / 1e3
+        per_kernel = {k: (n, us / 1e3) for k, (n, us) in per_kernel.items()}
+        busy_ms = sum(ms for _, ms in per_kernel.values())
         print(f'breakdown {name}: {wall_ms:.1f} ms wall; device busy '
               f'{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}) in '
               f'{sum(n for n, _ in per_kernel.values())} kernel runs')
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:6]
-        for kname, (n, us) in top:
-            print(f'  {us / 1e3:8.2f} ms {n:6d}x  {kname[:90]}')
+        for kname, (n, ms) in top:
+            print(f'  {ms:8.2f} ms {n:6d}x  {kname[:90]}')
+        out[name] = per_kernel
+    return out
 
 
-def check_small_reference():
-    """Tiny config, f32, greedy: the CUDA path against the CPU plain path
-    with the same weights."""
+# --------------------------------------------------------- the encode slice
+
+def seeded_images(n: int, res: int, seed: int, device='cuda'):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand((n, res, res, 3), generator=g, device=device) * 2 - 1
+
+
+def reset_counts(*kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def check_reconstruction(pixels, levels, n, res, grids):
+    require(pixels.shape == (n, res, res, 3), f'pixel shape {pixels.shape}')
+    require(bool(torch.isfinite(pixels).all()), 'pixels not finite')
+    require(float(pixels.min()) >= -1.0 and float(pixels.max()) <= 1.0,
+            'pixels outside [-1, 1]')
+    require([tuple(c.shape) for c in levels] == [(n, s, s) for s in grids],
+            f'code shapes {[tuple(c.shape) for c in levels]}')
+    for c in levels:
+        require(int(c.min()) >= 0 and int(c.max()) < N_CODES,
+                f'codes outside [0, {N_CODES})')
+
+
+def run_encode_slice(vq, da, st, stage1_weights):
+    """make_reconstructor on the flagship stage-1 HQ-VAE, bf16, 128 images,
+    twice; then a breakdown of one batch: encoder, quantize, decoder."""
     from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.evaluation.stage1 import (
+        ReconstructionMetrics, make_reconstructor)
+
+    cfg = build_twostage_config(str(FLAGSHIP)).stage1
+    res = cfg.hparams.resolution
+    images = seeded_images(B, res, seed=5)
+    recon = make_reconstructor(cfg, torch.bfloat16)
+    for call in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+        t0 = time.perf_counter()
+        pixels, levels = recon(stage1_weights, images)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = (vq.vq_argmin.launches, da.decode_attention_step.launches,
+                    st.sample_topk.launches)
+        require(launches == (2, 0, 0), f'encode slice launches K3, K1, K2 '
+                f'{launches}, expected (2, 0, 0)')
+        check_reconstruction(pixels, levels, B, res, (8, 16))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f'encode slice call {call}: {seconds:.3f} s, '
+              f'{B / seconds:.2f} images/s at batch {B}, peak {peak:.2f} GiB, '
+              f'launches K3={launches[0]}, pixels {tuple(pixels.shape)} '
+              f'{pixels.dtype}')
+    metrics = ReconstructionMetrics(N_CODES)
+    metrics.update(images, pixels, levels)
+    usage = ', '.join(f'{u:.4f}' for u in metrics.code_usage())
+    print(f'encode slice (random weights): MSE {metrics.mse:.4f}, code '
+          f'usage per level {usage}')
+    encode_breakdown(cfg, stage1_weights, images)
+    return launches[0], B / seconds
+
+
+def encode_breakdown(cfg, stage1_weights, images):
+    """The flagship reconstruction split into its three phases, each run
+    alone, with the K3 kernels' share of the quantize phase."""
+    from hqtransformer_tpu_torch.models.stage1.generator import \
+        build_generator
+    from hqtransformer_tpu_torch.ops.resample import (pixel_shuffle,
+                                                      pixel_unshuffle)
+
+    with torch.device('meta'):
+        gen = build_generator(cfg, torch.bfloat16)
+    gen = gen.to_empty(device='cuda').eval()
+    gen.load_state_dict(stage1_weights, strict=True, assign=True)
+    x = images.permute(0, 3, 1, 2).bfloat16()
+    w = gen.window
+
+    @torch.inference_mode()
+    def encoder():
+        return gen.quant_conv_b(gen.encoder(x)).permute(0, 2, 3, 1)
+
+    h_b = encoder()
+
+    @torch.inference_mode()
+    def quantize():
+        quant_t, _, _ = gen.quantize_t(pixel_unshuffle(h_b, w))
+        quant_b, _, _ = gen.quantize_b(h_b - pixel_shuffle(quant_t, w))
+        return quant_t, quant_b
+
+    quant = quantize()
+
+    @torch.inference_mode()
+    def decoder():
+        return gen.decode(*quant)
+
+    per_phase = profile_phases((('encoder', encoder),
+                                ('quantize (2 K3)', quantize),
+                                ('decoder', decoder)))
+    k3 = [(n, ms) for kname, (n, ms) in per_phase['quantize (2 K3)'].items()
+          if 'vq_' in kname]
+    print(f'breakdown K3 kernels in the quantize phase: '
+          f'{sum(ms for _, ms in k3):.2f} ms in {sum(n for n, _ in k3)} runs')
+
+
+def run_twostage_encode(vq, da, st, model, weights):
+    """TwoStageModel.extract_codes and forward on the flagship two-stage
+    model, bf16, batch 128."""
+    res = model.config.dataset.image_resolution
+    images = seeded_images(B, res, seed=6)
+    labels = torch.arange(B, device='cuda') % \
+        model.config.stage2.hparams.n_classes
+    for name, fn in (('extract_codes',
+                      lambda: model.extract_codes(weights, images)),
+                     ('forward',
+                      lambda: model.forward(weights, images, labels))):
+        for call in (1, 2):
+            torch.cuda.synchronize()
+            reset_counts(vq.vq_argmin, da.decode_attention_step,
+                         st.sample_topk)
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = (vq.vq_argmin.launches,
+                        da.decode_attention_step.launches,
+                        st.sample_topk.launches)
+            require(launches == (2, 0, 0), f'{name} launches K3, K1, K2 '
+                    f'{launches}, expected (2, 0, 0)')
+        codes = out[0] if name == 'extract_codes' else out[1]
+        require(tuple(codes[0].shape) == (B, 64) and
+                tuple(codes[1].shape) == (B, 256),
+                f'{name} code shapes {[tuple(c.shape) for c in codes]}')
+        if name == 'forward':
+            lt, lb = out[0]
+            require(tuple(lt.shape) == (B, 64, N_CODES) and
+                    tuple(lb.shape) == (B, 256, N_CODES),
+                    f'logit shapes {tuple(lt.shape)}, {tuple(lb.shape)}')
+            require(bool(torch.isfinite(lt).all() and
+                         torch.isfinite(lb).all()), 'logits not finite')
+        print(f'two-stage {name} at batch {B}: {seconds * 1e3:.1f} ms '
+              f'({B / seconds:.2f} images/s), launches K3={launches[0]}')
+
+
+def run_level3(vq, da, st):
+    """make_reconstructor on the 3-level HQ-VAE at batch 32, bf16."""
+    from hqtransformer_tpu_torch.config import build_stage1_config
+    from hqtransformer_tpu_torch.evaluation.stage1 import (
+        init_stage1_weights, make_reconstructor)
+    from hqtransformer_tpu_torch.models.twostage import serving_bf16_params
+
+    cfg = build_stage1_config(str(LEVEL3)).stage1
+    res = cfg.hparams.resolution
+    weights = serving_bf16_params(init_stage1_weights(cfg, seed=3))
+    images = seeded_images(B_LEVEL3, res, seed=7)
+    recon = make_reconstructor(cfg, torch.bfloat16)
+    for call in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+        t0 = time.perf_counter()
+        pixels, levels = recon(weights, images)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = (vq.vq_argmin.launches, da.decode_attention_step.launches,
+                    st.sample_topk.launches)
+        require(launches == (3, 0, 0), f'3-level launches K3, K1, K2 '
+                f'{launches}, expected (3, 0, 0)')
+        check_reconstruction(pixels, levels, B_LEVEL3, res, (8, 16, 32))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f'3-level reconstruction call {call}: {seconds:.3f} s, '
+              f'{B_LEVEL3 / seconds:.2f} images/s at batch {B_LEVEL3}, peak '
+              f'{peak:.2f} GiB, launches K3={launches[0]}')
+
+
+def check_small_reference(vq):
+    """Tiny config, f32: greedy sampling, code extraction and
+    reconstruction through the CUDA kernels against the CPU plain path with
+    the same weights and inputs."""
+    from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.evaluation.stage1 import make_reconstructor
     from hqtransformer_tpu_torch.models.twostage import TwoStageModel
     from hqtransformer_tpu_torch.sampling.engine import SamplingParams
 
@@ -374,15 +713,36 @@ def check_small_reference():
     ref_px, (ref_t, ref_b) = cpu.make_pixel_sampler(params=greedy)(
         weights, torch.Generator().manual_seed(0), labels)
     gpu = TwoStageModel(cfg, device='cuda')
+    w_gpu = {s: {k: v.cuda() for k, v in w.items()}
+             for s, w in weights.items()}
     px, (ct, cb) = gpu.make_pixel_sampler(params=greedy)(
-        {s: {k: v.cuda() for k, v in w.items()} for s, w in weights.items()},
-        torch.Generator(device='cuda').manual_seed(0), labels.cuda())
+        w_gpu, torch.Generator(device='cuda').manual_seed(0), labels.cuda())
     require(torch.equal(ct.cpu(), ref_t) and torch.equal(cb.cpu(), ref_b),
             'tiny greedy codes differ between the CUDA and the CPU path')
     err = (px.cpu() - ref_px).abs().max().item()
     require(err <= 1e-3, f'tiny greedy pixels differ by {err}')
     print(f'tiny greedy reference: codes equal to the CPU plain path, '
           f'max|pixels - cpu| = {err:.2e}')
+
+    res = cfg.dataset.image_resolution
+    images = seeded_images(8, res, seed=9, device='cpu')
+    (ref_t, ref_b), _ = cpu.extract_codes(weights, images)
+    reset_counts(vq.vq_argmin)
+    (ct, cb), _ = gpu.extract_codes(w_gpu, images.cuda())
+    torch.cuda.synchronize()
+    require(vq.vq_argmin.launches == 2, 'tiny extract_codes did not run K3')
+    require(torch.equal(ct.cpu(), ref_t) and torch.equal(cb.cpu(), ref_b),
+            'tiny extract_codes differ between the CUDA and the CPU path')
+    ref_px, ref_levels = make_reconstructor(cfg.stage1, device='cpu')(
+        weights['stage1'], images)
+    px, levels = make_reconstructor(cfg.stage1, device='cuda')(
+        w_gpu['stage1'], images.cuda())
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(levels, ref_levels)),
+            'tiny reconstruction codes differ between CUDA and CPU')
+    err = (px.cpu() - ref_px).abs().max().item()
+    require(err <= 1e-3, f'tiny reconstruction pixels differ by {err}')
+    print(f'tiny encode reference: extract_codes and reconstruction codes '
+          f'equal to the CPU plain path, max|pixels - cpu| = {err:.2e}')
 
 
 def main() -> int:
@@ -393,6 +753,7 @@ def main() -> int:
     from hqtransformer_tpu_torch.ops import cuda_build
     from hqtransformer_tpu_torch.ops import decode_attention as da
     from hqtransformer_tpu_torch.ops import sample_topk as st
+    from hqtransformer_tpu_torch.ops import vq_argmin as vq
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -416,10 +777,23 @@ def main() -> int:
 
     k1_err = check_decode_attention(da)
     k2_err, k2_frac = check_sample_topk(st)
+    k3_err = check_vq_argmin(vq)
     k1_times = time_decode_attention(da)
     k2_times = time_sample_topk(st)
-    launches, samples_per_s = run_main_path(da, st)
-    check_small_reference()
+    k3_shapes, k3_served_err = time_vq_argmin(vq)
+    k3_err = max(k3_err, k3_served_err)
+    launches, samples_per_s, model, weights = run_main_path(da, st)
+    k3_launches, images_per_s = run_encode_slice(vq, da, st,
+                                                 weights['stage1'])
+    run_twostage_encode(vq, da, st, model, weights)
+    del model, weights
+    run_level3(vq, da, st)
+    check_small_reference(vq)
+
+    # K3's entry: the mean of one launch at each of the slice's two levels.
+    flagship = k3_shapes[:2]
+    k3_times = tuple(sum(t[i] for t in flagship) / 2 for i in range(3)) + (
+        (sum(t[3][0] for t in flagship) / 2, flagship[0][3][1]),)
 
     kernels = []
     for name, src, replaces, n, err, (ms, plain, lib, (bnd, by)) in (
@@ -428,14 +802,18 @@ def main() -> int:
              'pallas_attention.py:200', launches[0], k1_err, k1_times),
             ('sample_topk', 'hqtransformer_tpu_torch/csrc/sample_topk.cu',
              'hqtransformer_tpu/ops/pallas_sample.py:236', launches[1],
-             k2_err, k2_times)):
+             k2_err, k2_times),
+            ('vq_argmin', 'hqtransformer_tpu_torch/csrc/vq_argmin.cu',
+             'hqtransformer_tpu/ops/pallas_vq.py:63', k3_launches, k3_err,
+             k3_times)):
         kernels.append({'name': name, 'route': 'cuda', 'source': src,
                         'replaces': replaces, 'launches': n,
                         'max_abs_err': err, 'ms': ms, 'kernel_ms': ms,
                         'plain_ms': plain, 'bound_ms': bnd, 'bound_by': by,
                         'library_ms': lib})
     print(f'K2 rows differing from plain at most {k2_frac:.4f}; main path '
-          f'{samples_per_s:.2f} samples/s at batch {B}')
+          f'{samples_per_s:.2f} samples/s at batch {B}; encode slice '
+          f'{images_per_s:.2f} images/s at batch {B}')
     print(json.dumps({'kernels': kernels}))
     print(f'nvidia-smi: {nvidia_smi()}')
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

@@ -179,6 +179,15 @@ class ExpConfig:
 
 
 @dataclass
+class Stage1TrainConfig:
+    """Stage-1 config: the schema of the stage-1 YAMLs."""
+    dataset: DataConfig = field(default_factory=DataConfig)
+    stage1: Stage1Config = field(default_factory=Stage1Config)
+    optimizer: OptConfig = field(default_factory=OptConfig)
+    experiment: ExpConfig = field(default_factory=ExpConfig)
+
+
+@dataclass
 class TwoStageConfig:
     """Full two-stage model config."""
     dataset: DataConfig = field(default_factory=DataConfig)
@@ -254,6 +263,23 @@ _YamlLoader.add_implicit_resolver(
 def load_yaml(path: str) -> dict:
     with open(path, 'r') as fp:
         return yaml.load(fp, Loader=_YamlLoader)
+
+
+def build_stage1_config(config_path: str) -> Stage1TrainConfig:
+    """Stage-1 config: schema defaults overlaid with the YAML. Multi-level
+    stage-1 types get the aux schema before the merge; a two-stage YAML's
+    `stage2` section is ignored."""
+    cfg = Stage1TrainConfig()
+    cfg.stage1.hparams_disc = Stage1HparamsDisc()
+    data = load_yaml(config_path)
+    s1_type = (data.get('stage1') or {}).get('type', cfg.stage1.type)
+    if s1_type in ('vqgan2', 'simrqgan2', 'hqvae', 'sivae'):
+        cfg.stage1.hparams_aux = VQGAN2Hparams()
+    elif s1_type != 'vqgan':
+        raise ValueError(f'{s1_type} not supported..')
+    _merge_into_dataclass(cfg, {k: v for k, v in data.items()
+                                if k != 'stage2'})
+    return cfg
 
 
 def build_twostage_config(config_path: str) -> TwoStageConfig:

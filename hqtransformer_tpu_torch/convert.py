@@ -6,8 +6,10 @@ reference's key layout, which is the layout of the port's modules. This is
 the port's own copy of the mapping that the JAX package's
 `checkpoint.export_torch_state_dict` applies:
 
-* list entries `blocks_3`, `mlp_0`, `up_3_block_0`, `mid_block_1` become
-  `blocks.3`, `mlp.0`, `up.3.block.0`, `mid.block_1`;
+* list entries `blocks_3`, `mlp_0`, `down_1_block_0`, `down_0_downsample`,
+  `up_3_block_0`, `mid_block_1`, `quantizers_2` become `blocks.3`, `mlp.0`,
+  `down.1.block.0`, `down.0.downsample`, `up.3.block.0`, `mid.block_1`,
+  `quantizers.2`;
 * a Dense kernel [I, O] becomes a weight [O, I]; a conv kernel HWIO becomes
   OIHW (`transpose(3, 2, 0, 1)`), except the conv-transpose upsamplers,
   which already keep the torch layout;
@@ -95,9 +97,3 @@ def convert_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in out.items()}
 
-
-def drop_prefixes(state: Mapping[str, torch.Tensor],
-                  *prefixes: str) -> Dict[str, torch.Tensor]:
-    """The entries of `state` whose key starts with none of `prefixes`
-    (e.g. the stage-1 encoder, which the port does not hold yet)."""
-    return {k: v for k, v in state.items() if not k.startswith(prefixes)}

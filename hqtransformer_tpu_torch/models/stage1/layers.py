@@ -1,19 +1,24 @@
-"""VQGAN-style conv decoder: GroupNorm-32 (eps 1e-6), swish, 3x3 resblocks,
-single-head spatial attention with 1x1-conv QKV, nearest 2x upsampling.
+"""VQGAN-style conv encoder and decoder: GroupNorm-32 (eps 1e-6), swish,
+3x3 resblocks, single-head spatial attention with 1x1-conv QKV, asymmetric
+stride-2 downsampling, nearest 2x upsampling.
 
-Counterpart of the decode side of `hqtransformer_tpu/models/stage1/
-layers.py`. The JAX modules run NHWC; these run NCHW, PyTorch's conv
-layout, and the generator converts at its public functions. Parameter names
-follow the PyTorch reference (`up.3.block.0.conv1.weight`,
-`mid.attn_1.q.weight`, ...).
+Counterpart of `hqtransformer_tpu/models/stage1/layers.py` (`Encoder`,
+`Decoder` and their blocks). The JAX modules run NHWC; these run NCHW,
+PyTorch's conv layout, and the generator converts at its public functions.
+Parameter names follow the PyTorch reference (`down.0.block.0.conv1.weight`,
+`up.3.block.0.conv1.weight`, `mid.attn_1.q.weight`, ...).
 
 Convolutions run in their input's dtype (weights may be stored in bf16);
 GroupNorm computes in f32 and returns the input dtype; attention scores and
-softmax are f32.
+softmax are f32. Dropout is left out: every path of the port is inference.
 
-Reproduced quirk: the `curr_res` bookkeeping that places attention blocks
-counts `use_init_downsample` (the decoder starts at resolution /
-2**len(ch_mult) then), and with `use_init_downsample` level 0 upsamples too.
+Reproduced quirks, both of which decide where attention blocks sit:
+- the encoder's `curr_res` starts at `resolution` even when
+  `use_init_downsample` has already halved the map, so at the flagship
+  config no level of the encoder has attention (only `mid.attn_1`);
+- the decoder's `curr_res` does count `use_init_downsample` (it starts at
+  resolution / 2**len(ch_mult) then), and with `use_init_downsample` level
+  0 upsamples too.
 """
 
 from __future__ import annotations
@@ -64,6 +69,21 @@ class Upsample(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2, mode='nearest'))
 
 
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv after asymmetric (0, 1, 0, 1) zero padding, or a
+    2x2 average pool."""
+
+    def __init__(self, channels: int, with_conv: bool = True):
+        super().__init__()
+        self.conv = (Conv2d(channels, channels, 3, stride=2)
+                     if with_conv else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv is None:
+            return F.avg_pool2d(x, 2, 2)
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
 class ResnetBlock(nn.Module):
     """norm-swish-conv twice, with a 1x1 shortcut when the width changes."""
 
@@ -105,6 +125,74 @@ class AttnBlock(nn.Module):
         att = torch.softmax(att, dim=-1).to(v.dtype)
         out = torch.matmul(att, v).transpose(1, 2).reshape(B, C, H, W)
         return x + self.proj_out(out)
+
+
+class Encoder(nn.Module):
+    """Downsampling encoder: x [B, in_channels, H, W] -> [B, z_channels
+    (twice that with double_z), h, w]."""
+
+    def __init__(self, ch: int, ch_mult: Sequence[int], num_res_blocks: int,
+                 attn_resolutions: Sequence[int], in_channels: int,
+                 resolution: int, z_channels: int, double_z: bool = False,
+                 use_init_downsample: bool = False,
+                 use_mid_block: bool = True, use_attn: bool = True):
+        super().__init__()
+        n_levels = len(ch_mult)
+        if use_init_downsample:
+            self.conv_in = Conv2d(in_channels, ch, 4, stride=2, padding=1)
+        else:
+            self.conv_in = conv(in_channels, ch, 3)
+
+        curr_res = resolution   # the quirk: init downsample not counted
+        block_in = ch
+        self.down = nn.ModuleList()
+        for i_level in range(n_levels):
+            block_out = ch * ch_mult[i_level]
+            level = nn.Module()
+            level.block = nn.ModuleList()
+            level.attn = nn.ModuleList()
+            for _ in range(num_res_blocks):
+                level.block.append(ResnetBlock(block_in, block_out))
+                block_in = block_out
+                if use_attn and curr_res in attn_resolutions:
+                    level.attn.append(AttnBlock(block_in))
+            level.downsample = None
+            if i_level != n_levels - 1:
+                level.downsample = Downsample(block_in)
+                curr_res //= 2
+            self.down.append(level)
+
+        self.mid = None
+        if use_mid_block:
+            self.mid = nn.Module()
+            self.mid.block_1 = ResnetBlock(block_in, block_in)
+            self.mid.attn_1 = AttnBlock(block_in) if use_attn else None
+            self.mid.block_2 = ResnetBlock(block_in, block_in)
+
+        self.norm_out = GroupNorm(block_in)
+        self.conv_out = conv(block_in,
+                             2 * z_channels if double_z else z_channels, 3)
+
+    def forward(self, x: torch.Tensor, ret_bottom: bool = False):
+        """With ret_bottom, also returns the input of the last downsample
+        (h_prev)."""
+        h = self.conv_in(x)
+        h_prev = None
+        for level in self.down:
+            for i_block, block in enumerate(level.block):
+                h = block(h)
+                if len(level.attn):
+                    h = level.attn[i_block](h)
+            if level.downsample is not None:
+                h_prev = h
+                h = level.downsample(h)
+        if self.mid is not None:
+            h = self.mid.block_1(h)
+            if self.mid.attn_1 is not None:
+                h = self.mid.attn_1(h)
+            h = self.mid.block_2(h)
+        h = self.conv_out(swish(self.norm_out(h)))
+        return (h, h_prev) if ret_bottom else h
 
 
 class Decoder(nn.Module):

@@ -1,9 +1,11 @@
-"""Two-stage model: the stage-1 HQ-VAE decoder plus the stage-2
-HQ-Transformer, composed into the class-conditional pixel sampler.
+"""Two-stage model: the stage-1 HQ-VAE plus the stage-2 HQ-Transformer.
 
-Counterpart of `hqtransformer_tpu/models/twostage.py` for the slice's path:
-`TwoStageModel(cfg).make_pixel_sampler(...)(weights, generator, labels)`
-gives pixels [B, 256, 256, 3] in [0, 1] at the flagship config.
+Counterpart of `hqtransformer_tpu/models/twostage.py` for the ported paths:
+- `TwoStageModel(cfg).make_pixel_sampler(...)(weights, generator, labels)`
+  gives pixels [B, 256, 256, 3] in [0, 1] at the flagship config;
+- `extract_codes(weights, images)` encodes images [B, 256, 256, 3] in
+  [-1, 1] to raster codes, and `forward(weights, images, labels)` runs the
+  teacher-forced stage-2 forward on them, giving its logits.
 
 Weights are state dicts in the PyTorch reference's key layout,
 {'stage1': {...}, 'stage2': {...}}: from `TwoStageModel.init_weights` (a
@@ -14,30 +16,19 @@ JAX variables by `convert.py`.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..config import TwoStageConfig, parse_model_type
+from ..device import resolve_device
 from ..sampling.engine import SamplingParams, make_hierarchical_sampler
 from .stage1.generator import build_generator
 from .stage1.quantizer import EMAVectorQuantizer
 from .stage2.hierarchical import HierarchicalGPT, cells_to_raster
 
 Weights = Dict[str, Dict[str, torch.Tensor]]
-
-
-def resolve_device(device: Optional[Union[str, torch.device]] = None
-                   ) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names
-    another. Raises when CUDA is wanted and no card is present; there is no
-    quiet fall back to the CPU."""
-    device = torch.device('cuda' if device is None else device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('no CUDA device is available; pass device="cpu" '
-                           'to run on the CPU')
-    return device
 
 
 def build_stage2(config: TwoStageConfig,
@@ -75,8 +66,8 @@ def _decode_chunked(dec1: Callable, arrays: Sequence[torch.Tensor],
                       for i in range(0, B, chunk)])
 
 
-def _random_state(module: nn.Module, generator: torch.Generator
-                  ) -> Dict[str, torch.Tensor]:
+def random_state(module: nn.Module, generator: torch.Generator
+                 ) -> Dict[str, torch.Tensor]:
     """Seeded random weights for every entry of module's state dict, f32 on
     the generator's device: lecun-normal projections and convolutions, zero
     biases, unit norm scales, N(0, 0.02) embeddings and N(0, 1) codebooks."""
@@ -133,8 +124,8 @@ class TwoStageModel:
     def init_weights(self, seed: int) -> Weights:
         """Seeded random f32 weights on the model's device."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return {'stage1': _random_state(self.stage1, gen),
-                'stage2': _random_state(self.stage2, gen)}
+        return {'stage1': random_state(self.stage1, gen),
+                'stage2': random_state(self.stage2, gen)}
 
     def load_weights(self, weights: Weights) -> None:
         """Make `weights` the modules' tensors (strict key match, no copy
@@ -143,6 +134,26 @@ class TwoStageModel:
                              ('stage2', self.stage2)):
             state = {k: v.to(self.device) for k, v in weights[name].items()}
             module.load_state_dict(state, strict=True, assign=True)
+
+    @torch.inference_mode()
+    def extract_codes(self, weights: Weights, images: torch.Tensor):
+        """Stage-1 codes of images [B, H, W, 3] in [-1, 1]: ((codes_t
+        [B, Ttop], codes_b [B, Tbot]) in raster order, (None, None)); the
+        second pair stands for the soft codes, which are not ported."""
+        self.load_weights(weights)
+        B = images.shape[0]
+        code_t, code_b = self.stage1.get_codes(images.to(self.device))
+        return (code_t.reshape(B, -1), code_b.reshape(B, -1)), (None, None)
+
+    @torch.inference_mode()
+    def forward(self, weights: Weights, images: torch.Tensor,
+                labels: torch.Tensor):
+        """Teacher-forced forward: the stage-2 logits on the images' codes.
+        Returns ((logits_top [B, Ttop, V], logits_bot [B, Tbot, V]),
+        (codes_t, codes_b), (None, None))."""
+        codes, softs = self.extract_codes(weights, images)
+        logits = self.stage2(*codes, labels.to(self.device))
+        return logits, codes, softs
 
     def make_pixel_sampler(self, max_seq_len: Optional[int] = None,
                            params: SamplingParams = SamplingParams(),

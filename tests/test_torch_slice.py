@@ -1,6 +1,8 @@
-"""The port's whole slice against the JAX package: greedy class-conditional
-sampling (labels -> codes -> pixels) on the tiny config in f32, plus the
-port's import and device rules."""
+"""The port's slices against the JAX package, on the tiny config in f32:
+greedy class-conditional sampling (labels -> codes -> pixels); encoding
+(images -> codes -> stage-2 logits, and images -> codes -> pixels with
+the numbers `eval_stage1.py` reports); plus the port's import and device
+rules."""
 
 import subprocess
 import sys
@@ -21,8 +23,9 @@ from hqtransformer_tpu.sampling.engine import \
 
 from hqtransformer_tpu_torch.config import \
     build_twostage_config as torch_config  # noqa: E402
-from hqtransformer_tpu_torch.convert import (convert_variables,  # noqa: E402
-                                             drop_prefixes)
+from hqtransformer_tpu_torch.convert import convert_variables  # noqa: E402
+from hqtransformer_tpu_torch.evaluation.stage1 import (  # noqa: E402
+    ReconstructionMetrics, init_stage1_weights, make_reconstructor)
 from hqtransformer_tpu_torch.models.twostage import \
     TwoStageModel  # noqa: E402
 from hqtransformer_tpu_torch.ops.topk_topp import \
@@ -31,6 +34,7 @@ from hqtransformer_tpu_torch.sampling.engine import \
     SamplingParams  # noqa: E402
 
 CFG = 'configs/tiny/stage2-tiny.yaml'
+TOL = dict(atol=2e-4, rtol=1e-3)
 
 
 def _jax_variables(jm, key):
@@ -45,12 +49,25 @@ def _jax_variables(jm, key):
     return {'stage1': v1, 'stage2': v2}
 
 
-def test_greedy_slice_matches_jax():
+@pytest.fixture(scope='module')
+def jax_model():
+    """(JAX TwoStageModel, its variables, the same weights for the port)."""
+    jm = JaxTwoStage(build_twostage_config(CFG))
+    variables = _jax_variables(jm, jax.random.PRNGKey(0))
+    weights = {s: convert_variables(v) for s, v in variables.items()}
+    return jm, variables, weights
+
+
+def _images(seed, B, res=32):
+    return np.random.RandomState(seed).uniform(
+        -1, 1, (B, res, res, 3)).astype(np.float32)
+
+
+def test_greedy_slice_matches_jax(jax_model):
     """top_k = 1 makes every draw the argmax, so the two samplers must give
     the same codes whatever their random numbers; the pixels are then the
     stage-1 decode of equal codes."""
-    jm = JaxTwoStage(build_twostage_config(CFG))
-    variables = _jax_variables(jm, jax.random.PRNGKey(0))
+    jm, variables, weights = jax_model
     labels = np.array([0, 3, 7, 9], np.int32)
     jax_sampler = jm.make_pixel_sampler(
         params=JaxParams(top_k_top=1, top_k_bot=1), attention='packed')
@@ -58,9 +75,6 @@ def test_greedy_slice_matches_jax():
                                          jnp.asarray(labels))
 
     tm = TwoStageModel(torch_config(CFG), device='cpu')
-    weights = {'stage1': drop_prefixes(convert_variables(variables['stage1']),
-                                       'encoder.', 'quant_conv_b.'),
-               'stage2': convert_variables(variables['stage2'])}
     sampler = tm.make_pixel_sampler(
         params=SamplingParams(top_k_top=1, top_k_bot=1))
     px, (codes_t, codes_b) = sampler(weights, torch.Generator().manual_seed(0),
@@ -70,8 +84,71 @@ def test_greedy_slice_matches_jax():
     np.testing.assert_array_equal(codes_t.numpy(), np.asarray(ref_t))
     np.testing.assert_array_equal(codes_b.numpy(), np.asarray(ref_b))
     assert px.shape == (4, 32, 32, 3)
-    np.testing.assert_allclose(px.numpy(), np.asarray(ref_px), atol=2e-4,
-                               rtol=1e-3)
+    np.testing.assert_allclose(px.numpy(), np.asarray(ref_px), **TOL)
+
+
+def test_extract_codes_and_forward_match_jax(jax_model):
+    """Images -> codes -> teacher-forced stage-2 logits: codes equal, f32
+    logits within atol 2e-4."""
+    jm, variables, weights = jax_model
+    x = _images(11, B=3)
+    labels = np.array([1, 4, 9], np.int32)
+    (ref_t, ref_b), _ = jax.jit(jm.extract_codes)(variables, jnp.asarray(x))
+    (ref_lt, ref_lb), _, _ = jax.jit(jm.forward)(variables, jnp.asarray(x),
+                                                 jnp.asarray(labels))
+
+    tm = TwoStageModel(torch_config(CFG), device='cpu')
+    (ct, cb), softs = tm.extract_codes(weights, torch.from_numpy(x))
+    (lt, lb), (ft, fb), _ = tm.forward(weights, torch.from_numpy(x),
+                                       torch.from_numpy(labels))
+    assert softs == (None, None)
+    assert ct.shape == (3, 16) and cb.shape == (3, 64)
+    for ours in ((ct, cb), (ft, fb)):
+        np.testing.assert_array_equal(ours[0].numpy(), np.asarray(ref_t))
+        np.testing.assert_array_equal(ours[1].numpy(), np.asarray(ref_b))
+    assert lt.shape == (3, 16, 256) and lb.shape == (3, 64, 256)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(ref_lt), **TOL)
+    np.testing.assert_allclose(lb.numpy(), np.asarray(ref_lb), **TOL)
+
+
+def test_reconstruction_metrics_match_jax(jax_model):
+    """make_reconstructor and ReconstructionMetrics against the numbers
+    eval_stage1.py computes from the JAX generator, over two batches; the
+    top-only reconstruction against forward_topbottom's dec_t."""
+    jm, variables, weights = jax_model
+    gen, v1 = jm.stage1, variables['stage1']
+    recon = jax.jit(lambda x: gen.apply(v1, x))
+    recon_top = jax.jit(lambda x: gen.apply(
+        v1, x, method=type(gen).forward_topbottom)[0][0])
+    cfg = torch_config(CFG).stage1
+    ours = make_reconstructor(cfg, device='cpu')
+    ours_top = make_reconstructor(cfg, device='cpu', top_only=True)
+    metrics = ReconstructionMetrics(cfg.n_embed)
+    mse_sum, n_img, usage = 0.0, 0, {}
+    for seed in (12, 13):
+        x = _images(seed, B=4)
+        dec, _, codes = recon(jnp.asarray(x))
+        dec = np.clip(np.asarray(dec), -1, 1)
+        mse_sum += float(np.sum(np.mean(np.square(dec - x), axis=(1, 2, 3))))
+        n_img += x.shape[0]
+        for li, c in enumerate(codes[:2]):
+            u = usage.setdefault(li, np.zeros(cfg.n_embed, np.int64))
+            u += np.bincount(np.asarray(c).reshape(-1), minlength=cfg.n_embed)
+
+        px, levels = ours(weights['stage1'], torch.from_numpy(x))
+        np.testing.assert_allclose(px.numpy(), dec, **TOL)
+        for a, b in zip(levels, codes[:2]):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        metrics.update(torch.from_numpy(x), px, levels)
+        top, _ = ours_top(weights['stage1'], torch.from_numpy(x))
+        np.testing.assert_allclose(
+            top.numpy(), np.clip(np.asarray(recon_top(jnp.asarray(x))), -1, 1),
+            **TOL)
+
+    np.testing.assert_allclose(metrics.mse, mse_sum / n_img, rtol=1e-4)
+    assert metrics.n_images == n_img
+    assert metrics.code_usage() == [float((u > 0).mean())
+                                    for _, u in sorted(usage.items())]
 
 
 def test_port_imports_no_jax():
@@ -93,6 +170,14 @@ def test_entry_point_needs_a_card_unless_cpu_asked(monkeypatch):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         TwoStageModel(torch_config(CFG))
     TwoStageModel(torch_config(CFG), device='cpu')
+    stage1 = torch_config(CFG).stage1
+    for entry in (lambda: make_reconstructor(stage1),
+                  lambda: init_stage1_weights(stage1, seed=0)):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            entry()
+    make_reconstructor(stage1, device='cpu')(
+        init_stage1_weights(stage1, seed=0, device='cpu'),
+        torch.zeros(1, 32, 32, 3))
 
 
 def test_nucleus_filtering_not_ported():
