@@ -7,12 +7,15 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
 1. Device: prints the card, `nvidia-smi`'s name and power limit, the torch
    and CUDA versions; builds every CUDA kernel from
    hqtransformer_tpu_torch/csrc (one nvcc each, all at once) and prints the
-   build time and ptxas report.
+   build time and ptxas report (registers, spills, shared memory, and any
+   wgmma or setmaxnreg warning).
 2. Kernels against their plain PyTorch versions at the flagship shapes
    (TF32 off for matmuls and convolutions):
    - decode attention, L=12 T=64 B=128 D=1536 24 heads, f32 and bf16,
-     pos in {0, 1, 7, 8, 33, 63}: caches bit-equal, y allclose at
-     1e-5 (f32) / 2e-2 (bf16);
+     pos in {0, 1, 7, 8, 15, 16, 31, 32, 33, 63} (the edges of the rows a
+     warp takes at once and of the kernel's shared-memory rounds), and
+     L=2 T=160 B=8 at pos in {64, 65, 129, 159} (several rounds): caches
+     bit-equal, y allclose at 1e-5 (f32) / 2e-2 (bf16);
    - top-k sampling, [640, 8192] bf16 and f32, k in {1, 2048, 8192},
      T=0.95, shared uniforms: k=1 draws an argmax, every code lies in the
      exact top-k set (from torch.topk), codes equal the plain version's
@@ -30,17 +33,22 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
    then a breakdown: the AR loop and the stage-1 decode timed apart, with
    the device's busy time and largest kernels from torch.profiler.
 4. Nearest-code search (K3) against its plain version (TF32 off): N=8191,
-   D in {256, 1024, 4096}, K in {8192, 1000}, f32 and bf16: codes equal but
-   for rows whose two codes' distances, recomputed in f64, lie within
-   1e-5 (|z|^2 + |e|^2) of each other, at most 0.1% of rows; and
-   integer-valued inputs with every code four times in the codebook, where
-   both versions must take the lowest index of each exact tie. Then, in
-   bf16 at every shape the encode paths launch it at (the flagship top and
-   bottom levels, which the 3-level middle and bottom share at batch 32,
-   and the 3-level top at batch 32), compares it with its plain version
-   by the same rule and times the kernel, its plain version and cuBLAS
-   addmm + argmin (extra peak memory of each beside); the bound takes the
-   bf16 tensor-core rate.
+   D in {256, 1024, 4096}, K in {8192, 1000}, f32 (the SIMT variant) and
+   bf16 (the wgmma variant), and bf16 at D in {40, 200} (a ragged tail of
+   D) and at N=37 D=64 K=1000 and N=100 D=32 K=100 (less than one tile):
+   codes equal but for rows whose two codes' distances, recomputed in
+   f64, lie within 1e-5 (|z|^2 + |e|^2) of each other, at most 0.1% of
+   rows; and integer-valued inputs with every code four times in the
+   codebook, where both versions must take the lowest index of each exact
+   tie, in f32 and bf16. Then, in bf16 at every shape the encode paths
+   launch it at (the flagship top and bottom levels, which the 3-level
+   middle and bottom share at batch 32, and the 3-level top at batch 32),
+   compares it with its plain version by the same rule and times the
+   kernel, its plain version and cuBLAS addmm + argmin (extra peak memory
+   of each beside); the bound takes the bf16 tensor-core rate. Two more
+   lines, outside the JSON: the bf16 cuBLAS product z @ e.T alone at each
+   shape (not the same function: how close the wgmma main loop comes to
+   cuBLAS's bf16 GEMM), and the f32 SIMT variant at the flagship top.
 5. The encode slice at full width: `make_reconstructor` on the flagship
    stage-1 HQ-VAE (seeded random bf16 weights) on 128 seeded images, twice:
    pixels [128, 256, 256, 3] finite in [-1, 1], codes in range, exactly 2
@@ -64,6 +72,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -89,7 +98,8 @@ TIMED_POS = 33
 # K3: one launch per code level; N = batch x level area, K = 8192 codes.
 # The 3-level middle and bottom levels at batch 32 have the flagship top's
 # and bottom's (N, D), so these three shapes are every K3 launch of the
-# encode paths, and every codebook split they take (4, 1, 16 on 132 SMs).
+# encode paths, and every codebook split they take (2, 1, 8 on 132 SMs for
+# the bf16 wgmma variant).
 LEVEL3 = ROOT / 'configs/imagenet/stage1/hqvae-pixelshuffle-top8x8-level3.yaml'
 N_CODES = 8192
 K3_SHAPES = (('flagship top = 3-level middle', 8192, 1024),
@@ -97,6 +107,8 @@ K3_SHAPES = (('flagship top = 3-level middle', 8192, 1024),
              ('3-level top, batch 32', 2048, 4096))
 B_LEVEL3 = 32
 NEAR_TIE = 1e-5
+# Names of the port's kernels as the profiler reports them.
+PORT_KERNELS = ('decode_attention_kernel', 'sample_topk_kernel', 'vq_')
 
 
 def require(ok, message) -> None:
@@ -110,6 +122,26 @@ def nvidia_smi() -> str:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def print_ptxas_report(source: str, text: str) -> None:
+    """One line per compiled kernel of `source` from nvcc's -Xptxas=-v
+    output: registers, barriers, shared memory and spills; then any
+    warning (a wgmma serialised, a setmaxnreg ignored)."""
+    kernels = re.findall(r"Compiling entry function '([^']+)'", text)
+    spills = re.findall(r'(\d+) bytes spill stores', text)
+    used = re.findall(r'Used (.*)', text)
+    demangled = subprocess.run(['c++filt'], input='\n'.join(kernels),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    print(f'  {source}: {len(kernels)} kernels')
+    for name, n_spill, line in zip(demangled, spills, used):
+        name = name.replace('(anonymous namespace)::', '').split('(')[0]
+        print(f'    {name.removeprefix("void ")}: {line.strip()}, '
+              f'{n_spill} bytes spilled')
+    for line in text.splitlines():
+        if 'warning' in line.lower():
+            print(f'    {line.strip()}')
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -159,32 +191,45 @@ def bound(n_bytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
 
 # ------------------------------------------------------- K1 decode attention
 
+# K1 check cases: (L, T, B, positions). The flagship cache at the edges of
+# the rows a warp takes at once (4 at hd 64 in bf16, 2 in f32) and of the
+# shared-memory rounds (64 rows at hd 64 in bf16, 32 in f32); then a longer
+# cache that takes several rounds in both dtypes.
+K1_CASES = ((L, T, B, (0, 1, 7, 8, 15, 16, 31, 32, 33, 63)),
+            (2, 160, 8, (64, 65, 129, 159)))
+
+
 def check_decode_attention(da):
     max_err = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        for pos in (0, 1, 7, 8, 33, 63):
-            g = torch.Generator(device='cuda').manual_seed(pos)
+        for n_layers, n_rows, batch, positions in K1_CASES:
+            for pos in positions:
+                g = torch.Generator(device='cuda').manual_seed(pos)
 
-            def randn(*shape):
-                return torch.randn(shape, generator=g,
-                                   device='cuda').to(dtype)
+                def randn(*shape):
+                    return torch.randn(shape, generator=g,
+                                       device='cuda').to(dtype)
 
-            kc, vc = randn(L, T, B, D), randn(L, T, B, D)
-            q, kn, vn = randn(B, D), randn(B, D), randn(B, D)
-            layer = pos % L
-            kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc, vc
-            y1 = da.decode_attention_step(q, kn, vn, kc1, vc1, layer, pos, NH)
-            y2 = da.decode_attention_step_plain(q, kn, vn, kc2, vc2, layer,
-                                                pos, NH)
-            torch.cuda.synchronize()
-            require(torch.equal(kc1, kc2) and torch.equal(vc1, vc2),
-                    f'K1 cache rows differ ({dtype}, pos {pos})')
-            err = (y1.float() - y2.float()).abs().max().item()
-            torch.testing.assert_close(y1.float(), y2.float(), atol=tol,
-                                       rtol=tol)
-            max_err[dtype] = max(max_err.get(dtype, 0.0), err)
-            print(f'K1 {str(dtype):14s} pos={pos:2d}: caches bit-equal, '
-                  f'max|y - plain| = {err:.3e} (tol {tol})')
+                kc = randn(n_layers, n_rows, batch, D)
+                vc = randn(n_layers, n_rows, batch, D)
+                q, kn, vn = randn(batch, D), randn(batch, D), randn(batch, D)
+                layer = pos % n_layers
+                kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc, vc
+                y1 = da.decode_attention_step(q, kn, vn, kc1, vc1, layer,
+                                              pos, NH)
+                y2 = da.decode_attention_step_plain(q, kn, vn, kc2, vc2,
+                                                    layer, pos, NH)
+                torch.cuda.synchronize()
+                require(torch.equal(kc1, kc2) and torch.equal(vc1, vc2),
+                        f'K1 cache rows differ ({dtype}, T {n_rows}, '
+                        f'pos {pos})')
+                err = (y1.float() - y2.float()).abs().max().item()
+                torch.testing.assert_close(y1.float(), y2.float(), atol=tol,
+                                           rtol=tol)
+                max_err[dtype] = max(max_err.get(dtype, 0.0), err)
+                print(f'K1 {str(dtype):14s} T={n_rows:3d} B={batch:3d} '
+                      f'pos={pos:3d}: caches bit-equal, max|y - plain| = '
+                      f'{err:.3e} (tol {tol})')
     return max_err[torch.bfloat16]
 
 
@@ -218,6 +263,11 @@ def time_decode_attention(da):
     # rows and y written. flops: q.k and a.v over pos+1 rows.
     n_bytes = B * D * (3 + 2 * pos + 2 + 1) * 2
     flops = 2 * 2 * (pos + 1) * B * D
+    rate = n_bytes / (kernel / 1e3)   # bytes per second
+    print(f'K1 bf16 pos {pos} B {B}: kernel {kernel:.5f} ms moves the '
+          f'bound\'s {n_bytes / 2**20:.2f} MiB at {rate / 1e12:.3f} TB/s '
+          f'({rate / HBM_BYTES_PER_S:.1%} of {HBM_BYTES_PER_S / 1e12:.2f} '
+          f'TB/s)')
     return kernel, plain, library, bound(n_bytes, flops)
 
 
@@ -319,19 +369,30 @@ def compare_codes(z, e, c1, c2):
 def check_vq_argmin(vq):
     N = 8191   # ragged: not a multiple of the kernel's 128-row tile
     max_err = 0.0
-    for D in (256, 1024, 4096):
-        for K in (N_CODES, 1000):
-            for dtype in (torch.float32, torch.bfloat16):
-                g = torch.Generator(device='cuda').manual_seed(D + K)
-                z = torch.randn((N, D), generator=g, device='cuda').to(dtype)
-                e = torch.randn((K, D), generator=g, device='cuda').to(dtype)
-                c1 = vq.vq_argmin(z, e)
-                c2 = vq.vq_argmin_plain(z, e)
-                torch.cuda.synchronize()
-                n_diff, err = compare_codes(z, e, c1, c2)
-                max_err = max(max_err, err)
-                print(f'K3 D={D:4d} K={K:4d} {str(dtype):14s}: {n_diff} of '
-                      f'{N} rows differ from plain, each a near-tie')
+    # f32 and mixed pairs run the SIMT variant, bf16 the wgmma variant;
+    # D = 40 and 200 leave a ragged tail of the wgmma variant's 64-column
+    # chunks, and the small cases have fewer rows and codes than one of its
+    # TMA boxes.
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(N, D, K, dt, dt) for D in (256, 1024, 4096)
+             for K in (N_CODES, 1000) for dt in (f32, bf16)]
+    cases += [(N, 256, K, zt, et) for K in (N_CODES, 1000)
+              for zt, et in ((f32, bf16), (bf16, f32))]
+    cases += [(N, 40, 1000, bf16, bf16), (N, 200, N_CODES, bf16, bf16),
+              (37, 64, 1000, bf16, bf16), (100, 32, 100, bf16, bf16)]
+    for n, D, K, z_dtype, e_dtype in cases:
+        g = torch.Generator(device='cuda').manual_seed(D + K)
+        z = torch.randn((n, D), generator=g, device='cuda').to(z_dtype)
+        e = torch.randn((K, D), generator=g, device='cuda').to(e_dtype)
+        c1 = vq.vq_argmin(z, e)
+        c2 = vq.vq_argmin_plain(z, e)
+        torch.cuda.synchronize()
+        n_diff, err = compare_codes(z, e, c1, c2)
+        max_err = max(max_err, err)
+        pair = f'{str(z_dtype)[6:]} z, {str(e_dtype)[6:]} e'
+        print(f'K3 N={n:4d} D={D:4d} K={K:4d} {pair:20s} '
+              f'({vq.kernel_variant(z_dtype, e_dtype)}): {n_diff} of {n} '
+              f'rows differ from plain, each a near-tie')
     # Exact ties: integer values keep every distance exact in f32 whatever
     # the summation order. Code c equals codes c^1 and c^1 +- K/2.
     g = torch.Generator(device='cuda').manual_seed(11)
@@ -347,8 +408,9 @@ def check_vq_argmin(vq):
                 f'from plain ({dtype})')
         require(bool((c1 % 2 == 0).all() and (c1 < N_CODES // 2).all()),
                 f'K3 exact ties not resolved to the lowest index ({dtype})')
-        print(f'K3 exact ties {str(dtype):14s}: equal to plain, every row '
-              f'on the lowest index of its tie')
+        print(f'K3 exact ties {str(dtype):14s} '
+              f'({vq.kernel_variant(dtype, dtype)}): equal to plain, every '
+              f'row on the lowest index of its tie')
     return max_err
 
 
@@ -379,7 +441,7 @@ def time_vq_argmin(vq):
         e = torch.randn((N_CODES, D), generator=g,
                         device='cuda').bfloat16()
         n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-        splits = vq.codebook_splits(N, N_CODES, n_sms)
+        splits = vq.codebook_splits(N, N_CODES, n_sms, 'wgmma')
         n_diff, err = compare_codes(z, e, vq.vq_argmin(z, e),
                                     vq.vq_argmin_plain(z, e))
         max_err = max(max_err, err)
@@ -404,10 +466,26 @@ def time_vq_argmin(vq):
         flops = 2 * N * N_CODES * D
         bnd = bound(n_bytes, flops, BF16_FLOPS_PER_S)
         out.append((ms, plain, lib, bnd, mem))
-        print(f'K3 {name} N={N} K={N_CODES} D={D} bf16: kernel {ms:.4f} ms, '
-              f'plain {plain:.4f} ms, addmm+argmin {lib:.4f} ms, bound '
-              f'{bnd[0]:.4f} ms ({bnd[1]}, bf16 rate); extra peak memory '
-              f'kernel {mem[0]:.1f} MiB, addmm+argmin {mem[1]:.1f} MiB')
+        print(f'K3 {name} N={N} K={N_CODES} D={D} bf16: kernel {ms:.4f} ms '
+              f'({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, '
+              f'addmm+argmin {lib:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, '
+              f'bf16 rate); extra peak memory kernel {mem[0]:.2f} MiB, '
+              f'addmm+argmin {mem[1]:.1f} MiB')
+        # Yardstick outside the JSON: cuBLAS's bf16 GEMM alone. It is not
+        # the same function (no argmin, and it writes the [N, K] matrix).
+        gemm = time_ms(lambda i: torch.matmul(z, e.T), 10)
+        print(f'K3 {name} yardstick: bf16 cuBLAS z @ e.T alone {gemm:.4f} ms '
+              f'({flops / gemm / 1e9:.1f} TFLOP/s); the kernel takes '
+              f'{ms / gemm:.2f}x its time')
+    # The f32 SIMT variant at the flagship top, f32 operands.
+    _, N, D = K3_SHAPES[0]
+    g = torch.Generator(device='cuda').manual_seed(N + D)
+    z = torch.randn((N, D), generator=g, device='cuda')
+    e = torch.randn((N_CODES, D), generator=g, device='cuda')
+    simt = time_ms(lambda i: vq.vq_argmin(z, e), 5)
+    f32_bound = bound((N + N_CODES) * D * 4 + N * 8, 2 * N * N_CODES * D)
+    print(f'K3 f32 SIMT variant N={N} K={N_CODES} D={D}: {simt:.4f} ms, '
+          f'bound {f32_bound[0]:.4f} ms ({f32_bound[1]}, f32 rate)')
     return out, max_err
 
 
@@ -515,9 +593,11 @@ def profile_phases(phases):
         print(f'breakdown {name}: {wall_ms:.1f} ms wall; device busy '
               f'{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}) in '
               f'{sum(n for n, _ in per_kernel.values())} kernel runs')
-        top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:6]
-        for kname, (n, ms) in top:
-            print(f'  {ms:8.2f} ms {n:6d}x  {kname[:90]}')
+        ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
+        # the six largest, and the port's own kernels wherever they rank
+        for rank, (kname, (n, ms)) in enumerate(ranked):
+            if rank < 6 or any(k in kname for k in PORT_KERNELS):
+                print(f'  {ms:8.2f} ms {n:6d}x  {kname[:90]}')
         out[name] = per_kernel
     return out
 
@@ -768,12 +848,7 @@ def main() -> int:
     print(f'kernels built in {time.perf_counter() - t0:.1f} s '
           f'({", ".join(cuda_build.KERNEL_SOURCES)})')
     for name, text in messages.items():
-        regs = [line.split('Used ')[1].split(',')[0]
-                for line in text.splitlines() if 'registers' in line]
-        spills = sum(' 0 bytes spill stores' not in line
-                     for line in text.splitlines() if 'spill stores' in line)
-        print(f'  {name}: {len(regs)} instantiations, registers '
-              f'{", ".join(regs)}; {spills} with spills')
+        print_ptxas_report(name, text)
 
     k1_err = check_decode_attention(da)
     k2_err, k2_frac = check_sample_topk(st)

@@ -12,15 +12,26 @@
 // byte where the tensor cores would become the limit, so the least time is
 // the cache prefix over 3.35 TB/s.
 //
-// Design: one warp per (b, h). With hd = 64 a head's slice of one cache row
-// is 64 contiguous elements (128 bytes in bf16), so each lane loads 2
-// elements with one vector load and the warp's load is one coalesced
-// 128-byte line. The warp walks t = 0 .. pos-1 only (rows at or beyond pos
-// are never read, so stale rows need no masking or zeroing) with an online
-// softmax: running max and sum in f32 and an f32 accumulator per lane. Rows
-// are taken four at a time so that four K and four V loads are in flight
-// before the first shuffle reduction waits on them. Each warp writes only
-// its own slice of the new row, so no two blocks touch the same bytes.
+// Design: one memory round trip. A block owns one batch row b and a pair
+// of heads, one warp a head; for fixed (layer, t, b) the pair's slice of a
+// cache row is one contiguous segment (256 bytes at hd 64 in bf16). Before
+// any thread computes, every thread issues 16-byte asynchronous copies
+// (cp.async) of the K and V segments of rows t < pos into shared memory, a
+// warp's copies covering whole segments, so the whole prefix the block
+// needs is in flight at once (as the TPU kernel DMAs a batch tile's prefix
+// into VMEM). Rows at or beyond pos are never read, so stale rows need no
+// masking. While the copies fly, each warp loads its head's q, k_new and
+// v_new and scores the new token. Once the copies land, a warp takes
+// 32 / (hd / v) rows at a time, v elements (16 bytes) a lane: a score is a
+// reduction over hd / v lanes (8 at hd 64 in bf16), and each group of lanes
+// keeps its own online softmax (max, sum and f32 accumulator, all starting
+// from the new token's score) over the rows it takes. The groups then merge
+// with a fixed butterfly of shuffles, so the result does not change from
+// run to run. A prefix longer than shared memory holds (32 KB a round:
+// 64 rows at hd 64 in bf16) is taken in rounds that reuse the buffer. Each
+// block writes only its heads' slice of the new row, so no two blocks
+// touch the same bytes. Two heads a block and cp.async need no mbarrier
+// and no shared-memory opt-in.
 //
 // Built by hqtransformer_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -30,10 +41,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
-constexpr int kRowsPerIter = 4;
+constexpr int kHeadsPerBlock = 2;  // one warp each
+constexpr int kThreads = 32 * kHeadsPerBlock;
+constexpr int kRoundBytes = 32 * 1024;  // K and V rows staged per round
 constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -50,139 +64,209 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// An unsigned type of exactly N bytes, for one vector load or store.
-template <int N> struct Bytes;
-template <> struct Bytes<2> { using type = uint16_t; };
-template <> struct Bytes<4> { using type = uint32_t; };
-template <> struct Bytes<8> { using type = uint2; };
-
-template <typename T, int EPT>
-using Packet = typename Bytes<EPT * static_cast<int>(sizeof(T))>::type;
-
-// Load EPT consecutive elements (one vector load) and widen them to f32.
-template <typename T, int EPT>
-__device__ __forceinline__ void load_f32(const T* p, float (&out)[EPT]) {
-  const Packet<T, EPT> raw = *reinterpret_cast<const Packet<T, EPT>*>(p);
+// One 16-byte vector of T, widened to f32.
+template <typename T>
+__device__ __forceinline__ void load16(const T* p,
+                                       float (&out)[16 / sizeof(T)]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-  for (int i = 0; i < EPT; ++i) out[i] = to_f32(e[i]);
+  for (int i = 0; i < static_cast<int>(16 / sizeof(T)); ++i)
+    out[i] = to_f32(e[i]);
 }
 
-template <typename T, int EPT>
-__device__ __forceinline__ void copy_raw(T* dst, const T* src) {
-  *reinterpret_cast<Packet<T, EPT>*>(dst) =
-      *reinterpret_cast<const Packet<T, EPT>*>(src);
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
-  return v;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// EPT = elements per lane = head_dim / 32.
-template <typename T, int EPT>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// Copy 16 bytes from global to shared memory asynchronously (both
+// addresses 16-byte aligned). The copies a thread issued complete, for that
+// thread, at cp_async_wait_all after cp_async_commit; a __syncthreads()
+// then shows every thread's copies to the block.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Rows of the cache prefix one round stages, for head dim HD.
+template <typename T, int HD>
+__host__ __device__ constexpr int rows_per_round() {
+  return kRoundBytes / (2 * kHeadsPerBlock * HD * static_cast<int>(sizeof(T)));
+}
+
+// Grid: B * ceil(n_heads / 2) blocks of kThreads; dynamic shared memory
+// 2 * min(pos, rows_per_round) * 2 * HD * sizeof(T) bytes.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                         const T* __restrict__ v_new, int64_t q_stride,
                         int64_t kn_stride, int64_t vn_stride, T* k_cache,
                         T* v_cache, T* __restrict__ y, int B, int T_max, int D,
                         int n_heads, int layer, int pos, float scale) {
-  constexpr int HD = 32 * EPT;
-  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  constexpr int kVec = 16 / sizeof(T);   // elements a lane loads at once
+  constexpr int kLanes = HD / kVec;      // lanes per row of a head
+  constexpr int kRowsAtOnce = 32 / kLanes;
+  constexpr int kRound = rows_per_round<T, HD>();
+  extern __shared__ __align__(16) uint8_t smem[];
+
+  const int groups = (n_heads + kHeadsPerBlock - 1) / kHeadsPerBlock;
+  const int b = blockIdx.x / groups;
+  const int h0 = (blockIdx.x - b * groups) * kHeadsPerBlock;
+  const int heads = min(kHeadsPerBlock, n_heads - h0);
+  const int seg = heads * HD;  // elements of the block's slice of a row
+  const uint32_t seg_bytes = seg * sizeof(T);
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if (warp >= B * n_heads) return;
-  const int b = warp / n_heads;
-  const int h = warp - b * n_heads;
-  const int col = h * HD + lane * EPT;
+  const int sub = lane % kLanes;   // which vector of the head's row
+  const int grp = lane / kLanes;   // which of the rows taken at once
+  const int col = (h0 + warp) * HD + sub * kVec;
 
-  float qf[EPT], kn[EPT], vn[EPT];
-  load_f32<T, EPT>(q + b * q_stride + col, qf);
-  load_f32<T, EPT>(k_new + b * kn_stride + col, kn);
-  load_f32<T, EPT>(v_new + b * vn_stride + col, vn);
-
-  // Cache element (layer, t, b, col) sits at slice + t * row.
+  // Element (layer, t, b, h0 * HD) sits at slice + t * row.
   const int64_t row = static_cast<int64_t>(B) * D;
-  const int64_t slice =
-      static_cast<int64_t>(layer) * T_max * row + static_cast<int64_t>(b) * D + col;
-  T* kc = k_cache + slice;
-  T* vc = v_cache + slice;
+  const int64_t slice = static_cast<int64_t>(layer) * T_max * row +
+                        static_cast<int64_t>(b) * D + h0 * HD;
+  const uint32_t k_smem = smem_u32(smem);
+  const uint32_t v_smem = k_smem + min(pos, kRound) * seg_bytes;
+  const T* ks = reinterpret_cast<const T*>(smem);
+  const T* vs = ks + min(pos, kRound) * seg;
 
-  // Persist the new row bit for bit.
-  copy_raw<T, EPT>(kc + pos * row, k_new + b * kn_stride + col);
-  copy_raw<T, EPT>(vc + pos * row, v_new + b * vn_stride + col);
+  // Every thread puts its share of rows [t0, t0 + n) of K and V in
+  // flight, 16 bytes a copy.
+  auto issue = [&](int t0, int n) {
+    const int per_row = seg_bytes / 16;
+    for (int i = threadIdx.x; i < n * per_row; i += kThreads) {
+      const int r = i / per_row;
+      const int c = i - r * per_row;
+      const int64_t at = slice + (t0 + r) * row + c * kVec;
+      cp_async16(k_smem + r * seg_bytes + c * 16, k_cache + at);
+      cp_async16(v_smem + r * seg_bytes + c * 16, v_cache + at);
+    }
+    cp_async_commit();
+  };
+  if (pos > 0) issue(0, min(pos, kRound));
 
-  // Start the online softmax from the new token's own score.
+  const bool active = warp < heads;
+  float qf[kVec] = {}, kn[kVec] = {}, vn[kVec] = {};
+  if (active) {
+    load16<T>(q + b * q_stride + col, qf);
+    load16<T>(k_new + b * kn_stride + col, kn);
+    load16<T>(v_new + b * vn_stride + col, vn);
+    if (grp == 0) {
+      // Persist the new row bit for bit (rows < pos are all that is read).
+      const int64_t at = slice + pos * row + warp * HD + sub * kVec;
+      copy16(k_cache + at, k_new + b * kn_stride + col);
+      copy16(v_cache + at, v_new + b * vn_stride + col);
+    }
+  }
+
+  // The new token's score, reduced over the lanes of each row group.
   float dot = 0.f;
 #pragma unroll
-  for (int i = 0; i < EPT; ++i) dot += qf[i] * kn[i];
-  float m = warp_sum(dot) * scale;  // running max
-  float l = 1.f;                    // running sum of exp(s - m)
-  float acc[EPT];
+  for (int i = 0; i < kVec; ++i) dot += qf[i] * kn[i];
 #pragma unroll
-  for (int i = 0; i < EPT; ++i) acc[i] = vn[i];
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    dot += __shfl_xor_sync(kFullMask, dot, off);
+  // Each row group's online softmax starts from the new token's score;
+  // group 0 also holds the new token's weight and value.
+  float m = dot * scale;
+  float l = grp == 0 ? 1.f : 0.f;
+  float acc[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) acc[i] = grp == 0 ? vn[i] : 0.f;
 
-  for (int t0 = 0; t0 < pos; t0 += kRowsPerIter) {
-    float s[kRowsPerIter];
-    float vv[kRowsPerIter][EPT];
-#pragma unroll
-    for (int u = 0; u < kRowsPerIter; ++u) {
-      const int t = t0 + u;
-      float kk[EPT];
-      if (t < pos) {
-        load_f32<T, EPT>(kc + t * row, kk);
-        load_f32<T, EPT>(vc + t * row, vv[u]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < EPT; ++i) kk[i] = vv[u][i] = 0.f;
-      }
-      float d = 0.f;
-#pragma unroll
-      for (int i = 0; i < EPT; ++i) d += qf[i] * kk[i];
-      s[u] = d;
+  for (int t0 = 0; t0 < pos; t0 += kRound) {
+    const int n = min(pos - t0, kRound);
+    if (t0 > 0) {
+      __syncthreads();  // every warp is done with the previous round's rows
+      issue(t0, n);
     }
-    float m_new = m;
+    cp_async_wait_all();
+    __syncthreads();
+    if (active) {
+      for (int r0 = 0; r0 < n; r0 += kRowsAtOnce) {
+        const int r = r0 + grp;
+        const bool valid = r < n;
+        float kk[kVec], vv[kVec];
+        float d = 0.f;
+        if (valid) {
+          load16<T>(ks + r * seg + warp * HD + sub * kVec, kk);
 #pragma unroll
-    for (int u = 0; u < kRowsPerIter; ++u) {
-      s[u] = warp_sum(s[u]) * scale;
-      if (t0 + u < pos) m_new = fmaxf(m_new, s[u]);
-    }
-    const float corr = expf(m - m_new);
-    l *= corr;
+          for (int i = 0; i < kVec; ++i) d += qf[i] * kk[i];
+        }
 #pragma unroll
-    for (int i = 0; i < EPT; ++i) acc[i] *= corr;
+        for (int off = kLanes / 2; off > 0; off >>= 1)
+          d += __shfl_xor_sync(kFullMask, d, off);
+        if (valid) {
+          load16<T>(vs + r * seg + warp * HD + sub * kVec, vv);
+          const float s = d * scale;
+          const float m_new = fmaxf(m, s);
+          const float corr = expf(m - m_new);
+          const float p = expf(s - m_new);
+          l = l * corr + p;
 #pragma unroll
-    for (int u = 0; u < kRowsPerIter; ++u) {
-      if (t0 + u < pos) {
-        const float p = expf(s[u] - m_new);
-        l += p;
-#pragma unroll
-        for (int i = 0; i < EPT; ++i) acc[i] += p * vv[u][i];
+          for (int i = 0; i < kVec; ++i) acc[i] = acc[i] * corr + p * vv[i];
+          m = m_new;
+        }
       }
+    }
+  }
+  if (!active) return;
+
+  // Merge the row groups' softmax states: a butterfly over the groups, the
+  // same order in every run and symmetric, so every group ends equal.
+#pragma unroll
+  for (int off = kLanes; off < 32; off <<= 1) {
+    const float m_o = __shfl_xor_sync(kFullMask, m, off);
+    const float l_o = __shfl_xor_sync(kFullMask, l, off);
+    const float m_new = fmaxf(m, m_o);
+    const float c = expf(m - m_new);
+    const float c_o = expf(m_o - m_new);
+    l = l * c + l_o * c_o;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const float a_o = __shfl_xor_sync(kFullMask, acc[i], off);
+      acc[i] = acc[i] * c + a_o * c_o;
     }
     m = m_new;
   }
 
-  const float inv = 1.f / l;
-  alignas(sizeof(Packet<T, EPT>)) T out[EPT];
+  if (grp == 0) {
+    const float inv = 1.f / l;
+    alignas(16) T out[kVec];
 #pragma unroll
-  for (int i = 0; i < EPT; ++i) out[i] = from_f32<T>(acc[i] * inv);
-  copy_raw<T, EPT>(y + static_cast<int64_t>(b) * D + col, out);
+    for (int i = 0; i < kVec; ++i) out[i] = from_f32<T>(acc[i] * inv);
+    copy16(y + static_cast<int64_t>(b) * D + col, out);
+  }
 }
 
-template <typename T, int EPT>
-void launch(const void* q, const void* k_new, const void* v_new,
-            int64_t q_stride, int64_t kn_stride, int64_t vn_stride,
-            void* k_cache, void* v_cache, void* y, int B, int T_max, int D,
-            int n_heads, int layer, int pos, cudaStream_t stream) {
-  const int warps = B * n_heads;
-  const int blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const float scale = 1.f / sqrtf(static_cast<float>(32 * EPT));
-  decode_attention_kernel<T, EPT><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+template <typename T, int HD>
+int launch(const void* q, const void* k_new, const void* v_new,
+           int64_t q_stride, int64_t kn_stride, int64_t vn_stride,
+           void* k_cache, void* v_cache, void* y, int B, int T_max, int D,
+           int n_heads, int layer, int pos, cudaStream_t stream) {
+  const int blocks = B * ((n_heads + kHeadsPerBlock - 1) / kHeadsPerBlock);
+  const int smem = 2 * std::min(pos, rows_per_round<T, HD>()) * kHeadsPerBlock *
+                   HD * static_cast<int>(sizeof(T));
+  const float scale = 1.f / sqrtf(static_cast<float>(HD));
+  decode_attention_kernel<T, HD><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), q_stride, kn_stride, vn_stride,
       static_cast<T*>(k_cache), static_cast<T*>(v_cache), static_cast<T*>(y),
       B, T_max, D, n_heads, layer, pos, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -192,13 +276,13 @@ int dispatch(int head_dim, const void* q, const void* k_new, const void* v_new,
              int n_heads, int layer, int pos, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      launch<T, 1>(q, k_new, v_new, q_stride, kn_stride, vn_stride, k_cache,
-                   v_cache, y, B, T_max, D, n_heads, layer, pos, stream);
-      return 0;
+      return launch<T, 32>(q, k_new, v_new, q_stride, kn_stride, vn_stride,
+                           k_cache, v_cache, y, B, T_max, D, n_heads, layer,
+                           pos, stream);
     case 64:
-      launch<T, 2>(q, k_new, v_new, q_stride, kn_stride, vn_stride, k_cache,
-                   v_cache, y, B, T_max, D, n_heads, layer, pos, stream);
-      return 0;
+      return launch<T, 64>(q, k_new, v_new, q_stride, kn_stride, vn_stride,
+                           k_cache, v_cache, y, B, T_max, D, n_heads, layer,
+                           pos, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -208,28 +292,24 @@ int dispatch(int head_dim, const void* q, const void* k_new, const void* v_new,
 
 // dtype: 0 = float32, 1 = bfloat16. q, k_new, v_new: [B, D] with row strides
 // in elements; caches: contiguous [L, T_max, B, D]; y: contiguous [B, D].
-// Returns cudaGetLastError() after the launch (0 on success).
+// Every pointer and row is 16-byte aligned. Returns cudaGetLastError() after
+// the launch (0 on success).
 extern "C" int hqt_decode_attention_step(
     int dtype, const void* q, const void* k_new, const void* v_new,
     int64_t q_stride, int64_t kn_stride, int64_t vn_stride, void* k_cache,
     void* v_cache, void* y, int B, int T_max, int D, int n_heads, int layer,
     int pos, void* stream) {
-  if (n_heads <= 0 || D % n_heads != 0)
+  if (n_heads <= 0 || D % n_heads != 0 || pos < 0 || pos >= T_max)
     return static_cast<int>(cudaErrorInvalidValue);
   const int head_dim = D / n_heads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
-  if (dtype == 0) {
-    rc = dispatch<float>(head_dim, q, k_new, v_new, q_stride, kn_stride,
-                         vn_stride, k_cache, v_cache, y, B, T_max, D, n_heads,
-                         layer, pos, s);
-  } else if (dtype == 1) {
-    rc = dispatch<__nv_bfloat16>(head_dim, q, k_new, v_new, q_stride,
-                                 kn_stride, vn_stride, k_cache, v_cache, y, B,
-                                 T_max, D, n_heads, layer, pos, s);
-  } else {
-    rc = static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return dispatch<float>(head_dim, q, k_new, v_new, q_stride, kn_stride,
+                           vn_stride, k_cache, v_cache, y, B, T_max, D,
+                           n_heads, layer, pos, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(head_dim, q, k_new, v_new, q_stride,
+                                   kn_stride, vn_stride, k_cache, v_cache, y,
+                                   B, T_max, D, n_heads, layer, pos, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

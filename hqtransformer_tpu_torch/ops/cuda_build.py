@@ -4,8 +4,10 @@ Each source in `hqtransformer_tpu_torch/csrc/` exports a plain C function and
 is compiled by `nvcc` for Hopper (`sm_90a`) into its own shared library,
 which `ctypes` loads. The build happens at first use, into `build/kernels/`
 at the root of the checkout, under a name keyed by a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
-`build()` starts one `nvcc` per missing library, all at once.
+of the flags, so an edited source is rebuilt and an unchanged one is
+reused. Each source stands alone: it includes only the CUDA toolkit's
+headers. `build()`
+starts one `nvcc` per missing library, all at once.
 
 Nothing here runs at import time: this module imports on machines without
 a card or a CUDA toolkit, where only the kernels' plain versions run.
@@ -44,7 +46,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """The shared library built from `csrc/<name>.cu` with NVCC_FLAGS."""
+    """The shared library built from `csrc/<name>.cu` with NVCC_FLAGS. Its
+    name hashes the source and the flags; a source includes no header of
+    the repo, so nothing else can change what it builds to."""
     digest = hashlib.sha256()
     digest.update((CSRC_DIR / f'{name}.cu').read_bytes())
     digest.update(' '.join(NVCC_FLAGS).encode())

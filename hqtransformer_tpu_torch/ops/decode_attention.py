@@ -72,18 +72,18 @@ def _check(q, k_new, v_new, k_cache, v_cache, layer, pos, n_heads):
         raise ValueError(f'head dim {D}/{n_heads} not in {_HEAD_DIMS}')
     if not (0 <= layer < L and 0 <= pos < T):
         raise IndexError(f'layer {layer} / pos {pos} outside cache [{L}, {T}]')
-    ept = D // n_heads // 32
+    # The kernel loads, stores and copies (cp.async) 16-byte vectors.
     for name, t in (('k_cache', k_cache), ('v_cache', v_cache)):
-        if not t.is_contiguous():
-            raise ValueError(f'{name} must be contiguous')
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f'{name} must be contiguous and 16-byte aligned')
     for name, t in (('q', q), ('k_new', k_new), ('v_new', v_new)):
         if t.shape != (B, D) or t.dtype != dtype:
             raise ValueError(f'{name} must be [{B}, {D}] {dtype}, got '
                              f'{tuple(t.shape)} {t.dtype}')
-        if (t.stride(1) != 1 or t.stride(0) % ept
-                or t.data_ptr() % (ept * t.element_size())):
-            raise ValueError(f'{name} rows must be contiguous and aligned '
-                             f'to {ept} elements')
+        if (t.stride(1) != 1 or t.stride(0) * t.element_size() % 16
+                or t.data_ptr() % 16):
+            raise ValueError(f'{name} rows must be contiguous and 16-byte '
+                             f'aligned')
     for t in (q, k_new, v_new, v_cache):
         if t.device != k_cache.device:
             raise ValueError('all tensors must be on one device')

@@ -3,6 +3,8 @@ the two CUDA kernels (decode attention, top-k sampling) against the TPU
 kernels run in interpret mode and against their XLA oracle, plus the masks
 and the pixel (un)shuffle. Inputs are numpy arrays made from a seed."""
 
+import re
+
 import numpy as np
 import pytest
 
@@ -17,7 +19,8 @@ from hqtransformer_tpu.ops.pallas_attention import (  # noqa: E402
 from hqtransformer_tpu.ops.pallas_sample import _sample_topk_2d  # noqa: E402
 from hqtransformer_tpu.ops.topk_topp import cutoff_topk_logits  # noqa: E402
 
-from hqtransformer_tpu_torch.ops import masks, resample  # noqa: E402
+from hqtransformer_tpu_torch.ops import (  # noqa: E402
+    cuda_build, masks, resample)
 from hqtransformer_tpu_torch.ops.decode_attention import \
     decode_attention_step_plain  # noqa: E402
 from hqtransformer_tpu_torch.ops.sample_topk import (  # noqa: E402
@@ -26,11 +29,13 @@ from hqtransformer_tpu_torch.ops.sample_topk import (  # noqa: E402
 
 # --------------------------------------------------------- decode attention
 
-@pytest.mark.parametrize('pos', [0, 1, 7, 8, 15])
+@pytest.mark.parametrize('pos', [0, 1, 7, 8, 15, 16, 31, 32])
 def test_decode_attention_plain_matches_jax(pos):
     """Caches bit-equal and y within atol 1e-5 of both the XLA oracle and
-    the Pallas kernel in interpret mode."""
-    L, T, B, D, nh = 2, 16, 32, 128, 4
+    the Pallas kernel in interpret mode; pos 15, 16, 31 and 32 sit on the
+    edges of the rows the CUDA kernel's warps take at once."""
+    L, B, D, nh = 2, 32, 128, 4
+    T = 16 if pos < 16 else 40   # a multiple of the TPU kernel's row chunk
     layer = pos % L
     rng = np.random.RandomState(pos)
     kc, vc = (rng.randn(L, T, B, D).astype(np.float32) for _ in range(2))
@@ -51,6 +56,32 @@ def test_decode_attention_plain_matches_jax(pos):
         np.testing.assert_array_equal(tv.numpy(), np.asarray(ref_v))
         np.testing.assert_allclose(y.numpy(), np.asarray(ref_y), atol=1e-5,
                                    rtol=0)
+
+
+def test_decode_attention_kernel_checks():
+    """What the CUDA path refuses, checked before any launch: the kernel
+    moves 16-byte vectors, so rows and caches must be 16-byte aligned."""
+    from hqtransformer_tpu_torch.ops.decode_attention import _check
+    L, T, B, D, nh = 2, 8, 4, 128, 4
+    caches = torch.zeros(L, T, B, D), torch.zeros(L, T, B, D)
+    qkv = torch.zeros(B, 3 * D)
+    _check(qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:], *caches, 1, 3, nh)
+    odd = torch.zeros(B, 3 * D + 1)[:, 1:]   # rows 4 bytes off alignment
+    with pytest.raises(ValueError, match='16-byte'):
+        _check(odd[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:], *caches, 1, 3,
+               nh)
+    narrow = torch.zeros(B, D + 2)[:, :D]   # row stride 520 bytes
+    with pytest.raises(ValueError, match='16-byte'):
+        _check(qkv[:, :D], narrow, qkv[:, 2 * D:], *caches, 1, 3, nh)
+    shifted = torch.zeros(L * T * B * D + 1)[1:].view(L, T, B, D)
+    with pytest.raises(ValueError, match='16-byte'):
+        _check(qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:], shifted,
+               caches[1], 1, 3, nh)
+    with pytest.raises(ValueError, match='head dim'):
+        _check(qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:], *caches, 1, 3, 8)
+    with pytest.raises(IndexError):
+        _check(qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:], *caches, 1, T,
+               nh)
 
 
 # ----------------------------------------------------------- top-k sampling
@@ -155,3 +186,29 @@ def test_pixel_shuffle_pair(r):
     np.testing.assert_array_equal(
         back.numpy(),
         np.asarray(jax_resample.pixel_unshuffle(jnp.asarray(ours.numpy()), r)))
+
+
+# ------------------------------------------------------------ kernel builds
+
+@pytest.mark.parametrize('name', cuda_build.KERNEL_SOURCES)
+def test_kernel_source_includes_no_repo_header(name):
+    """The build key hashes a kernel's source and flags only, so a source
+    may include the toolkit's headers (<...>) and none of the repo's."""
+    src = (cuda_build.CSRC_DIR / f'{name}.cu').read_text()
+    includes = re.findall(r'^\s*#\s*include\s*(\S+)', src, re.M)
+    assert includes and all(inc.startswith('<') for inc in includes), includes
+
+
+def test_library_path_keys_source_and_flags(tmp_path, monkeypatch):
+    """An edited source or changed flags give another library name."""
+    monkeypatch.setattr(cuda_build, 'CSRC_DIR', tmp_path)
+    src = tmp_path / 'k.cu'
+    src.write_text('extern "C" int f() { return 0; }\n')
+    first = cuda_build.library_path('k')
+    assert cuda_build.library_path('k') == first
+    src.write_text('extern "C" int f() { return 1; }\n')
+    edited = cuda_build.library_path('k')
+    assert edited != first
+    monkeypatch.setattr(cuda_build, 'NVCC_FLAGS',
+                        cuda_build.NVCC_FLAGS + ('-lineinfo',))
+    assert cuda_build.library_path('k') not in (first, edited)

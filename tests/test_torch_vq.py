@@ -107,9 +107,53 @@ def test_vq_argmin_kernel_checks():
 @pytest.mark.parametrize('n,k,splits', [(8192, 8192, 4), (32768, 8192, 1),
                                         (2048, 8192, 16), (37, 1000, 8)])
 def test_codebook_splits(n, k, splits):
-    """On 132 SMs: the flagship top and bottom and the 3-level top at the
-    chip-smoke batches, and a small ragged search that takes every tile."""
-    assert vq.codebook_splits(n, k, 132) == splits
+    """The SIMT variant on 132 SMs: the flagship top and bottom and the
+    3-level top at the chip-smoke batches, and a small ragged search that
+    takes every tile."""
+    assert vq.codebook_splits(n, k, 132, 'simt') == splits
+
+
+@pytest.mark.parametrize('n,k,splits', [(8192, 8192, 2), (32768, 8192, 1),
+                                        (2048, 8192, 8), (37, 1000, 4)])
+def test_codebook_splits_wgmma(n, k, splits):
+    """The wgmma variant (128 rows x 256 codes, one block an SM) on 132
+    SMs at the served shapes: 64, 256 and 16 row tiles of 32 code tiles;
+    and a small ragged search that takes every tile."""
+    assert vq.codebook_splits(n, k, 132, 'wgmma') == splits
+    tiles = -(-k // vq.TILINGS['wgmma'].codes)
+    assert tiles % splits == 0 or splits == tiles
+
+
+@pytest.mark.parametrize('z_dtype,e_dtype,variant', [
+    (torch.bfloat16, torch.bfloat16, 'wgmma'),
+    (torch.float32, torch.float32, 'simt'),
+    (torch.float32, torch.bfloat16, 'simt'),
+    (torch.bfloat16, torch.float32, 'simt')])
+def test_kernel_variant(z_dtype, e_dtype, variant):
+    """bf16 operands alone take the tensor cores, whose bf16 products are
+    exact in f32; any f32 operand keeps the f32-exact SIMT variant."""
+    assert vq.kernel_variant(z_dtype, e_dtype) == variant
+    assert vq._check(torch.zeros(8, 64, dtype=z_dtype),
+                     torch.zeros(16, 64, dtype=e_dtype)) == variant
+
+
+def test_vq_argmin_tma_checks():
+    """The wgmma variant's TMA loads need 16-byte aligned pointers and
+    rows of a multiple of 16 bytes (D a multiple of 8 in bf16); the SIMT
+    variant keeps its multiple of 16."""
+    bf = torch.bfloat16
+    assert vq._check(torch.zeros(8, 24, dtype=bf),
+                     torch.zeros(16, 24, dtype=bf)) == 'wgmma'
+    with pytest.raises(ValueError, match='multiple of 8'):
+        vq._check(torch.zeros(8, 20, dtype=bf), torch.zeros(16, 20, dtype=bf))
+    with pytest.raises(ValueError, match='multiple of 16'):
+        vq._check(torch.zeros(8, 24), torch.zeros(16, 24))
+    shifted = torch.zeros(8 * 64 + 1, dtype=bf)[1:].view(8, 64)
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        vq._check(shifted, torch.zeros(16, 64, dtype=bf))
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        vq._check(torch.zeros(8, 64, dtype=bf),
+                  torch.zeros(16 * 64 + 4, dtype=bf)[4:].view(16, 64))
 
 
 def test_quantize_ops_match_jax():
