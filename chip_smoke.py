@@ -16,14 +16,20 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
      warp takes at once and of the kernel's shared-memory rounds), and
      L=2 T=160 B=8 at pos in {64, 65, 129, 159} (several rounds): caches
      bit-equal, y allclose at 1e-5 (f32) / 2e-2 (bf16);
-   - top-k sampling, [640, 8192] bf16 and f32, k in {1, 2048, 8192},
-     T=0.95, shared uniforms: k=1 draws an argmax, every code lies in the
-     exact top-k set (from torch.topk), codes equal the plain version's
-     except rows whose draw lies within 1e-5 of the row's mass from the CDF
-     boundary between the two codes, at most 1% of rows.
+   - top-k sampling, bf16 and f32, T=0.95, shared uniforms, on four kinds
+     of rows (random; integers with ties at every rank; 90% signed zeros;
+     random x30, whose k-th value lies below max - 44) at V=8192 (640
+     rows) and V=1000 (256 rows), k in {1, 2, 2048, V-1, V}: the kernel's
+     threshold output equals topk_threshold bit for bit, its kept set is
+     the exact top-k within [max - 44, max], every code lies in it, k=1
+     draws an argmax, codes equal the plain version's except rows whose
+     draw lies within 1e-5 of the row's mass from the CDF boundary between
+     the two codes, at most 1% of rows.
    Then times each kernel, its plain version and one PyTorch library call
    computing the same function, with CUDA events, and computes the least
-   time the card could take (the bound).
+   time the card could take (the bound). K2 at both main-path shapes
+   ([512, 8192] and [128, 8192] bf16, k 2048), its library call topk +
+   softmax + cumsum + searchsorted on the same uniforms.
 3. The main path at full width: the flagship class-conditional ImageNet-256
    config (12 spatial layers, d=1536) with seeded random weights in bf16,
    TwoStageModel.make_pixel_sampler(top-k 2048, T 0.95) on 128 labels,
@@ -33,22 +39,25 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
    then a breakdown: the AR loop and the stage-1 decode timed apart, with
    the device's busy time and largest kernels from torch.profiler.
 4. Nearest-code search (K3) against its plain version (TF32 off): N=8191,
-   D in {256, 1024, 4096}, K in {8192, 1000}, f32 (the SIMT variant) and
-   bf16 (the wgmma variant), and bf16 at D in {40, 200} (a ragged tail of
-   D) and at N=37 D=64 K=1000 and N=100 D=32 K=100 (less than one tile):
-   codes equal but for rows whose two codes' distances, recomputed in
-   f64, lie within 1e-5 (|z|^2 + |e|^2) of each other, at most 0.1% of
-   rows; and integer-valued inputs with every code four times in the
-   codebook, where both versions must take the lowest index of each exact
-   tie, in f32 and bf16. Then, in bf16 at every shape the encode paths
-   launch it at (the flagship top and bottom levels, which the 3-level
-   middle and bottom share at batch 32, and the 3-level top at batch 32),
-   compares it with its plain version by the same rule and times the
-   kernel, its plain version and cuBLAS addmm + argmin (extra peak memory
-   of each beside); the bound takes the bf16 tensor-core rate. Two more
-   lines, outside the JSON: the bf16 cuBLAS product z @ e.T alone at each
-   shape (not the same function: how close the wgmma main loop comes to
-   cuBLAS's bf16 GEMM), and the f32 SIMT variant at the flagship top.
+   D in {256, 1024, 4096}, K in {8192, 1000}, f32 (6 pairs of bf16
+   pieces) and bf16 (1 pair), both mixed pairs at D=256 (3 pairs), and
+   bf16 at D in {40, 200} (a ragged tail of D) and at N=37 D=64 K=1000 and
+   N=100 D=32 K=100 (less than one tile): codes equal but for rows whose
+   two codes' distances, recomputed in f64, lie within 1e-5 (|z|^2 +
+   |e|^2) of each other, at most 0.1% of rows; and integer-valued inputs
+   with every code four times in the codebook, where both versions must
+   take the lowest index of each exact tie, in f32 and bf16. Each case
+   names the pair list it ran. Then, in bf16 and in f32 at every shape the
+   encode paths launch it at (the flagship top and bottom levels, which
+   the 3-level middle and bottom share at batch 32, and the 3-level top at
+   batch 32), compares it with its plain version by the same rule and
+   times the kernel, its plain version and cuBLAS addmm + argmin in f32
+   (extra peak memory of each beside); the bound is the function's
+   2 N K D operations (one pass) at the bf16 tensor-core rate, in either
+   dtype, and a line of its own gives the design's floor, its passes at
+   that rate (six in f32). One more line in bf16, outside the JSON: the
+   bf16 cuBLAS product z @ e.T alone at each shape (not the same function:
+   how close the wgmma main loop comes to cuBLAS's bf16 GEMM).
 5. The encode slice at full width: `make_reconstructor` on the flagship
    stage-1 HQ-VAE (seeded random bf16 weights) on 128 seeded images, twice:
    pixels [128, 256, 256, 3] finite in [-1, 1], codes in range, exactly 2
@@ -57,7 +66,10 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
    torch.profiler. Then `TwoStageModel.extract_codes` and `forward` on the
    flagship two-stage model at batch 128 (logits [128, 64, 8192] and
    [128, 256, 8192], finite, 2 K3 launches per call), and
-   `make_reconstructor` on the 3-level HQ-VAE at batch 32 (3 K3 launches).
+   `make_reconstructor` on the 3-level HQ-VAE at batch 32 (3 K3 launches),
+   and `make_reconstructor` on the flagship stage-1 at its default f32 (the
+   eval_stage1.py path, seeded random f32 weights) at batch 128, twice
+   (2 K3 launches on the f32 x f32 route).
 6. A reference on a small input: the tiny config, f32, greedy (top-k 1),
    sampled through the CUDA kernels and through the CPU plain versions with
    the same weights: equal codes, pixels within 1e-3; and the same images
@@ -98,8 +110,7 @@ TIMED_POS = 33
 # K3: one launch per code level; N = batch x level area, K = 8192 codes.
 # The 3-level middle and bottom levels at batch 32 have the flagship top's
 # and bottom's (N, D), so these three shapes are every K3 launch of the
-# encode paths, and every codebook split they take (2, 1, 8 on 132 SMs for
-# the bf16 wgmma variant).
+# encode paths, and every codebook split they take (2, 1, 8 on 132 SMs).
 LEVEL3 = ROOT / 'configs/imagenet/stage1/hqvae-pixelshuffle-top8x8-level3.yaml'
 N_CODES = 8192
 K3_SHAPES = (('flagship top = 3-level middle', 8192, 1024),
@@ -273,77 +284,136 @@ def time_decode_attention(da):
 
 # ---------------------------------------------------------- K2 top-k sample
 
+# Operations of the K2 kernel per logit: the key, two radix-select passes
+# (bf16) of a compare and a count each, the max, the value below the k-th,
+# the divide, mask, exp, running sum and draw count.
+K2_OPS_PER_LOGIT = 12
+
+
+def k2_rows(kind: str, n: int, v: int, seed: int) -> torch.Tensor:
+    """Seeded rows: 'random' N(0, 9); 'ties' integers, with exact ties at
+    every rank; 'zeros' 90% +0.0 and -0.0 of random signs, so the k-th
+    value is a signed zero for middle k; 'x30' random values scaled 30x,
+    whose k-th value lies below row max - 44 for most k."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, v), generator=g) * 3
+    if kind == 'ties':
+        x = torch.round(x)
+    elif kind == 'zeros':
+        zero = torch.where(torch.rand((n, v), generator=g) < 0.5, -0.0, 0.0)
+        x = torch.where(torch.rand((n, v), generator=g) < 0.9, zero, x)
+    elif kind == 'x30':
+        x = x * 30
+    return x
+
+
+K2_KINDS = ('random', 'ties', 'zeros', 'x30')
+
+
 def check_sample_topk(st):
-    N, temp = 640, 0.95
+    """Every row kind in both dtypes at V 8192 and 1000, k in {1, 2, 2048,
+    V - 1, V}, T 0.95, shared uniforms: the kernel's threshold output equals
+    topk_threshold bit for bit; its kept set is the exact top-k within the
+    window [max - 44, max] (all of the row for k >= V); every code lies in
+    it; k=1 draws an argmax and equals plain; codes equal the plain
+    version's except rows whose draw lies within 1e-5 of the row's mass
+    from the CDF boundary between the two codes, at most 1% of rows."""
+    temp, device = 0.95, 'cuda'
     max_err, worst_frac = 0, 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        g = torch.Generator(device='cuda').manual_seed(7)
-        logits = (torch.randn((N, V), generator=g, device='cuda') * 3
-                  ).to(dtype)
-        u = torch.rand(N, generator=g, device='cuda')
-        x = st.scaled_logits(logits, temp)
-        rows = torch.arange(N, device='cuda')
-        for k in (1, 2048, 8192):
-            c1 = st.sample_topk(logits, u, k, temp).long()
-            c2 = st.sample_topk_plain(logits, u, k, temp).long()
-            torch.cuda.synchronize()
-            kth = torch.topk(x, k, dim=-1).values[:, -1:]
-            kept = x >= kth
-            thr, _ = st.topk_threshold(x, k)
-            require(torch.equal(kept, x >= thr),
-                    f'K2 bisection kept set differs from top-k (k={k})')
-            require(kept[rows, c1].all(), f'K2 code outside top-{k} set')
-            if k == 1:
-                require(torch.equal(x[rows, c1], x.amax(-1)),
-                        'K2 k=1 drew a code that is not an argmax')
-                require(torch.equal(c1, c2), 'K2 k=1 differs from plain')
-            differ = torch.nonzero(c1 != c2).flatten()
-            if differ.numel():
-                x64 = x[differ].double()
-                p = torch.where(kept[differ],
-                                torch.exp(x64 - x64.amax(-1, keepdim=True)),
-                                0.0)
-                cdf = torch.cumsum(p, -1)
-                total = cdf[:, -1]
-                lo = torch.minimum(c1[differ], c2[differ])
-                gap = (u[differ].double() * total -
-                       cdf.gather(1, lo[:, None])[:, 0]).abs() / total
-                require((gap <= 1e-5).all(), f'K2 codes differ away from a '
-                        f'CDF boundary: {gap.max().item()}')
-            frac = differ.numel() / N
-            require(frac <= 0.01, f'K2 {differ.numel()} of {N} rows differ')
-            max_err = max(max_err, (c1 - c2).abs().max().item())
-            worst_frac = max(worst_frac, frac)
-            print(f'K2 {str(dtype):14s} k={k:4d}: codes in the exact top-k '
-                  f'set; {differ.numel()} of {N} rows differ from plain, '
-                  f'all at a CDF boundary')
+    for vocab, n in ((V, 640), (1000, 256)):
+        for kind_i, kind in enumerate(K2_KINDS):
+            raw = k2_rows(kind, n, vocab, seed=vocab + kind_i).to(device)
+            u = torch.rand(n, generator=torch.Generator().manual_seed(
+                kind_i)).to(device)
+            rows = torch.arange(n, device=device)
+            for dtype in (torch.bfloat16, torch.float32):
+                logits = raw.to(dtype)
+                x = st.scaled_logits(logits, temp)
+                row_max = x.amax(-1, keepdim=True)
+                for k in (1, 2, 2048, vocab - 1, vocab):
+                    k_eff = min(k, vocab)
+                    thr_out = torch.empty(n, device=device)
+                    c1 = st.sample_topk(logits, u, k, temp,
+                                        threshold=thr_out).long()
+                    c2 = st.sample_topk_plain(logits, u, k, temp).long()
+                    thr = st.topk_threshold(x, k)
+                    torch.cuda.synchronize()
+                    case = f'{kind} {dtype} V={vocab} k={k}'
+                    require(torch.equal(thr_out.view(torch.int32),
+                                        thr[:, 0].view(torch.int32)),
+                            f'K2 threshold differs from topk_threshold '
+                            f'({case})')
+                    kth = torch.topk(x, k_eff, dim=-1).values[:, -1:]
+                    window = kth if k >= vocab else torch.maximum(
+                        kth, row_max - st.BISECT_RANGE)
+                    kept = x >= window
+                    require(torch.equal(kept, x >= thr),
+                            f'K2 kept set differs from top-k ({case})')
+                    require(kept[rows, c1].all(),
+                            f'K2 code outside the kept set ({case})')
+                    if k == 1:
+                        require(torch.equal(x[rows, c1], row_max[:, 0]),
+                                f'K2 k=1 drew no argmax ({case})')
+                        require(torch.equal(c1, c2),
+                                f'K2 k=1 differs from plain ({case})')
+                    differ = torch.nonzero(c1 != c2).flatten()
+                    if differ.numel():
+                        x64 = x[differ].double()
+                        p = torch.where(kept[differ], torch.exp(
+                            x64 - x64.amax(-1, keepdim=True)), 0.0)
+                        cdf = torch.cumsum(p, -1)
+                        total = cdf[:, -1]
+                        lo = torch.minimum(c1[differ], c2[differ])
+                        gap = (u[differ].double() * total -
+                               cdf.gather(1, lo[:, None])[:, 0]).abs() / total
+                        require((gap <= 1e-5).all(), f'K2 codes differ away '
+                                f'from a CDF boundary ({case}): '
+                                f'{gap.max().item()}')
+                    frac = differ.numel() / n
+                    require(frac <= 0.01,
+                            f'K2 {differ.numel()} of {n} rows differ ({case})')
+                    max_err = max(max_err, (c1 - c2).abs().max().item())
+                    worst_frac = max(worst_frac, frac)
+                    print(f'K2 {kind:6s} {str(dtype):14s} V={vocab:4d} '
+                          f'k={k:4d}: threshold bit-equal to topk_threshold; '
+                          f'codes in the kept set; {differ.numel()} of {n} '
+                          f'rows differ from plain, all at a CDF boundary')
     return max_err, worst_frac
 
 
 def time_sample_topk(st):
-    """bf16 bottom-group draw at batch 128: [512, 8192], k 2048, T 0.95."""
-    N, k, temp = 4 * B, 2048, 0.95
-    g = torch.Generator(device='cuda').manual_seed(3)
-    logits = (torch.randn((N, V), generator=g, device='cuda') * 3).to(
-        torch.bfloat16)
-    u = torch.rand(N, generator=g, device='cuda')
-    kernel = time_ms(lambda i: st.sample_topk(logits, u, k, temp), 200)
-    plain = time_ms(lambda i: st.sample_topk_plain(logits, u, k, temp), 1)
+    """bf16 at the main path's two shapes at batch 128, k 2048, T 0.95: the
+    bottom-group draw [512, 8192] (the JSON entry) and the top draw
+    [128, 8192]. The library yardstick draws from the same top-k softmax
+    with the same uniforms and no host wait: topk, softmax, cumsum,
+    searchsorted. Returns the bottom-group shape's (kernel, plain, library,
+    bound)."""
+    k, temp = 2048, 0.95
+    out = None
+    for n in (4 * B, B):
+        g = torch.Generator(device='cuda').manual_seed(3)
+        logits = (torch.randn((n, V), generator=g, device='cuda') * 3).to(
+            torch.bfloat16)
+        u = torch.rand(n, generator=g, device='cuda')
+        kernel = time_ms(lambda i: st.sample_topk(logits, u, k, temp), 200)
+        plain = time_ms(lambda i: st.sample_topk_plain(logits, u, k, temp), 5)
 
-    def library(i):
-        x = logits.float() / temp
-        vals, idx = torch.topk(x, k, dim=-1)
-        j = torch.multinomial(torch.softmax(vals, dim=-1), 1, generator=g)
-        return idx.gather(1, j)
+        def library(i):
+            vals, idx = torch.topk(st.scaled_logits(logits, temp), k, dim=-1)
+            cdf = torch.softmax(vals, dim=-1).cumsum(dim=-1)
+            j = torch.searchsorted(cdf, u[:, None]).clamp_max_(k - 1)
+            return idx.gather(1, j)
 
-    lib = time_ms(library, 50)
-    # bytes: the logits and u read once, the codes written once. ops per
-    # logit: the divide, 2 per bisection step this row ran (compare, count),
-    # and about 5 for the mask, exp, running sum, draw count and snap.
-    _, iters = st.topk_threshold(st.scaled_logits(logits, temp), k)
-    n_bytes = N * V * 2 + N * 4 + N * 4
-    flops = V * (6 * N + 2 * int(iters.sum()))
-    return kernel, plain, lib, bound(n_bytes, flops)
+        lib = time_ms(library, 50)
+        # bytes: the logits and u read once, the codes written once
+        n_bytes = n * V * 2 + n * 8
+        bnd = bound(n_bytes, K2_OPS_PER_LOGIT * n * V)
+        print(f'K2 bf16 [{n}, {V}] k {k}: kernel {kernel:.5f} ms, plain '
+              f'{plain:.4f} ms, topk+softmax+cumsum+searchsorted {lib:.5f} '
+              f'ms, bound {bnd[0]:.5f} ms ({bnd[1]}); the kernel takes '
+              f'{kernel / bnd[0]:.2f}x its bound')
+        out = out or (kernel, plain, lib, bnd)
+    return out
 
 
 # ----------------------------------------------------- K3 nearest-code search
@@ -369,10 +439,10 @@ def compare_codes(z, e, c1, c2):
 def check_vq_argmin(vq):
     N = 8191   # ragged: not a multiple of the kernel's 128-row tile
     max_err = 0.0
-    # f32 and mixed pairs run the SIMT variant, bf16 the wgmma variant;
-    # D = 40 and 200 leave a ragged tail of the wgmma variant's 64-column
-    # chunks, and the small cases have fewer rows and codes than one of its
-    # TMA boxes.
+    # Every pair runs the wgmma kernel: f32 x f32 over 6 pairs of bf16
+    # pieces, a mixed pair over 3, bf16 x bf16 over 1; D = 40 and 200 leave
+    # a ragged tail of its 64-column chunks, and the small cases have fewer
+    # rows and codes than one of its TMA boxes.
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(N, D, K, dt, dt) for D in (256, 1024, 4096)
              for K in (N_CODES, 1000) for dt in (f32, bf16)]
@@ -391,7 +461,7 @@ def check_vq_argmin(vq):
         max_err = max(max_err, err)
         pair = f'{str(z_dtype)[6:]} z, {str(e_dtype)[6:]} e'
         print(f'K3 N={n:4d} D={D:4d} K={K:4d} {pair:20s} '
-              f'({vq.kernel_variant(z_dtype, e_dtype)}): {n_diff} of {n} '
+              f'({pair_list(vq, z_dtype, e_dtype)}): {n_diff} of {n} '
               f'rows differ from plain, each a near-tie')
     # Exact ties: integer values keep every distance exact in f32 whatever
     # the summation order. Code c equals codes c^1 and c^1 +- K/2.
@@ -409,9 +479,18 @@ def check_vq_argmin(vq):
         require(bool((c1 % 2 == 0).all() and (c1 < N_CODES // 2).all()),
                 f'K3 exact ties not resolved to the lowest index ({dtype})')
         print(f'K3 exact ties {str(dtype):14s} '
-              f'({vq.kernel_variant(dtype, dtype)}): equal to plain, every '
+              f'({pair_list(vq, dtype, dtype)}): equal to plain, every '
               f'row on the lowest index of its tie')
     return max_err
+
+
+def pair_list(vq, z_dtype, e_dtype) -> str:
+    """The pairs of bf16 pieces (z, codebook) the kernel sums for a dtype
+    pair, e.g. '3 pairs: hi.hi hi.mid hi.lo'."""
+    names = ('hi', 'mid', 'lo')
+    pairs = vq.piece_pairs(vq.kernel_variant(z_dtype, e_dtype))
+    return (f'{len(pairs)} pair{"s" if len(pairs) > 1 else ""}: ' +
+            ' '.join(f'{names[p]}.{names[q]}' for p, q in pairs))
 
 
 def extra_peak_mib(fn) -> float:
@@ -425,27 +504,34 @@ def extra_peak_mib(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
-def time_vq_argmin(vq):
-    """bf16 z and codebooks, as served, at each K3_SHAPES shape: first the
+def time_vq_argmin(vq, dtype):
+    """z and codebooks in `dtype` at each K3_SHAPES shape: first the
     kernel's codes against the plain version's on these inputs (the
     near-tie rule of compare_codes), then the times. The library yardstick
     is cuBLAS SGEMM (TF32 off) + argmin, which writes the [N, K] f32 score
-    matrix; the port never calls it. The bound takes the bf16 tensor-core
-    rate: a bf16 x bf16 product is exact in f32, so a bf16 wgmma with f32
-    accumulation gives the same scores up to summation order. Returns
-    (one (ms, plain, lib, bound, memory) per shape, max f64 gap)."""
+    matrix; the port never calls it. The bound, in either dtype: the
+    function's one pass of 2 N K D operations at the highest tensor-core
+    rate the kernel runs on, bf16's (a bf16 x bf16 product is exact in
+    f32, so bf16 wgmma with f32 accumulation gives the same scores up to
+    summation order; f32 scores need no more than one argmin over them
+    either, whatever passes a design spends). The design's own floor, its
+    passes at that rate (six in f32), is printed on a line of its own.
+    Returns (one (ms, plain, lib, bound, memory) per shape, max f64
+    gap)."""
     out, max_err = [], 0.0
+    name_dt = str(dtype)[6:]
+    passes = len(vq.piece_pairs(vq.kernel_variant(dtype, dtype)))
     for name, N, D in K3_SHAPES:
         g = torch.Generator(device='cuda').manual_seed(N + D)
-        z = torch.randn((N, D), generator=g, device='cuda').bfloat16()
-        e = torch.randn((N_CODES, D), generator=g,
-                        device='cuda').bfloat16()
+        z = torch.randn((N, D), generator=g, device='cuda').to(dtype)
+        e = torch.randn((N_CODES, D), generator=g, device='cuda').to(dtype)
         n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-        splits = vq.codebook_splits(N, N_CODES, n_sms, 'wgmma')
+        splits = vq.codebook_splits(N, N_CODES, n_sms)
         n_diff, err = compare_codes(z, e, vq.vq_argmin(z, e),
                                     vq.vq_argmin_plain(z, e))
         max_err = max(max_err, err)
-        print(f'K3 {name} N={N} D={D} bf16, {splits} codebook slices: '
+        print(f'K3 {name} N={N} D={D} {name_dt} '
+              f'({pair_list(vq, dtype, dtype)}), {splits} codebook slices: '
               f'{n_diff} of {N} rows differ from plain, each a near-tie')
 
         def library(i=0):
@@ -456,37 +542,46 @@ def time_vq_argmin(vq):
         def kernel(i=0):
             return vq.vq_argmin(z, e)
 
-        ms = time_ms(kernel, 10)
+        ms = time_ms(kernel, 10 if passes == 1 else 5)
         plain = time_ms(lambda i: vq.vq_argmin_plain(z, e), 3)
         lib = time_ms(library, 10)
         mem = (extra_peak_mib(kernel), extra_peak_mib(library))
         # bytes: z and e read once, the codes written once; operations:
         # one multiply and one add per (row, code, dim), at the bf16 rate.
-        n_bytes = (N + N_CODES) * D * 2 + N * 8
+        n_bytes = (N + N_CODES) * D * z.element_size() + N * 8
         flops = 2 * N * N_CODES * D
         bnd = bound(n_bytes, flops, BF16_FLOPS_PER_S)
         out.append((ms, plain, lib, bnd, mem))
-        print(f'K3 {name} N={N} K={N_CODES} D={D} bf16: kernel {ms:.4f} ms '
-              f'({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, '
-              f'addmm+argmin {lib:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, '
-              f'bf16 rate); extra peak memory kernel {mem[0]:.2f} MiB, '
-              f'addmm+argmin {mem[1]:.1f} MiB')
-        # Yardstick outside the JSON: cuBLAS's bf16 GEMM alone. It is not
-        # the same function (no argmin, and it writes the [N, K] matrix).
-        gemm = time_ms(lambda i: torch.matmul(z, e.T), 10)
-        print(f'K3 {name} yardstick: bf16 cuBLAS z @ e.T alone {gemm:.4f} ms '
-              f'({flops / gemm / 1e9:.1f} TFLOP/s); the kernel takes '
-              f'{ms / gemm:.2f}x its time')
-    # The f32 SIMT variant at the flagship top, f32 operands.
-    _, N, D = K3_SHAPES[0]
-    g = torch.Generator(device='cuda').manual_seed(N + D)
-    z = torch.randn((N, D), generator=g, device='cuda')
-    e = torch.randn((N_CODES, D), generator=g, device='cuda')
-    simt = time_ms(lambda i: vq.vq_argmin(z, e), 5)
-    f32_bound = bound((N + N_CODES) * D * 4 + N * 8, 2 * N * N_CODES * D)
-    print(f'K3 f32 SIMT variant N={N} K={N_CODES} D={D}: {simt:.4f} ms, '
-          f'bound {f32_bound[0]:.4f} ms ({f32_bound[1]}, f32 rate)')
+        print(f'K3 {name} N={N} K={N_CODES} D={D} {name_dt}: kernel '
+              f'{ms:.4f} ms ({passes * flops / ms / 1e9:.1f} TFLOP/s over '
+              f'{passes} bf16 pass{"es" if passes > 1 else ""}), plain '
+              f'{plain:.4f} ms, addmm+argmin {lib:.4f} ms, bound '
+              f'{bnd[0]:.4f} ms ({bnd[1]}, one bf16 pass; kernel '
+              f'{ms / bnd[0]:.2f}x); extra peak memory kernel '
+              f'{mem[0]:.2f} MiB, addmm+argmin {mem[1]:.1f} MiB')
+        if passes > 1:
+            floor = bound(n_bytes, passes * flops, BF16_FLOPS_PER_S)[0]
+            print(f'K3 {name} {name_dt} design floor: {passes} bf16 passes '
+                  f'at the bf16 rate {floor:.4f} ms (kernel '
+                  f'{ms / floor:.2f}x); not a bound of the function')
+        if passes == 1:
+            # Yardstick outside the JSON: cuBLAS's bf16 GEMM alone. It is
+            # not the same function (no argmin, and it writes the [N, K]
+            # matrix).
+            gemm = time_ms(lambda i: torch.matmul(z, e.T), 10)
+            print(f'K3 {name} yardstick: bf16 cuBLAS z @ e.T alone '
+                  f'{gemm:.4f} ms ({flops / gemm / 1e9:.1f} TFLOP/s); the '
+                  f'kernel takes {ms / gemm:.2f}x its time')
+        del z, e
     return out, max_err
+
+
+def flagship_entry(shapes):
+    """A K3 entry of the JSON line: the mean of one launch at each of the
+    flagship's two levels (the first two K3_SHAPES)."""
+    flagship = shapes[:2]
+    return tuple(sum(t[i] for t in flagship) / 2 for i in range(3)) + (
+        (sum(t[3][0] for t in flagship) / 2, flagship[0][3][1]),)
 
 
 # ------------------------------------------------------------ main path
@@ -776,6 +871,42 @@ def run_level3(vq, da, st):
               f'{peak:.2f} GiB, launches K3={launches[0]}')
 
 
+def run_encode_f32(vq, da, st):
+    """make_reconstructor on the flagship stage-1 HQ-VAE at its default
+    f32, as eval_stage1.py runs it (seeded random f32 weights, TF32 off),
+    128 images, twice: 2 K3 launches a call, each on the f32 x f32 route.
+    Returns the second call's K3 launches and images/s."""
+    from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.evaluation.stage1 import (
+        init_stage1_weights, make_reconstructor)
+
+    cfg = build_twostage_config(str(FLAGSHIP)).stage1
+    res = cfg.hparams.resolution
+    weights = init_stage1_weights(cfg, seed=4)
+    images = seeded_images(B, res, seed=8)
+    recon = make_reconstructor(cfg)
+    for call in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+        t0 = time.perf_counter()
+        pixels, levels = recon(weights, images)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = (vq.vq_argmin.launches, da.decode_attention_step.launches,
+                    st.sample_topk.launches)
+        require(launches == (2, 0, 0), f'f32 encode launches K3, K1, K2 '
+                f'{launches}, expected (2, 0, 0)')
+        check_reconstruction(pixels, levels, B, res, (8, 16))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f'f32 encode slice call {call}: {seconds:.3f} s, '
+              f'{B / seconds:.2f} images/s at batch {B}, peak {peak:.2f} GiB, '
+              f'launches K3={launches[0]} '
+              f'({pair_list(vq, torch.float32, torch.float32)}), '
+              f'pixels {tuple(pixels.shape)} {pixels.dtype}')
+    return launches[0], B / seconds
+
+
 def check_small_reference(vq):
     """Tiny config, f32: greedy sampling, code extraction and
     reconstruction through the CUDA kernels against the CPU plain path with
@@ -855,32 +986,32 @@ def main() -> int:
     k3_err = check_vq_argmin(vq)
     k1_times = time_decode_attention(da)
     k2_times = time_sample_topk(st)
-    k3_shapes, k3_served_err = time_vq_argmin(vq)
-    k3_err = max(k3_err, k3_served_err)
+    k3_shapes, k3_served_err = time_vq_argmin(vq, torch.bfloat16)
+    k3f_shapes, k3f_served_err = time_vq_argmin(vq, torch.float32)
     launches, samples_per_s, model, weights = run_main_path(da, st)
     k3_launches, images_per_s = run_encode_slice(vq, da, st,
                                                  weights['stage1'])
     run_twostage_encode(vq, da, st, model, weights)
     del model, weights
     run_level3(vq, da, st)
+    k3f_launches, f32_images_per_s = run_encode_f32(vq, da, st)
     check_small_reference(vq)
 
-    # K3's entry: the mean of one launch at each of the slice's two levels.
-    flagship = k3_shapes[:2]
-    k3_times = tuple(sum(t[i] for t in flagship) / 2 for i in range(3)) + (
-        (sum(t[3][0] for t in flagship) / 2, flagship[0][3][1]),)
-
     kernels = []
+    source = 'hqtransformer_tpu_torch/csrc/'
     for name, src, replaces, n, err, (ms, plain, lib, (bnd, by)) in (
-            ('decode_attention', 'hqtransformer_tpu_torch/csrc/'
-             'decode_attention.cu', 'hqtransformer_tpu/ops/'
-             'pallas_attention.py:200', launches[0], k1_err, k1_times),
-            ('sample_topk', 'hqtransformer_tpu_torch/csrc/sample_topk.cu',
+            ('decode_attention', source + 'decode_attention.cu',
+             'hqtransformer_tpu/ops/pallas_attention.py:200', launches[0],
+             k1_err, k1_times),
+            ('sample_topk', source + 'sample_topk.cu',
              'hqtransformer_tpu/ops/pallas_sample.py:236', launches[1],
              k2_err, k2_times),
-            ('vq_argmin', 'hqtransformer_tpu_torch/csrc/vq_argmin.cu',
-             'hqtransformer_tpu/ops/pallas_vq.py:63', k3_launches, k3_err,
-             k3_times)):
+            ('vq_argmin', source + 'vq_argmin.cu',
+             'hqtransformer_tpu/ops/pallas_vq.py:63', k3_launches,
+             max(k3_err, k3_served_err), flagship_entry(k3_shapes)),
+            ('vq_argmin_f32', source + 'vq_argmin.cu',
+             'hqtransformer_tpu/ops/pallas_vq.py:63', k3f_launches,
+             max(k3_err, k3f_served_err), flagship_entry(k3f_shapes))):
         kernels.append({'name': name, 'route': 'cuda', 'source': src,
                         'replaces': replaces, 'launches': n,
                         'max_abs_err': err, 'ms': ms, 'kernel_ms': ms,
@@ -888,7 +1019,8 @@ def main() -> int:
                         'library_ms': lib})
     print(f'K2 rows differing from plain at most {k2_frac:.4f}; main path '
           f'{samples_per_s:.2f} samples/s at batch {B}; encode slice '
-          f'{images_per_s:.2f} images/s at batch {B}')
+          f'{images_per_s:.2f} images/s at batch {B} in bf16, '
+          f'{f32_images_per_s:.2f} in f32')
     print(json.dumps({'kernels': kernels}))
     print(f'nvidia-smi: {nvidia_smi()}')
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

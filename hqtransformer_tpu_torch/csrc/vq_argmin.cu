@@ -8,56 +8,59 @@
 // argmin) in VMEM scratch along the sequential code-tile axis, so the
 // [N, K] score matrix never reaches device memory. Here the sequential axis
 // becomes a loop inside each block, and the scores live only in registers.
-// |e|^2 is computed first, in f32, by a small kernel of its own (one warp a
-// code), so no f32 copy of the codebook is made; it is padded with +inf to
-// a whole number of 256-code tiles, so padded codes never win.
+// |e|^2 of the codebook as given (f32 or bf16) is computed first, in f32,
+// one warp a code; it is padded with +inf to a whole number of 256-code
+// tiles, so padded codes never win.
 //
-// What bounds it on an H100: operations. The work is 2*N*K*D operations
-// against (N + K) * D inputs: at the flagship bottom level at batch 128
-// (N = 32768, K = 8192, D = 256) that is 137.4 GFLOP against 21 MB of bf16.
-// For bf16 operands the card's rate for that work is the bf16 tensor-core
-// peak, 989 TFLOP/s (0.139 ms; a bf16 x bf16 product is exact in f32, so
-// wgmma with f32 accumulation gives the same scores up to summation order);
-// for f32 operands it is the 67 TFLOP/s f32 peak (2.05 ms), since TF32
-// would change which code wins. The bytes take 6.4 us at 3.35 TB/s.
+// Every dtype pair runs on the bf16 tensor cores. An f32 operand is split
+// into three bf16 pieces, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x -
+// hi - mid), with hi + mid + lo == x exactly for normal x (3 x 8
+// significant bits cover f32's 24); a bf16 operand is its own single piece.
+// A bf16 x bf16 product is exact in f32, so summing the products of a list
+// of piece pairs with f32 accumulation gives f32-class scores:
+//   f32 x f32: 6 pairs, hi.hi, hi.mid, mid.hi, hi.lo, lo.hi, mid.mid (the
+//     three dropped, mid.lo, lo.mid and lo.lo, are each <= ~2^-24 of
+//     |z_i e_i|);
+//   f32 x bf16 and bf16 x f32: 3 pairs;  bf16 x bf16: 1 pair.
+// The pieces of an f32 operand are written by the same first pass that
+// takes the norms (z's by a pass of its own), to [3, rows, D] bf16 scratch:
+// 1.5x the f32 operand's bytes.
 //
-// Two variants; the wrapper picks one from the dtype pair.
+// What bounds it on an H100: operations. The work is 2*N*K*D operations a
+// pair against (N + K) * D inputs: at the flagship bottom level at batch
+// 128 (N = 32768, K = 8192, D = 256) 137.4 GFLOP a pair against 21 MB of
+// bf16. The bf16 tensor-core peak, 989 TFLOP/s, does one pair in 0.139 ms;
+// f32-exact scores need at least three TF32 passes at 495 TFLOP/s, the
+// same time as the six bf16 pairs (0.834 ms). The bytes take 6.4 us at
+// 3.35 TB/s for bf16, and the split passes move 10 bytes an f32 value.
 //
-// wgmma (bf16 z and bf16 codebook, as served). A block of 384 threads owns
-// 128 rows of z and walks its slice of the codebook in tiles of 256 codes.
-// Warpgroup 2 is the producer: one thread issues TMA loads (128-byte
-// swizzle) of a 128 x 64 chunk of z and a 256 x 64 chunk of the codebook
-// into a ring of 4 stages (48 KB each), each stage guarded by a "full" and
-// an "empty" mbarrier. Warpgroups 0 and 1 are consumers, 64 rows each: per
-// chunk four wgmma.m64n256k16 (bf16 x bf16 -> f32, both operands read from
-// shared memory) accumulate the tile's 64 x 256 products in 128 registers a
-// thread, one group kept in flight while the next chunk's wait begins.
-// After a tile the epilogue scores esq[k] - 2 acc and folds each thread's
-// 64 codes into its two rows' running (min, argmin), codes in ascending
-// order with a strict `<`; at the end the four threads of a quad (which
-// share rows in the accumulator layout) reduce with shuffles, breaking
-// equal scores toward the lower code. TMA zero-fills the ragged rows of N
-// and K and the tail of D (which adds nothing to a score); padded codes
-// score +inf through esq. What bounds it in practice: the chunks are
-// re-read from L2 by every block (z per code tile, the codebook per row
-// tile), about 85 operations per byte of L2 traffic, and at D = 256 the
+// The search kernel (wgmma). A block of 384 threads owns 128 rows of z and
+// walks its slice of the codebook in tiles of 256 codes. Warpgroup 2 is
+// the producer: one thread issues TMA loads (128-byte swizzle) of a 128 x
+// 64 chunk of a z piece and a 256 x 64 chunk of a codebook piece into a
+// ring of 4 stages (48 KB each), each stage guarded by a "full" and an
+// "empty" mbarrier, walking per chunk of D the pair list. The pieces are
+// one 3-D tensor map (piece, row, column) an operand, so TMA zero-fills the
+// ragged rows of N and K and the tail of D (which adds nothing to a score)
+// in every piece. Warpgroups 0 and 1 are consumers, 64 rows each: per stage
+// four wgmma.m64n256k16 (bf16 x bf16 -> f32, both operands read from
+// shared memory) accumulate the tile's 64 x 256 products of every pair in
+// 128 registers a thread, one group kept in flight while the next stage's
+// wait begins. After a tile the epilogue scores esq[k] - 2 acc and folds
+// each thread's 64 codes into its two rows' running (min, argmin), codes in
+// ascending order with a strict `<`; at the end the four threads of a quad
+// (which share rows in the accumulator layout) reduce with shuffles,
+// breaking equal scores toward the lower code; padded codes score +inf
+// through esq. What bounds it in practice: the chunks are re-read from L2
+// by every block (z per code tile, the codebook per row tile), about 85
+// operations per byte of L2 traffic, and with one pair at D = 256 the
 // per-tile epilogue, which no MMA overlaps. Needs D a multiple of 8 (rows
-// 16-byte aligned for TMA) and 16-byte aligned pointers.
+// 16-byte aligned for TMA and the split pass) and 16-byte aligned pointers.
 //
-// SIMT (f32 and mixed pairs): a classic f32 GEMM with the same argmin
-// epilogue, exact f32 FMAs and no tensor cores. A block of 256 threads owns
-// 128 rows of z and walks 128-code tiles. For each tile, D is staged
-// through shared memory 16 columns at a time (z and e converted to f32,
-// stored transposed), and each thread accumulates an 8 x 8 register tile:
-// rows {4ty..4ty+3, 64+4ty..}, codes {4tx..4tx+3, 64+4tx..}, so a warp's
-// float4 reads of shared memory are conflict-free; the 16 threads sharing a
-// row reduce with shuffles. Ragged N and K are masked by index. D must be a
-// multiple of 16. It runs near the f32 FMA peak.
-//
-// Both variants split the codebook over the grid's second axis when row
-// tiles are few (64 at the flagship top, 16 at the 3-level top at batch
-// 32), so that the card's SMs fill; a last kernel takes each row's minimum
-// over the slices in code order.
+// The codebook is split over the grid's second axis when row tiles are few
+// (64 at the flagship top, 16 at the 3-level top at batch 32), so that the
+// card's SMs fill; a last kernel takes each row's minimum over the slices
+// in code order.
 //
 // Built by hqtransformer_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -70,16 +73,11 @@
 
 namespace {
 
-constexpr int kBM = 128;       // rows of z per block
-constexpr int kBN = 128;       // codes per tile
-constexpr int kBK = 16;        // columns of D per shared-memory stage
-constexpr int kHalf = 64;      // second half of a tile's rows or codes
-constexpr int kThreads = 256;  // 16 x 16 threads, 8 x 8 scores each
 constexpr int kReduceThreads = 256;
-constexpr int kNormThreads = 256;  // 8 codes (one warp each) per block
+constexpr int kPrepThreads = 256;  // 8 rows (one warp each) per block
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// The wgmma variant.
+// The search kernel.
 constexpr int kTcRows = 128;    // rows of z per block: two warpgroups of 64
 constexpr int kTcCodes = 256;   // codes per tile: the n of m64n256k16
 constexpr int kTcChunk = 64;    // columns of D per stage: one 128-byte row
@@ -91,6 +89,8 @@ constexpr int kTcThreads = 384;  // warpgroups 0, 1 consume; 2 produces
 // The ring, 1024 bytes of slack to align it for the swizzle, the barriers.
 constexpr int kTcSmem = kTcStages * kTcStageBytes + 1024 + 2 * kTcStages * 8;
 constexpr int kCodePad = 256;    // esq is padded to a multiple of this
+constexpr int kMaxPieces = 3;
+constexpr int kMaxPairs = 8;     // 4 bits a pair in an int
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
@@ -111,58 +111,64 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
   }
 }
 
-// Stage rows [row0, row0 + 128) x columns [d0, d0 + 16) of a row-major
-// [rows, D] matrix into sh[16][128] as f32, transposed. Thread t loads 8
-// values of row t % 128; rows past the end are zeros.
-template <typename T>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ src,
-                                           int rows, int D, int row0, int d0,
-                                           float (*sh)[kBM]) {
-  const int r = threadIdx.x & (kBM - 1);
-  const int c = (threadIdx.x >> 7) * 8;
-  float v[8];
-  if (row0 + r < rows) {
-    load8(src + static_cast<int64_t>(row0 + r) * D + d0 + c, v);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) sh[c + j][r] = v[j];
+// hi + mid + lo == x for normal x: each residual is exact in f32.
+__device__ __forceinline__ void split3(float x, __nv_bfloat16& hi,
+                                       __nv_bfloat16& mid,
+                                       __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(x);
+  const float r = x - __bfloat162float(hi);
+  mid = __float2bfloat16_rn(r);
+  lo = __float2bfloat16_rn(r - __bfloat162float(mid));
 }
 
-// esq[k] = |e_k|^2 in f32 for k < K and +inf for K <= k < K_pad, one warp
-// per code: each lane sums the squares of 8 values at a time, then the
-// warp reduces with shuffles. D must be a multiple of 8.
-template <typename TE>
-__global__ void vq_code_norms(const TE* __restrict__ e, float* __restrict__ esq,
-                              int K, int K_pad, int D) {
-  const int code = blockIdx.x * (kNormThreads / 32) + (threadIdx.x >> 5);
+// One pass over a row-major [rows, D] matrix, one warp a row, 8 values a
+// lane at a time. Where `pieces` is given (f32 src), writes the three bf16
+// pieces of every value to pieces[0..2][row][:]; where `esq` is given,
+// esq[row] = |src row|^2 in f32 for row < rows and +inf for rows <= row <
+// rows_pad. D must be a multiple of 8.
+template <typename T>
+__global__ void vq_prepare(const T* __restrict__ src,
+                           __nv_bfloat16* __restrict__ pieces,
+                           float* __restrict__ esq, int rows, int rows_pad,
+                           int D) {
+  const int row = blockIdx.x * (kPrepThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (code >= K_pad) return;
-  if (code >= K) {
-    if (lane == 0) esq[code] = INFINITY;
+  if (row >= rows_pad) return;
+  if (row >= rows) {
+    if (lane == 0) esq[row] = INFINITY;
     return;
   }
-  const TE* row = e + static_cast<int64_t>(code) * D;
+  const int64_t base = static_cast<int64_t>(row) * D;
+  const int64_t plane = static_cast<int64_t>(rows) * D;
   float s = 0.f;
   for (int c = lane * 8; c < D; c += 32 * 8) {
     float v[8];
-    load8(row + c, v);
+    load8(src + base + c, v);
 #pragma unroll
     for (int j = 0; j < 8; ++j) s = fmaf(v[j], v[j], s);
+    if (pieces != nullptr) {
+      uint32_t packed[3][4];  // piece, pair of values
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        __nv_bfloat16 a[3], b[3];
+        split3(v[j], a[0], a[1], a[2]);
+        split3(v[j + 1], b[0], b[1], b[2]);
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          packed[q][j / 2] = static_cast<uint32_t>(__bfloat16_as_ushort(a[q])) |
+                             static_cast<uint32_t>(__bfloat16_as_ushort(b[q]))
+                                 << 16;
+      }
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        *reinterpret_cast<uint4*>(pieces + q * plane + base + c) = make_uint4(
+            packed[q][0], packed[q][1], packed[q][2], packed[q][3]);
+    }
   }
+  if (esq == nullptr) return;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFullMask, s, off);
-  if (lane == 0) esq[code] = s;
-}
-
-__device__ __forceinline__ void unpack8(const float* lo, const float* hi,
-                                        float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(lo);
-  const float4 b = *reinterpret_cast<const float4*>(hi);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  if (lane == 0) esq[row] = s;
 }
 
 // The tiles [t_begin, t_end) of `split` among `splits` slices of n_tiles.
@@ -180,95 +186,7 @@ __device__ __forceinline__ void min_pair(float& v, int& a, float ov, int oa) {
   }
 }
 
-// Grid (row tiles, splits). Writes each row's minimum score and its code
-// over this block's slice of the codebook to part_val/part_idx[split][row].
-template <typename TZ, typename TE>
-__global__ void __launch_bounds__(kThreads, 2)
-vq_argmin_kernel(const TZ* __restrict__ z, const TE* __restrict__ e,
-                 const float* __restrict__ esq, float* __restrict__ part_val,
-                 int32_t* __restrict__ part_idx, int N, int K, int D,
-                 int splits) {
-  __shared__ __align__(16) float zs[kBK][kBM];
-  __shared__ __align__(16) float es[kBK][kBN];
-
-  const int tx = threadIdx.x & 15;  // which codes of a tile
-  const int ty = threadIdx.x >> 4;  // which rows of the block
-  const int row0 = blockIdx.x * kBM;
-  const int split = blockIdx.y;
-  int t_begin, t_end;
-  slice_of(split, splits, (K + kBN - 1) / kBN, t_begin, t_end);
-
-  float best[8];
-  int arg[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    best[i] = INFINITY;
-    arg[i] = t_begin * kBN;
-  }
-
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const int code0 = tile * kBN;
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    for (int d0 = 0; d0 < D; d0 += kBK) {
-      stage_tile(z, N, D, row0, d0, zs);
-      stage_tile(e, K, D, code0, d0, es);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        float a[8], b[8];
-        unpack8(&zs[kk][ty * 4], &zs[kk][kHalf + ty * 4], a);
-        unpack8(&es[kk][tx * 4], &es[kk][kHalf + tx * 4], b);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-    // Fold this tile's scores into the running minimum; j runs over this
-    // thread's codes in ascending order, so a strict < keeps the first.
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int code = code0 + (j < 4 ? tx * 4 + j : kHalf + tx * 4 + j - 4);
-      if (code < K) {
-        const float eq = __ldg(esq + code);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float s = eq - 2.f * acc[i][j];
-          if (s < best[i]) {
-            best[i] = s;
-            arg[i] = code;
-          }
-        }
-      }
-    }
-  }
-
-  // The 16 threads of a row group (one half-warp) hold disjoint codes of
-  // the same rows: reduce to the least score, the lower code on equality.
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float v = best[i];
-    int a = arg[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      min_pair(v, a, __shfl_xor_sync(kFullMask, v, off),
-               __shfl_xor_sync(kFullMask, a, off));
-    const int row = row0 + (i < 4 ? ty * 4 + i : kHalf + ty * 4 + i - 4);
-    if (tx == 0 && row < N) {
-      part_val[static_cast<int64_t>(split) * N + row] = v;
-      part_idx[static_cast<int64_t>(split) * N + row] = a;
-    }
-  }
-}
-
-// ------------------------------------------------------------ wgmma variant
+// ------------------------------------------------------------ search kernel
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -317,16 +235,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// Load the box of a 2-D tensor map at coordinates (c0 innermost, c1) into
-// shared memory; completion is counted in bytes on `bar`. Elements outside
-// the tensor are filled with zeros. `map` must live in kernel parameter
-// space (a __grid_constant__ argument).
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
-                                            uint32_t bar, int c0, int c1) {
+// Load the box of a 3-D tensor map at coordinates (c0 innermost, c1, c2)
+// into shared memory; completion is counted in bytes on `bar`. Elements
+// outside the tensor are filled with zeros. `map` must live in kernel
+// parameter space (a __grid_constant__ argument).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];" :: "r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" :: "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 
@@ -402,13 +322,17 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a,
 #undef HQT_ACC4
 
 // Grid (row tiles, splits), kTcThreads threads, kTcSmem bytes of dynamic
-// shared memory. Same outputs as vq_argmin_kernel.
+// shared memory. zmap and emap: 3-D tensor maps (piece, row, column) of the
+// bf16 pieces. Pair i of the n_pairs takes z piece (pairs >> 4i) & 3 and
+// codebook piece (pairs >> (4i + 2)) & 3. Writes each row's minimum score
+// and its code over this block's slice of the codebook to
+// part_val/part_idx[split][row].
 __global__ void __launch_bounds__(kTcThreads, 1)
 vq_argmin_wgmma(const __grid_constant__ CUtensorMap zmap,
                 const __grid_constant__ CUtensorMap emap,
                 const float* __restrict__ esq, float* __restrict__ part_val,
                 int32_t* __restrict__ part_idx, int N, int D, int n_tiles,
-                int splits) {
+                int splits, int n_pairs, int pairs) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t full = ring + kTcStages * kTcStageBytes;  // + 8 s
@@ -440,15 +364,19 @@ vq_argmin_wgmma(const __grid_constant__ CUtensorMap zmap,
       uint32_t phase = 0;
       for (int tile = t_begin; tile < t_end; ++tile) {
         for (int c = 0; c < n_chunks; ++c) {
-          mbar_wait(empty + 8 * s, phase ^ 1);
-          const uint32_t stage = ring + s * kTcStageBytes;
-          mbar_expect_tx(full + 8 * s, kTcStageBytes);
-          tma_load_2d(stage, &zmap, full + 8 * s, c * kTcChunk, row0);
-          tma_load_2d(stage + kTcZBytes, &emap, full + 8 * s,
-                           c * kTcChunk, tile * kTcCodes);
-          if (++s == kTcStages) {
-            s = 0;
-            phase ^= 1;
+          for (int i = 0; i < n_pairs; ++i) {
+            mbar_wait(empty + 8 * s, phase ^ 1);
+            const uint32_t stage = ring + s * kTcStageBytes;
+            mbar_expect_tx(full + 8 * s, kTcStageBytes);
+            tma_load_3d(stage, &zmap, full + 8 * s, c * kTcChunk, row0,
+                        (pairs >> (4 * i)) & 3);
+            tma_load_3d(stage + kTcZBytes, &emap, full + 8 * s,
+                        c * kTcChunk, tile * kTcCodes,
+                        (pairs >> (4 * i + 2)) & 3);
+            if (++s == kTcStages) {
+              s = 0;
+              phase ^= 1;
+            }
           }
         }
       }
@@ -464,11 +392,12 @@ vq_argmin_wgmma(const __grid_constant__ CUtensorMap zmap,
     float best0 = INFINITY, best1 = INFINITY;
     int arg0 = t_begin * kTcCodes, arg1 = t_begin * kTcCodes;
     const uint32_t a_off = wg * 64 * 128;  // this warpgroup's 64 rows
+    const int n_steps = n_chunks * n_pairs;  // stages a tile
     int s = 0;
     uint32_t phase = 0;
     for (int tile = t_begin; tile < t_end; ++tile) {
       int prev = 0;
-      for (int c = 0; c < n_chunks; ++c) {
+      for (int c = 0; c < n_steps; ++c) {
         mbar_wait(full + 8 * s, phase);
         const uint32_t stage = ring + s * kTcStageBytes;
         const uint64_t da = sw128_desc(stage + a_off);
@@ -481,7 +410,7 @@ vq_argmin_wgmma(const __grid_constant__ CUtensorMap zmap,
         wgmma_commit();
         fence_acc(acc);
         if (c > 0) {
-          // The previous chunk's products are done: release its stage.
+          // The previous stage's products are done: release it.
           wgmma_wait<1>();
           fence_acc(acc);
           if (threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * prev);
@@ -583,31 +512,43 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of a row-major [rows, D] bf16 matrix, read in boxes of
-// box_rows x 64 columns with the 128-byte swizzle; zeros outside.
-bool bf16_rows_map(CUtensorMap* map, const void* ptr, int rows, int D,
-                   int box_rows) {
+// A tensor map of `pieces` row-major [rows, D] bf16 matrices, one after
+// the other, read in boxes of one piece x box_rows x 64 columns with the
+// 128-byte swizzle; zeros outside.
+bool bf16_pieces_map(CUtensorMap* map, const void* ptr, int pieces, int rows,
+                     int D, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
-  const cuuint32_t box[2] = {kTcChunk, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t steps[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(pieces)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(D) * 2,
+      static_cast<cuuint64_t>(rows) * static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[3] = {kTcChunk, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(ptr), dims, strides, box, steps,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename TE>
-cudaError_t launch_norms(const void* e, float* esq, int K, int K_pad, int D,
-                         cudaStream_t stream) {
-  constexpr int kCodesPerBlock = kNormThreads / 32;
-  vq_code_norms<TE><<<(K_pad + kCodesPerBlock - 1) / kCodesPerBlock,
-                      kNormThreads, 0, stream>>>(static_cast<const TE*>(e),
-                                                 esq, K, K_pad, D);
+// The first pass over one operand: its pieces where it is f32 (`pieces`
+// non-null) and, where `esq` is given, the norms of its rows padded to
+// rows_pad.
+cudaError_t launch_prepare(int dtype, const void* src, void* pieces,
+                           float* esq, int rows, int rows_pad, int D,
+                           cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kPrepThreads / 32;
+  const int blocks = (rows_pad + kRowsPerBlock - 1) / kRowsPerBlock;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(pieces);
+  if (dtype == 0)
+    vq_prepare<float><<<blocks, kPrepThreads, 0, stream>>>(
+        static_cast<const float*>(src), out, esq, rows, rows_pad, D);
+  else
+    vq_prepare<__nv_bfloat16><<<blocks, kPrepThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(src), out, esq, rows, rows_pad, D);
   return cudaGetLastError();
 }
 
@@ -620,25 +561,37 @@ cudaError_t launch_reduce(const float* part_val, const int32_t* part_idx,
   return cudaGetLastError();
 }
 
-template <typename TZ, typename TE>
-int launch_simt(const void* z, const void* e, float* esq, float* part_val,
-                int32_t* part_idx, int64_t* codes, int N, int K, int K_pad,
-                int D, int splits, cudaStream_t stream) {
-  cudaError_t err = launch_norms<TE>(e, esq, K, K_pad, D, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + kBM - 1) / kBM, splits);
-  vq_argmin_kernel<TZ, TE><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TZ*>(z), static_cast<const TE*>(e), esq, part_val,
-      part_idx, N, K, D, splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_reduce(part_val, part_idx, codes, N, splits,
-                                        stream));
-}
+}  // namespace
 
-int launch_wgmma(const void* z, const void* e, float* esq, float* part_val,
-                 int32_t* part_idx, int64_t* codes, int N, int K, int K_pad,
-                 int D, int splits, cudaStream_t stream) {
+// z_dtype, e_dtype: 0 = float32, 1 = bfloat16. z: contiguous [N, D]; e:
+// contiguous [K, D]; both 16-byte aligned, D a multiple of 8. z_pieces [3,
+// N, D] and e_pieces [3, K, D] bf16 are scratch for an f32 operand and
+// unused (may be null) for a bf16 one. esq [ceil(K / 256) * 256] f32,
+// part_val [splits, N] f32 and part_idx [splits, N] int32 are scratch;
+// codes: [N] int64. 1 <= splits <= the number of 256-code tiles. Returns
+// cudaGetLastError() after the launches (0 on success). The kernel sums the
+// products of n_pairs pairs of pieces: pair i is z piece (pairs >> 4i) & 3
+// and codebook piece (pairs >> (4i + 2)) & 3 (the list is the wrapper's,
+// ops/vq_argmin.py::piece_pairs); a pair naming a piece the operand does
+// not have is refused.
+extern "C" int hqt_vq_argmin(int z_dtype, int e_dtype, const void* z,
+                             const void* e, void* z_pieces, void* e_pieces,
+                             float* esq, float* part_val, int32_t* part_idx,
+                             int64_t* codes, int N, int K, int D, int splits,
+                             int n_pairs, int pairs, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int K_pad = (K + kCodePad - 1) / kCodePad * kCodePad;
+  if (N <= 0 || K <= 0 || D <= 0 || D % 8 != 0 || splits < 1 ||
+      splits > K_pad / kTcCodes || (z_dtype != 0 && z_dtype != 1) ||
+      (e_dtype != 0 && e_dtype != 1) || (z_dtype == 0 && !z_pieces) ||
+      (e_dtype == 0 && !e_pieces) || n_pairs < 1 || n_pairs > kMaxPairs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // An f32 operand is its three pieces, a bf16 one its own single piece.
+  const int pz = z_dtype == 0 ? kMaxPieces : 1;
+  const int pe = e_dtype == 0 ? kMaxPieces : 1;
+  for (int i = 0; i < n_pairs; ++i)
+    if (((pairs >> (4 * i)) & 3) >= pz || ((pairs >> (4 * i + 2)) & 3) >= pe)
+      return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -647,54 +600,26 @@ int launch_wgmma(const void* z, const void* e, float* esq, float* part_val,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
+  const void* zs = z_dtype == 0 ? z_pieces : z;
+  const void* es = e_dtype == 0 ? e_pieces : e;
   CUtensorMap zmap, emap;
-  if (!bf16_rows_map(&zmap, z, N, D, kTcRows) ||
-      !bf16_rows_map(&emap, e, K, D, kTcCodes))
+  if (!bf16_pieces_map(&zmap, zs, pz, N, D, kTcRows) ||
+      !bf16_pieces_map(&emap, es, pe, K, D, kTcCodes))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = launch_norms<__nv_bfloat16>(e, esq, K, K_pad, D, stream);
+
+  cudaError_t err = cudaSuccess;
+  if (z_dtype == 0)
+    err = launch_prepare(0, z, z_pieces, nullptr, N, N, D, s);
+  if (err == cudaSuccess)
+    err = launch_prepare(e_dtype, e, e_dtype == 0 ? e_pieces : nullptr, esq,
+                         K, K_pad, D, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kTcRows - 1) / kTcRows, splits);
-  vq_argmin_wgmma<<<grid, kTcThreads, kTcSmem, stream>>>(
-      zmap, emap, esq, part_val, part_idx, N, D, K_pad / kTcCodes, splits);
+  vq_argmin_wgmma<<<grid, kTcThreads, kTcSmem, s>>>(
+      zmap, emap, esq, part_val, part_idx, N, D, K_pad / kTcCodes, splits,
+      n_pairs, pairs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_reduce(part_val, part_idx, codes, N, splits,
-                                        stream));
-}
-
-}  // namespace
-
-// z_dtype, e_dtype: 0 = float32, 1 = bfloat16; bf16 with bf16 runs the
-// wgmma variant, every other pair the SIMT variant. z: contiguous [N, D];
-// e: contiguous [K, D]; both 16-byte aligned; D a multiple of 8 for wgmma,
-// of 16 for SIMT. esq [ceil(K / 256) * 256] f32, part_val [splits, N] f32
-// and part_idx [splits, N] int32 are scratch; codes: [N] int64. 1 <= splits
-// <= min(number of code tiles, 65535), with tiles of 256 codes (wgmma) or
-// 128 (SIMT). Returns cudaGetLastError() after the launches (0 on success).
-extern "C" int hqt_vq_argmin(int z_dtype, int e_dtype, const void* z,
-                             const void* e, float* esq, float* part_val,
-                             int32_t* part_idx, int64_t* codes, int N, int K,
-                             int D, int splits, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int K_pad = (K + kCodePad - 1) / kCodePad * kCodePad;
-  if (N <= 0 || K <= 0 || D <= 0 || splits < 1 || splits > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (z_dtype == 1 && e_dtype == 1) {
-    if (D % 8 != 0 || splits > K_pad / kTcCodes)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return launch_wgmma(z, e, esq, part_val, part_idx, codes, N, K, K_pad, D,
-                        splits, s);
-  }
-  if (D % kBK != 0 || splits > (K + kBN - 1) / kBN)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (z_dtype == 0 && e_dtype == 0)
-    return launch_simt<float, float>(z, e, esq, part_val, part_idx, codes, N,
-                                     K, K_pad, D, splits, s);
-  if (z_dtype == 0 && e_dtype == 1)
-    return launch_simt<float, __nv_bfloat16>(z, e, esq, part_val, part_idx,
-                                             codes, N, K, K_pad, D, splits, s);
-  if (z_dtype == 1 && e_dtype == 0)
-    return launch_simt<__nv_bfloat16, float>(z, e, esq, part_val, part_idx,
-                                             codes, N, K, K_pad, D, splits, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+                                        s));
 }

@@ -18,13 +18,22 @@ it launches the kernel or raises; on a CPU tensor it runs
 The plain version builds the CDF with `torch.cumsum`; the TPU kernel and the
 CUDA kernel sum in other orders, so a draw within a few f32 ulps of a CDF
 boundary may land on the neighbouring kept code. Nothing else differs.
+
+The CUDA kernel reaches the bisection's threshold another way: it selects
+the k-th largest logit exactly (a radix select over `radix_key`), takes the
+(k+1)-th from its last histogram or one more reduction, divides both and
+the row max by the temperature (IEEE division by a positive number keeps
+order, so these are v_k, v_{k+1} and max of x) and replays the bisection
+from those three numbers alone. Logits must not be NaN. `replay_threshold` is the plain version of those steps
+(`kth_pair`, then `bisection_replay`); the tests hold it bit for bit to
+`topk_threshold`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,7 +41,7 @@ from . import cuda_build
 
 BISECT_RANGE = 44.0
 BISECT_ITERS = 26
-MAX_VOCAB = 16384  # 512 threads x 32 values per thread; the configs' largest
+MAX_VOCAB = 16384  # 256 threads x 64 values per thread; the configs' largest
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,15 +55,12 @@ def scaled_logits(logits: torch.Tensor, temperature: float) -> torch.Tensor:
     return logits.float() / t
 
 
-def topk_threshold(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
+def topk_threshold(x: torch.Tensor, k: int) -> torch.Tensor:
     """Per-row threshold [N, 1] whose kept set {x >= thr} is the exact
-    top-k-with-ties of the f32 rows x [N, V], and the number of bisection
-    steps [N] each row ran before it froze (0 when k >= V)."""
-    N, V = x.shape
-    iters = torch.zeros(N, dtype=torch.int32, device=x.device)
-    if k >= V:
-        return x.amin(dim=-1, keepdim=True), iters
+    top-k-with-ties of the f32 rows x [N, V], for rows whose k-th value
+    lies within BISECT_RANGE of their max."""
+    if k >= x.shape[-1]:
+        return x.amin(dim=-1, keepdim=True)
     row_max = x.amax(dim=-1, keepdim=True)
     lo = row_max - BISECT_RANGE
     hi = row_max + 1e-6
@@ -63,12 +69,67 @@ def topk_threshold(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
         mid = 0.5 * (lo + hi)
         ge = (x >= mid).sum(dim=-1, keepdim=True)
         live = ~done
-        iters += live[:, 0].int()
         take = (ge >= k) & live
         lo = torch.where(take, mid, lo)
         hi = torch.where((ge < k) & live, mid, hi)
         done = done | (take & (ge == k))
-    return lo, iters
+    return lo
+
+
+def radix_key(x: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's order-preserving key of f32 values, as int64 in
+    [0, 2^32): the sign bit flipped for x >= +0, every bit for negatives.
+    x < y implies key(x) < key(y); -0 sorts just below +0."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64) \
+        & 0xFFFFFFFF
+    return torch.where(bits >= 2**31, bits ^ 0xFFFFFFFF, bits ^ 0x80000000)
+
+
+def _from_key(key: torch.Tensor) -> torch.Tensor:
+    bits = torch.where(key >= 2**31, key ^ 0x80000000, key ^ 0xFFFFFFFF)
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def kth_pair(a: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k-th and (k+1)-th largest values [N, 1] of the rows a [N, V]
+    (1 <= k < V), in f32, as the CUDA kernel finds them: the values of the
+    k-th and (k+1)-th largest keys (for bf16 rows the kernel's 16-bit key
+    is this key's upper half). The kernel reads the tie (k+1)-th = k-th
+    from its last radix histogram and otherwise takes the largest key
+    below the k-th."""
+    keys = torch.topk(radix_key(a.float()), k + 1, dim=-1).values
+    return _from_key(keys[:, k - 1:k]), _from_key(keys[:, k:k + 1])
+
+
+def bisection_replay(row_max: torch.Tensor, v_k: torch.Tensor,
+                     v_k1: torch.Tensor) -> torch.Tensor:
+    """`topk_threshold`'s bisection replayed from three numbers a row, in
+    the same f32 arithmetic: count(x >= mid) >= k is mid <= v_k, and
+    count == k is, besides, v_{k+1} < mid."""
+    lo = row_max - BISECT_RANGE
+    hi = row_max + 1e-6
+    done = torch.zeros_like(lo, dtype=torch.bool)
+    for _ in range(BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        ge = mid <= v_k
+        live = ~done
+        lo = torch.where(ge & live, mid, lo)
+        hi = torch.where(~ge & live, mid, hi)
+        done = done | (ge & live & (v_k1 < mid))
+    return lo
+
+
+def replay_threshold(logits: torch.Tensor, k: int,
+                     temperature: float) -> torch.Tensor:
+    """The CUDA kernel's threshold [N, 1] for k < V: the select on the
+    logits as stored, three divisions by the temperature, the replay."""
+    def scaled(a):
+        return scaled_logits(a, temperature)
+
+    v_k, v_k1 = kth_pair(logits, k)
+    return bisection_replay(scaled(logits.float().amax(-1, keepdim=True)),
+                            scaled(v_k), scaled(v_k1))
 
 
 def sample_topk_plain(logits: torch.Tensor, u: torch.Tensor, k: int,
@@ -76,7 +137,7 @@ def sample_topk_plain(logits: torch.Tensor, u: torch.Tensor, k: int,
     """Plain PyTorch version of the sampling kernel. logits: [N, V] (any
     float dtype); u: [N] uniforms in [0, 1). Returns int32 codes [N]."""
     x = scaled_logits(logits, temperature)
-    thr, _ = topk_threshold(x, k)
+    thr = topk_threshold(x, k)
     row_max = x.amax(dim=-1, keepdim=True)
     p = torch.where(x >= thr, torch.exp(x - row_max), 0.0)
     cdf = torch.cumsum(p, dim=-1)
@@ -91,18 +152,25 @@ def sample_topk_plain(logits: torch.Tensor, u: torch.Tensor, k: int,
 def _kernel():
     fn = cuda_build.load('sample_topk').hqt_sample_topk
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i32, ptr, ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
+    fn.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, ctypes.c_float,
+                   ptr]
     fn.restype = i32
     return fn
 
 
 def sample_topk(logits: torch.Tensor, u: torch.Tensor, k: int,
-                temperature: float) -> torch.Tensor:
+                temperature: float,
+                threshold: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Top-k filtered categorical draw per row: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors. logits: [N, V] float32 or
     bfloat16; u: [N] float32 uniforms; 1 <= k (k >= V keeps every logit).
-    Returns int32 codes [N]."""
+    `threshold`, a contiguous float32 [N] tensor on the kernel's device,
+    receives each row's threshold (the kept set is x >= threshold) where
+    given; the sampler passes none. Returns int32 codes [N]."""
     if logits.device.type == 'cpu':
+        if threshold is not None:
+            threshold.copy_(topk_threshold(scaled_logits(logits, temperature),
+                                           k)[:, 0])
         return sample_topk_plain(logits, u, k, temperature)
     if logits.device.type != 'cuda':
         raise ValueError(f'no top-k sampling for device {logits.device}')
@@ -121,11 +189,23 @@ def sample_topk(logits: torch.Tensor, u: torch.Tensor, k: int,
                          f'{logits.device}')
     if k < 1:
         raise ValueError(f'top-k needs k >= 1, got {k}')
+    if not 0.0 < temperature < float('inf'):
+        # the kernel selects on the logits as stored: dividing by the
+        # temperature must keep their order
+        raise ValueError(f'need a positive finite temperature, got '
+                         f'{temperature}')
+    if threshold is not None and (
+            threshold.shape != (N,) or threshold.dtype != torch.float32
+            or not threshold.is_contiguous()
+            or threshold.device != logits.device):
+        raise ValueError(f'threshold must be a contiguous float32 [{N}] '
+                         f'tensor on {logits.device}')
     out = torch.empty(N, dtype=torch.int32, device=logits.device)
     stream = torch.cuda.current_stream(logits.device).cuda_stream
     rc = _kernel()(_DTYPE_CODES[logits.dtype], logits.data_ptr(),
-                   u.data_ptr(), out.data_ptr(), N, V, int(k),
-                   float(temperature), stream)
+                   u.data_ptr(), out.data_ptr(),
+                   None if threshold is None else threshold.data_ptr(), N, V,
+                   int(k), float(temperature), stream)
     if rc != 0:
         raise RuntimeError(f'sample_topk kernel launch failed: CUDA error '
                            f'{rc}')

@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip('torch')
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from hqtransformer_tpu.ops import masks as jax_masks  # noqa: E402
@@ -24,6 +25,7 @@ from hqtransformer_tpu_torch.ops import (  # noqa: E402
 from hqtransformer_tpu_torch.ops.decode_attention import \
     decode_attention_step_plain  # noqa: E402
 from hqtransformer_tpu_torch.ops.sample_topk import (  # noqa: E402
+    BISECT_RANGE, bisection_replay, kth_pair, radix_key, replay_threshold,
     sample_topk, sample_topk_plain, scaled_logits, topk_threshold)
 
 
@@ -115,7 +117,7 @@ def _check_draws(logits, u, k, temperature, bf16=False):
     assert ours.dtype == np.int32 and ours.shape == (N,)
 
     x = scaled_logits(t_logits, temperature)
-    thr, _ = topk_threshold(x, k)
+    thr = topk_threshold(x, k)
     kept = (x >= thr).numpy()
     exact = np.asarray(cutoff_topk_logits(jnp.asarray(x.numpy()), k,
                                           use_bisect=False)) > -np.inf
@@ -160,6 +162,93 @@ def test_sample_topk_wrapper_takes_plain_on_cpu():
     np.testing.assert_array_equal(sample_topk(logits, u, 20, 0.9).numpy(),
                                   sample_topk_plain(logits, u, 20, 0.9)
                                   .numpy())
+
+
+def _hard_rows(kind, n, v, seed):
+    """Rows that stress the threshold: 'random' N(0, 9); 'ties', integer
+    values with many exact ties at every rank; 'zeros', 90% +0.0 and -0.0
+    (random signs) among random values, so the k-th value is a signed zero
+    for middle k; 'x30', random values scaled 30x, so the k-th value of
+    most k lies below row max - 44."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(n, v) * 3).astype(np.float32)
+    if kind == 'ties':
+        x = np.round(x)
+    elif kind == 'zeros':
+        zero = np.where(rng.rand(n, v) < 0.5, -0.0, 0.0).astype(np.float32)
+        x = np.where(rng.rand(n, v) < 0.9, zero, x)
+    elif kind == 'x30':
+        x = x * 30
+    return x
+
+
+@pytest.mark.parametrize('V', [256, 1000])
+@pytest.mark.parametrize('bf16', [False, True])
+@pytest.mark.parametrize('kind,seed', [('random', 0), ('random', 1),
+                                       ('random', 2), ('ties', 3),
+                                       ('zeros', 4), ('x30', 5)])
+def test_bisection_replay_matches_bisection(kind, seed, bf16, V):
+    """The CUDA kernel's threshold (select on the logits as stored, divide,
+    replay) equals the TPU kernel's bisection (`topk_threshold`) bit for
+    bit; the selected pair is JAX's top_k values of the logits; the kept
+    set is the exact top-k within the window [max - 44, max]."""
+    logits = torch.from_numpy(_hard_rows(kind, 48, V, seed))
+    if bf16:
+        logits = logits.bfloat16()
+    x = scaled_logits(logits, 0.95)
+    row_max = x.amax(dim=-1, keepdim=True)
+    top = np.asarray(jax.lax.top_k(jnp.asarray(logits.float().numpy()),
+                                   V)[0])
+    for k in (1, 2, 40, V - 1):
+        thr = replay_threshold(logits, k, 0.95)
+        assert torch.equal(thr.view(torch.int32),
+                           topk_threshold(x, k).view(torch.int32)), k
+        v_k, v_k1 = kth_pair(logits, k)
+        np.testing.assert_array_equal(v_k[:, 0].numpy(), top[:, k - 1])
+        np.testing.assert_array_equal(v_k1[:, 0].numpy(), top[:, k])
+        assert torch.equal(thr, bisection_replay(
+            row_max, *(scaled_logits(v, 0.95) for v in (v_k, v_k1))))
+        kth = torch.topk(x, k, dim=-1).values[:, -1:]
+        window = torch.maximum(kth, row_max - BISECT_RANGE)
+        assert torch.equal(x >= thr, x >= window), k
+
+
+def test_radix_key_sorts_like_values():
+    """The key is monotone in the value: x < y gives key(x) < key(y), and
+    equal keys only for bit-equal values; -0 sorts just below +0; +-inf,
+    subnormals and the extremes of f32 included."""
+    f32 = np.finfo(np.float32)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, f32.max, -f32.max,
+                        f32.tiny, -f32.tiny, f32.smallest_subnormal,
+                        -f32.smallest_subnormal, 1e-40, -1e-40, 1.0, -1.0,
+                        np.nextafter(np.float32(1), np.float32(2)),
+                        np.nextafter(np.float32(-1), np.float32(-2))],
+                       dtype=np.float32)
+    rng = np.random.RandomState(6)
+    x = np.concatenate([special, (rng.randn(500) * 10.0 **
+                                  rng.randint(-40, 38, 500)).astype(np.float32)])
+    key = radix_key(torch.from_numpy(x)).numpy()
+    assert key.min() >= 0 and key.max() < 2**32
+    less = x[:, None] < x[None, :]
+    assert (key[:, None] < key[None, :])[less].all()
+    bits = x.view(np.uint32)
+    same = key[:, None] == key[None, :]
+    assert (bits[:, None] == bits[None, :])[same].all()
+    assert key[1] + 1 == key[0]   # -0 just below +0
+
+
+def test_sample_topk_wrapper_threshold_on_cpu():
+    """The optional threshold output of the wrapper: on the CPU it holds
+    the plain version's threshold."""
+    logits = torch.from_numpy(_logits((16, 300), seed=11))
+    u = torch.from_numpy(np.random.RandomState(12).rand(16)
+                         .astype(np.float32))
+    thr = torch.empty(16)
+    codes = sample_topk(logits, u, 20, 0.9, threshold=thr)
+    np.testing.assert_array_equal(
+        codes.numpy(), sample_topk_plain(logits, u, 20, 0.9).numpy())
+    assert torch.equal(thr, topk_threshold(scaled_logits(logits, 0.9),
+                                           20)[:, 0])
 
 
 # ---------------------------------------------------- masks and resampling

@@ -1,7 +1,8 @@
 """The port's nearest-code search and quantize ops against the JAX package:
 `vq_argmin_plain` (the plain version of the K3 CUDA kernel) against the
 TPU kernel in interpret mode and against the XLA path, exact ties, the
-CPU dispatch of the wrapper, the split of the kernel's grid, and the
+CPU dispatch of the wrapper, the split of the kernel's grid, the f32
+operands' three-piece split and the scores of its pair lists, and the
 quantize helpers. Inputs are numpy arrays made from a seed."""
 
 import numpy as np
@@ -94,8 +95,8 @@ def test_vq_argmin_kernel_checks():
     """What the CUDA path refuses, checked before any launch."""
     ok = torch.zeros(8, 32)
     vq._check(ok, torch.zeros(16, 32))
-    with pytest.raises(ValueError, match='multiple of 16'):
-        vq._check(torch.zeros(8, 24), torch.zeros(16, 24))
+    with pytest.raises(ValueError, match='multiple of 8'):
+        vq._check(torch.zeros(8, 20), torch.zeros(16, 20))
     with pytest.raises(ValueError, match='dim'):
         vq._check(ok, torch.zeros(16, 48))
     with pytest.raises(TypeError, match='float32 or bfloat16'):
@@ -104,56 +105,133 @@ def test_vq_argmin_kernel_checks():
         vq._check(torch.zeros(32, 8).T, torch.zeros(16, 32))
 
 
-@pytest.mark.parametrize('n,k,splits', [(8192, 8192, 4), (32768, 8192, 1),
-                                        (2048, 8192, 16), (37, 1000, 8)])
-def test_codebook_splits(n, k, splits):
-    """The SIMT variant on 132 SMs: the flagship top and bottom and the
-    3-level top at the chip-smoke batches, and a small ragged search that
-    takes every tile."""
-    assert vq.codebook_splits(n, k, 132, 'simt') == splits
+@pytest.mark.parametrize('n,k,n_sms,splits', [(8192, 8192, 114, 1),
+                                              (2048, 8192, 114, 7),
+                                              (4096, 8192, 132, 4),
+                                              (32768, 1000, 132, 1)])
+def test_codebook_splits(n, k, n_sms, splits):
+    """Other card sizes and codebooks: an H100 PCIe's 114 SMs hold one
+    slice of the flagship top's 64 row tiles, and 7 uneven slices (4 or 5
+    of 32 code tiles) of the 3-level top's 16; more row tiles than SMs take
+    one slice. The split route's pair lists run the same tiles, so the
+    splits do not depend on them."""
+    assert vq.codebook_splits(n, k, n_sms) == splits
+    tiles = -(-k // vq.CODE_PAD)
+    sizes = {(s + 1) * tiles // splits - s * tiles // splits
+             for s in range(splits)}
+    assert max(sizes) - min(sizes) <= 1
 
 
 @pytest.mark.parametrize('n,k,splits', [(8192, 8192, 2), (32768, 8192, 1),
                                         (2048, 8192, 8), (37, 1000, 4)])
 def test_codebook_splits_wgmma(n, k, splits):
-    """The wgmma variant (128 rows x 256 codes, one block an SM) on 132
-    SMs at the served shapes: 64, 256 and 16 row tiles of 32 code tiles;
-    and a small ragged search that takes every tile."""
-    assert vq.codebook_splits(n, k, 132, 'wgmma') == splits
-    tiles = -(-k // vq.TILINGS['wgmma'].codes)
+    """128 rows x 256 codes a block, one block an SM, on 132 SMs at the
+    served shapes: 64, 256 and 16 row tiles of 32 code tiles; and a small
+    ragged search that takes every tile."""
+    assert vq.codebook_splits(n, k, 132) == splits
+    tiles = -(-k // vq.CODE_PAD)
     assert tiles % splits == 0 or splits == tiles
 
 
-@pytest.mark.parametrize('z_dtype,e_dtype,variant', [
-    (torch.bfloat16, torch.bfloat16, 'wgmma'),
-    (torch.float32, torch.float32, 'simt'),
-    (torch.float32, torch.bfloat16, 'simt'),
-    (torch.bfloat16, torch.float32, 'simt')])
-def test_kernel_variant(z_dtype, e_dtype, variant):
-    """bf16 operands alone take the tensor cores, whose bf16 products are
-    exact in f32; any f32 operand keeps the f32-exact SIMT variant."""
-    assert vq.kernel_variant(z_dtype, e_dtype) == variant
+@pytest.mark.parametrize('z_dtype,e_dtype,pieces,n_pairs', [
+    (torch.bfloat16, torch.bfloat16, (1, 1), 1),
+    (torch.float32, torch.float32, (3, 3), 6),
+    (torch.float32, torch.bfloat16, (3, 1), 3),
+    (torch.bfloat16, torch.float32, (1, 3), 3)])
+def test_kernel_variant(z_dtype, e_dtype, pieces, n_pairs):
+    """An f32 operand runs as three bf16 pieces, a bf16 one as itself; the
+    kernel sums the products of 6, 3 or 1 pairs of pieces, hi.hi first,
+    and for f32 x f32 drops mid.lo, lo.mid and lo.lo."""
+    assert vq.kernel_variant(z_dtype, e_dtype) == pieces
     assert vq._check(torch.zeros(8, 64, dtype=z_dtype),
-                     torch.zeros(16, 64, dtype=e_dtype)) == variant
+                     torch.zeros(16, 64, dtype=e_dtype)) == pieces
+    pairs = vq.piece_pairs(pieces)
+    assert len(pairs) == n_pairs and pairs[0] == (0, 0)
+    assert all(p < pieces[0] and q < pieces[1] for p, q in pairs)
+    assert not {(1, 2), (2, 1), (2, 2)} & set(pairs)
+    # the kernel reads pair i from bits 4i..4i+3: z piece low, codebook high
+    packed = vq.pack_pairs(pairs)
+    assert packed < 2**31
+    assert tuple(((packed >> 4 * i) & 3, (packed >> 4 * i + 2) & 3)
+                 for i in range(n_pairs)) == pairs
 
 
 def test_vq_argmin_tma_checks():
-    """The wgmma variant's TMA loads need 16-byte aligned pointers and
-    rows of a multiple of 16 bytes (D a multiple of 8 in bf16); the SIMT
-    variant keeps its multiple of 16."""
-    bf = torch.bfloat16
+    """TMA loads need 16-byte aligned pointers and bf16 rows of a multiple
+    of 16 bytes, so D a multiple of 8 for every dtype pair (an f32
+    operand's pieces are bf16, and its split pass reads 8 values at a
+    time)."""
+    bf, f32 = torch.bfloat16, torch.float32
     assert vq._check(torch.zeros(8, 24, dtype=bf),
-                     torch.zeros(16, 24, dtype=bf)) == 'wgmma'
-    with pytest.raises(ValueError, match='multiple of 8'):
-        vq._check(torch.zeros(8, 20, dtype=bf), torch.zeros(16, 20, dtype=bf))
-    with pytest.raises(ValueError, match='multiple of 16'):
-        vq._check(torch.zeros(8, 24), torch.zeros(16, 24))
+                     torch.zeros(16, 24, dtype=bf)) == (1, 1)
+    assert vq._check(torch.zeros(8, 24), torch.zeros(16, 24)) == (3, 3)
+    for zt, et in ((bf, bf), (f32, f32), (f32, bf), (bf, f32)):
+        with pytest.raises(ValueError, match='multiple of 8'):
+            vq._check(torch.zeros(8, 20, dtype=zt),
+                      torch.zeros(16, 20, dtype=et))
     shifted = torch.zeros(8 * 64 + 1, dtype=bf)[1:].view(8, 64)
     with pytest.raises(ValueError, match='16-byte aligned'):
         vq._check(shifted, torch.zeros(16, 64, dtype=bf))
     with pytest.raises(ValueError, match='16-byte aligned'):
         vq._check(torch.zeros(8, 64, dtype=bf),
                   torch.zeros(16 * 64 + 4, dtype=bf)[4:].view(16, 64))
+
+
+@pytest.mark.parametrize('scale', [1.0, 1e-3, 1e4])
+def test_split3_is_exact(scale):
+    """hi + mid + lo == x exactly (in f64) for normal f32 x, hi is x
+    rounded to bf16, and each piece is at most half an ulp of the one
+    before."""
+    rng = np.random.RandomState(int(scale * 1000) % 997)
+    x = torch.from_numpy((rng.randn(4000) * scale).astype(np.float32))
+    x = torch.cat([x, torch.tensor([1.0, -1.0, 3.0 - 2**-22, 1 + 2**-23,
+                                    0.0, -0.0, 2.0**-100, -(2.0**100)])])
+    hi, mid, lo = vq.split3(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    total = hi.double() + mid.double() + lo.double()
+    assert torch.equal(total, x.double())
+    assert torch.equal(hi, x.bfloat16())
+    for big, small in ((hi, mid), (mid, lo)):
+        ulp = torch.where(big == 0, 0.0, big.double().abs() * 2.0**-7)
+        assert (small.double().abs() <= ulp).all()
+
+
+@pytest.mark.parametrize('n,k,d', [(300, 512, 64), (64, 1000, 1024)])
+@pytest.mark.parametrize('z_bf16,e_bf16', [(False, False), (False, True),
+                                           (True, False)])
+def test_split_scores_match_jax(n, k, d, z_bf16, e_bf16):
+    """The scores of the split route's pair lists (f32 x f32: 6 pairs,
+    mixed: 3) pick the codes of the TPU kernel in interpret mode and of the
+    XLA path, but for near-ties."""
+    rng = np.random.RandomState(n + k + d)
+    z = rng.randn(n, d).astype(np.float32)
+    e = rng.randn(k, d).astype(np.float32)
+    tz, te = torch.from_numpy(z), torch.from_numpy(e)
+    jz, je = jnp.asarray(z), jnp.asarray(e)
+    if z_bf16:
+        tz, jz = tz.bfloat16(), jz.astype(jnp.bfloat16)
+        z = tz.float().numpy()
+    if e_bf16:
+        te, je = te.bfloat16(), je.astype(jnp.bfloat16)
+        e = te.float().numpy()
+    scores = vq.split_scores(tz, te)
+    assert scores.dtype == torch.float32 and scores.shape == (n, k)
+    ours = scores.argmin(dim=1).numpy()
+    for ref in (np.asarray(vq_argmin_pallas(jz, je, interpret=True)),
+                np.asarray(jq.vq_lookup(jz, je, use_pallas=False))):
+        assert _count_near_ties(z, e, ours, ref) == 0
+
+
+def test_split_scores_exact_ties_go_to_lowest_index():
+    """Integer-valued f32 operands split into hi alone (mid = lo = 0), so
+    every score is exact and each tie takes the lowest index."""
+    rng = np.random.RandomState(4)
+    base = np.repeat(rng.randint(-3, 4, (100, 16)), 2, axis=0)
+    e = np.concatenate([base, base]).astype(np.float32)
+    z = rng.randint(-3, 4, (200, 16)).astype(np.float32)
+    exact = np.argmin(((z[:, None, :] - e[None]) ** 2).sum(-1), axis=1)
+    ours = vq.split_scores(torch.from_numpy(z), torch.from_numpy(e))
+    np.testing.assert_array_equal(ours.argmin(dim=1).numpy(), exact)
 
 
 def test_quantize_ops_match_jax():
