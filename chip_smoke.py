@@ -74,6 +74,36 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
    sampled through the CUDA kernels and through the CPU plain versions with
    the same weights: equal codes, pixels within 1e-3; and the same images
    encoded on both: `extract_codes` equal, reconstructions within 1e-3.
+7. int8max serving (run right after phase 3, on its model and weights):
+   - decode attention's int8 variant against its plain version with int8
+     caches and an f32 or bf16 q, at phase 2's cases: caches bit-equal,
+     y (in the int8 values' units, dequantized by a V scale of 1/127)
+     allclose at 1e-5 (f32 q) / 2e-2 (bf16 q); then timed at pos 33,
+     B 128, beside the bf16 kernel (no single PyTorch call attends over an
+     int8 cache: its library time is null; bf16 SDPA over the dequantized
+     cache is printed for context);
+   - the A8W8 products on the card against the CPU on the same int8
+     inputs (`_int_mm` at the flagship's fused-QKV and MLP gemm shapes,
+     the int8 convolution at the decoder's largest, 128 channels at 256^2
+     on 2 images): int32 results equal;
+   - calibration at the flagship: KV scales from one bf16 sampling run at
+     batch 128 (`calibrate_kv_scales`), stage-2 activation scales from the
+     teacher-forced forward on that run's codes (the same generator seed)
+     and decode scales from `decode_code` on them; saved to
+     build/int8max_scales.pkl and loaded back bit for bit;
+   - `make_pipelined_sampler` in int8max (all four switches) and in bf16
+     on the same labels, batch 128: one fill call and two steady calls,
+     each with codes in [0, 8192), pixels [128, 256, 256, 3] finite in
+     [0, 1], 756 decode-attention launches (all on the int8 variant in
+     int8max) and 128 sampling launches, and int8 gemms and convolutions
+     counted (int8max) or none (bf16); samples/s and peak memory; then the
+     int8max AR loop and int8 decode broken down under torch.profiler; one
+     steady call of each mode at batch 1024 (samples/s, peak memory); one
+     steady call at batch 128 in int8max without the spatial gemms
+     (bench.py's BENCH_INT8_SPATIAL=0), with the same checks;
+   - the bf16 run's codes through `make_hierarchical_scorer` in bf16 and
+     in int8max: top-1 agreement of the per-step logits and their mean KL
+     (numbers to record; the weights are random).
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
@@ -120,6 +150,9 @@ B_LEVEL3 = 32
 NEAR_TIE = 1e-5
 # Names of the port's kernels as the profiler reports them.
 PORT_KERNELS = ('decode_attention_kernel', 'sample_topk_kernel', 'vq_')
+# int8max: the batch at which the cache's size matters, and the artifact.
+B_LARGE = 1024
+SCALES_PATH = ROOT / 'build' / 'int8max_scales.pkl'
 
 
 def require(ok, message) -> None:
@@ -280,6 +313,93 @@ def time_decode_attention(da):
           f'({rate / HBM_BYTES_PER_S:.1%} of {HBM_BYTES_PER_S / 1e12:.2f} '
           f'TB/s)')
     return kernel, plain, library, bound(n_bytes, flops)
+
+
+def check_decode_attention_int8(da):
+    """K1's int8 variant: int8 caches and new rows, f32 or bf16 q, at the
+    cases of check_decode_attention."""
+    max_err = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for n_layers, n_rows, batch, positions in K1_CASES:
+            for pos in positions:
+                g = torch.Generator(device='cuda').manual_seed(pos)
+
+                def randint8(*shape):
+                    return torch.randint(-127, 128, shape, generator=g,
+                                         device='cuda', dtype=torch.int8)
+
+                kc = randint8(n_layers, n_rows, batch, D)
+                vc = randint8(n_layers, n_rows, batch, D)
+                kn, vn = randint8(batch, D), randint8(batch, D)
+                q = (torch.randn((batch, D), generator=g, device='cuda') *
+                     0.02).to(dtype)
+                layer = pos % n_layers
+                kc1, vc1 = kc.clone(), vc.clone()
+                y1 = da.decode_attention_step(q, kn, vn, kc1, vc1, layer,
+                                              pos, NH)
+                y2 = da.decode_attention_step_plain(q, kn, vn, kc, vc, layer,
+                                                    pos, NH)
+                torch.cuda.synchronize()
+                require(torch.equal(kc1, kc) and torch.equal(vc1, vc),
+                        f'K1 int8 cache rows differ ({dtype} q, T {n_rows}, '
+                        f'pos {pos})')
+                # y is in the int8 values' units (|v| <= 127): compare it
+                # dequantized by a V scale of 1/127, as the caller scales it
+                y1, y2 = y1.float() / 127, y2.float() / 127
+                err = (y1 - y2).abs().max().item()
+                torch.testing.assert_close(y1, y2, atol=tol, rtol=tol)
+                max_err[dtype] = max(max_err.get(dtype, 0.0), err)
+                print(f'K1 int8 cache, {str(dtype):14s} q T={n_rows:3d} '
+                      f'B={batch:3d} pos={pos:3d}: caches bit-equal, '
+                      f'max|y - plain| / 127 = {err:.3e} (tol {tol})')
+    return max_err[torch.bfloat16]
+
+
+def time_decode_attention_int8(da):
+    """int8 caches with a bf16 q at pos 33, batch 128, the layer rotating
+    over all 12, beside the bf16 kernel on a bf16 cache of the same values
+    in the same call. No single PyTorch call attends over an int8 cache,
+    so the library time is None; bf16 SDPA over the dequantized cache is
+    printed for context."""
+    g = torch.Generator(device='cuda').manual_seed(2)
+    kc, vc = (torch.randint(-127, 128, (L, T, B, D), generator=g,
+                            device='cuda', dtype=torch.int8)
+              for _ in range(2))
+    kn, vn = (torch.randint(-127, 128, (B, D), generator=g, device='cuda',
+                            dtype=torch.int8) for _ in range(2))
+    q = (torch.randn((B, D), generator=g, device='cuda') * 0.02).bfloat16()
+    pos, hd = TIMED_POS, D // NH
+    kernel = time_ms(lambda i: da.decode_attention_step(
+        q, kn, vn, kc, vc, i % L, pos, NH), 240)
+    plain = time_ms(lambda i: da.decode_attention_step_plain(
+        q, kn, vn, kc, vc, i % L, pos, NH), 24)
+    kb, vb = kc.bfloat16(), vc.bfloat16()
+    knb, vnb = kn.bfloat16(), vn.bfloat16()
+    bf16 = time_ms(lambda i: da.decode_attention_step(
+        q, knb, vnb, kb, vb, i % L, pos, NH), 240)
+    ks = kb[:, :pos + 1].reshape(L, pos + 1, B, NH, hd).permute(
+        0, 2, 3, 1, 4).contiguous()
+    vs = vb[:, :pos + 1].reshape(L, pos + 1, B, NH, hd).permute(
+        0, 2, 3, 1, 4).contiguous()
+    qh = q.reshape(B, NH, 1, hd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    context = time_ms(lambda i: sdpa(qh, ks[i % L], vs[i % L]), 240)
+    # bytes: q (bf16), k_new and v_new (int8) and the 2*pos int8 cache rows
+    # read; the two new int8 rows and y (bf16) written. flops: q.k and a.v
+    # over pos+1 rows.
+    n_bytes = B * D * (2 + 1 + 1 + 2 * pos + 2 + 2)
+    flops = 2 * 2 * (pos + 1) * B * D
+    bnd = bound(n_bytes, flops)
+    rate = n_bytes / (kernel / 1e3)
+    print(f'K1 int8 cache, bf16 q, pos {pos} B {B}: kernel {kernel:.5f} ms '
+          f'({rate / 1e12:.3f} TB/s over the bound\'s {n_bytes / 2**20:.2f} '
+          f'MiB), bound {bnd[0]:.5f} ms ({bnd[1]}; kernel '
+          f'{kernel / bnd[0]:.2f}x), plain {plain:.4f} ms; the bf16 kernel '
+          f'on the same values {bf16:.5f} ms in this call')
+    print(f'K1 int8 library time: none (no PyTorch call attends over an '
+          f'int8 cache); for context only, bf16 SDPA over the dequantized '
+          f'cache {context:.5f} ms')
+    return kernel, plain, None, bnd
 
 
 # ---------------------------------------------------------- K2 top-k sample
@@ -697,6 +817,235 @@ def profile_phases(phases):
     return out
 
 
+# ------------------------------------------------------- int8max serving
+
+def check_int8_products(q8):
+    """The A8W8 products on the card against the CPU on the same int8
+    inputs: `_int_mm` at the flagship's fused-QKV and first MLP gemm
+    shapes (batch 128 rows), and the int8 convolution at the decoder's
+    largest (128 channels at 256^2, 2 images, 3x3). int32 results (and the
+    convolution's dequantized output) must be equal."""
+    g = torch.Generator(device='cuda').manual_seed(12)
+    for M, K, N in ((B, D, 3 * D), (B, D, 4 * D)):
+        a = torch.randint(-127, 128, (M, K), generator=g, device='cuda',
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (N, K), generator=g, device='cuda',
+                          dtype=torch.int8)
+        card = q8.int_mm(a, w)
+        require(torch.equal(card.cpu(), q8.int_mm(a.cpu(), w.cpu())),
+                f'int8 gemm [{M}, {K}] x [{K}, {N}] differs from the CPU')
+        print(f'int8 gemm [{M}, {K}] x [{K}, {N}]: int32 result equal to '
+              f'the CPU\'s')
+    x = torch.randn((2, 128, 256, 256), generator=g, device='cuda').bfloat16()
+    w = (torch.randn((128, 128, 3, 3), generator=g, device='cuda') *
+         0.03).bfloat16()
+    bias = torch.randn(128, generator=g, device='cuda') * 0.1
+    scale = q8.scale_from_absmax(q8.absmax(x))
+    card = q8.Int8Weight.from_float(w, bias, scale)
+    cpu = q8.Int8Weight.from_float(w.cpu(), bias.cpu(), scale.cpu())
+    require(torch.equal(card.wq.cpu(), cpu.wq), 'int8 conv weights differ')
+    xq = q8.quant_per_tensor(x, scale)
+    require(torch.equal(xq.cpu(), q8.quant_per_tensor(x.cpu(), scale.cpu())),
+            'int8 quantized activations differ from the CPU')
+    cols = torch.nn.functional.pad(xq.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([cols[:, i:i + 256, j:j + 256] for i in range(3)
+                      for j in range(3)], dim=-1).reshape(-1, 9 * 128)
+    acc = q8.int_mm(cols, card.wq)
+    require(torch.equal(acc.cpu(), q8.int_mm(cols.cpu(), cpu.wq)),
+            'int8 conv int32 products differ from the CPU')
+    y = q8.int8_conv2d(x, card, (3, 3), (1, 1), (1, 1))
+    y_cpu = q8.int8_conv2d(x.cpu(), cpu, (3, 3), (1, 1), (1, 1))
+    require(torch.equal(y.cpu(), y_cpu), 'int8 conv output differs from '
+            'the CPU')
+    print('int8 conv [2, 128, 256, 256] 3x3 -> 128: int32 products and '
+          'bf16 output equal to the CPU\'s')
+
+
+def calibrate_int8max(model, weights, params, labels):
+    """The three calibrations at the flagship, on one bf16 sampling run's
+    codes (the KV calibration and the run share a generator seed, so they
+    draw the same codes), then the artifact saved and loaded back; returns
+    the loaded scales."""
+    from hqtransformer_tpu_torch.models.stage2.hierarchical import \
+        cells_to_raster
+    from hqtransformer_tpu_torch.models.twostage import (load_serving_scales,
+                                                         save_serving_scales)
+    from hqtransformer_tpu_torch.sampling.engine import \
+        make_hierarchical_sampler
+
+    n_top, win = model.top_res, model.cell_win
+    t0 = time.perf_counter()
+    scales = model.calibrate_kv_scales(
+        weights, torch.Generator(device='cuda').manual_seed(7), labels,
+        params)
+    codes_t, codes_b = make_hierarchical_sampler(
+        model.stage2, n_top * n_top, params)(
+            torch.Generator(device='cuda').manual_seed(7), labels)
+    raster = cells_to_raster(codes_b, n_top, win)
+    scales.update(model.calibrate_stage2_int8(weights, codes_t,
+                                              raster.reshape(B, -1), labels))
+    scales.update(model.calibrate_int8_decode(
+        weights, codes_t.reshape(-1, n_top, n_top),
+        raster.reshape(-1, n_top * win, n_top * win)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    SCALES_PATH.parent.mkdir(parents=True, exist_ok=True)
+    save_serving_scales(scales, str(SCALES_PATH))
+    loaded = load_serving_scales(str(SCALES_PATH))
+    require(sorted(loaded) == sorted(scales) and all(
+        torch.equal(loaded[k][n], scales[k][n].cpu())
+        for k in scales for n in scales[k]),
+        'serving scales changed through the artifact')
+    counts = ', '.join(f'{k} {len(v)}' for k, v in sorted(loaded.items()))
+    print(f'int8max calibration at batch {B}: {seconds:.2f} s ({counts} '
+          f'scales), saved to {SCALES_PATH.relative_to(ROOT)} and loaded '
+          f'back bit for bit')
+    return loaded
+
+
+def run_pipelined(model, weights, params, labels, int8, scales, name, da, st,
+                  q8, prev=None):
+    """Calls of make_pipelined_sampler: a fill call unless `prev` codes
+    are given, then steady calls (two at batch 128, one at another batch).
+    Checks each call's codes, pixels and launch counts; returns the last
+    call's codes."""
+    sampler = model.make_pipelined_sampler(params=params, int8=int8,
+                                           scales=scales)
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    n = labels.shape[0]
+    res = model.config.dataset.image_resolution
+    calls = ('steady',) if prev is not None else ('fill', 'steady', 'steady')
+    codes = prev
+    int8max = int8.kv_cache
+    for kind in calls:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(da.decode_attention_step, st.sample_topk,
+                     q8.int8_matmul, q8.int8_conv2d)
+        da.decode_attention_step.int8_launches = 0
+        t0 = time.perf_counter()
+        codes, pixels = sampler(weights, gen, labels,
+                                None if kind == 'fill' else codes)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = (da.decode_attention_step.launches,
+                  da.decode_attention_step.int8_launches,
+                  st.sample_topk.launches, q8.int8_matmul.launches,
+                  q8.int8_conv2d.launches)
+        k1_int8 = K1_LAUNCHES if int8max else 0
+        require(counts[:3] == (K1_LAUNCHES, k1_int8, K2_LAUNCHES),
+                f'{name} launches K1, K1 int8, K2 {counts[:3]}, expected '
+                f'{(K1_LAUNCHES, k1_int8, K2_LAUNCHES)}')
+        require((counts[3] > 0 and counts[4] > 0) if int8max
+                else counts[3:] == (0, 0),
+                f'{name} int8 gemms, convs {counts[3:]}')
+        require(codes[0].shape == (n, 64) and codes[1].shape == (n, 64, 4),
+                f'{name} code shapes')
+        for c in codes:
+            require(int(c.min()) >= 0 and int(c.max()) < N_CODES,
+                    f'{name} codes outside [0, {N_CODES})')
+        require(pixels.shape == (n, res, res, 3), f'{name} pixel shape '
+                f'{tuple(pixels.shape)}')
+        require(bool(torch.isfinite(pixels).all()), f'{name} pixels not '
+                f'finite')
+        require(float(pixels.min()) >= 0.0 and float(pixels.max()) <= 1.0,
+                f'{name} pixels outside [0, 1]')
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f'{name} pipelined {kind} call at batch {n}: {seconds:.3f} s, '
+              f'{n / seconds:.2f} samples/s, peak {peak:.2f} GiB, launches K1 '
+              f'{counts[0]} (int8 {counts[1]}) K2 {counts[2]}, int8 gemms '
+              f'{counts[3]}, int8 convs {counts[4]}')
+    return codes
+
+
+def int8max_breakdown(model, weights, params, labels, int8, scales, codes):
+    """The int8max AR loop and the int8 stage-1 decode, each timed alone
+    and profiled (as phase 3's breakdown)."""
+    from hqtransformer_tpu_torch.models.stage2.hierarchical import \
+        cells_to_raster
+    from hqtransformer_tpu_torch.sampling.engine import \
+        make_hierarchical_sampler
+
+    model.load_weights(weights)
+    n_top, win = model.top_res, model.cell_win
+    sampler = make_hierarchical_sampler(model.stage2, n_top * n_top, params,
+                                        int8, scales)
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    ct = codes[0].reshape(-1, n_top, n_top)
+    cb = cells_to_raster(codes[1], n_top, win).reshape(
+        -1, n_top * win, n_top * win)
+
+    @torch.inference_mode()
+    def decode():
+        with model.stage1.int8_decode(scales['stage1/act_scales']):
+            return model.stage1.decode_code(ct, cb)
+
+    profile_phases((('int8max AR loop', lambda: sampler(gen, labels)),
+                    ('int8 stage-1 decode', decode)))
+
+
+def int8max_agreement(model, weights, codes, labels, scales, q8):
+    """The bf16 run's codes through the scorer in bf16 and in int8max:
+    top-1 agreement of the per-step logits and mean KL(bf16 || int8max)
+    per step."""
+    from hqtransformer_tpu_torch.sampling.engine import \
+        make_hierarchical_scorer
+
+    model.load_weights(weights)
+    n_top = model.top_res * model.top_res
+    out = {}
+    for name, int8 in (('bf16', q8.Int8Serving()), ('int8max', q8.INT8MAX)):
+        out[name] = make_hierarchical_scorer(model.stage2, n_top, int8,
+                                             scales)(labels, *codes)
+    for i, level in enumerate(('top', 'bottom')):
+        a, b = out['bf16'][i].float(), out['int8max'][i].float()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        logp, logq = torch.log_softmax(a, -1), torch.log_softmax(b, -1)
+        kl = (logp.exp() * (logp - logq)).sum(-1).mean().item()
+        require(bool(torch.isfinite(b).all()), 'int8max logits not finite')
+        print(f'int8max vs bf16 scorer, {level} logits {tuple(b.shape)}: '
+              f'top-1 agreement {agree:.4f}, mean KL {kl:.3e} (random '
+              f'weights)')
+
+
+def run_int8max(da, st, model, weights):
+    """Phase 7: int8max serving at the flagship. Returns K1-int8's check
+    error, times and launches per int8max batch."""
+    from hqtransformer_tpu_torch.ops import int8 as q8
+    from hqtransformer_tpu_torch.sampling.engine import SamplingParams
+
+    k1_err = check_decode_attention_int8(da)
+    k1_times = time_decode_attention_int8(da)
+    check_int8_products(q8)
+    params = SamplingParams(top_k_top=2048, top_k_bot=2048,
+                            temperature_top=0.95, temperature_bot=0.95)
+    n_classes = model.config.stage2.hparams.n_classes
+    labels = torch.arange(B, device='cuda') % n_classes
+    scales = calibrate_int8max(model, weights, params, labels)
+    int8max, bf16 = q8.INT8MAX, q8.Int8Serving()
+    codes8 = run_pipelined(model, weights, params, labels, int8max, scales,
+                              'int8max', da, st, q8)
+    launches = da.decode_attention_step.int8_launches
+    codes16 = run_pipelined(model, weights, params, labels, bf16, None,
+                               'bf16', da, st, q8)
+    # bench.py's other int8 mode (BENCH_INT8_SPATIAL=0): float spatial gemms
+    run_pipelined(model, weights, params, labels,
+                  q8.Int8Serving(kv_cache=True, depth_gemms=True,
+                                 decode_convs=True), scales,
+                  'int8 without spatial gemms', da, st, q8, prev=codes8)
+    int8max_breakdown(model, weights, params, labels, int8max, scales,
+                      codes8)
+    large = torch.arange(B_LARGE, device='cuda') % n_classes
+    reps = B_LARGE // B
+    for name, int8, sc, codes in (('int8max', int8max, scales, codes8),
+                                  ('bf16', bf16, None, codes16)):
+        prev = tuple(c.repeat(reps, *(1,) * (c.dim() - 1)) for c in codes)
+        run_pipelined(model, weights, params, large, int8, sc, name, da, st,
+                      q8, prev=prev)
+    int8max_agreement(model, weights, codes16, labels, scales, q8)
+    return k1_err, k1_times, launches
+
+
 # --------------------------------------------------------- the encode slice
 
 def seeded_images(n: int, res: int, seed: int, device='cuda'):
@@ -989,6 +1338,7 @@ def main() -> int:
     k3_shapes, k3_served_err = time_vq_argmin(vq, torch.bfloat16)
     k3f_shapes, k3f_served_err = time_vq_argmin(vq, torch.float32)
     launches, samples_per_s, model, weights = run_main_path(da, st)
+    k1i_err, k1i_times, k1i_launches = run_int8max(da, st, model, weights)
     k3_launches, images_per_s = run_encode_slice(vq, da, st,
                                                  weights['stage1'])
     run_twostage_encode(vq, da, st, model, weights)
@@ -1003,6 +1353,9 @@ def main() -> int:
             ('decode_attention', source + 'decode_attention.cu',
              'hqtransformer_tpu/ops/pallas_attention.py:200', launches[0],
              k1_err, k1_times),
+            ('decode_attention_int8', source + 'decode_attention.cu',
+             'hqtransformer_tpu/ops/pallas_attention.py:200', k1i_launches,
+             k1i_err, k1i_times),
             ('sample_topk', source + 'sample_topk.cu',
              'hqtransformer_tpu/ops/pallas_sample.py:236', launches[1],
              k2_err, k2_times),

@@ -15,12 +15,16 @@ the port's own copy of the mapping that the JAX package's
   which already keep the torch layout;
 * `scale` (norms) and `embedding` (nn.Embed) become `weight`;
 * `ema` leaves (the quantizer codebooks) keep their names.
+
+`convert_scales` carries the int8 serving collections (`act_scales`,
+`kv_scales`) to the port's module names by the same segment mapping, and
+`export_scales` takes them back to flax paths.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -42,12 +46,48 @@ _PATTERNS = [
 ]
 
 
+# The inverse of _PATTERNS, matched at the start of a port module name.
+_INVERSE = [
+    (re.compile(r'^(down|up)\.(\d+)\.(block|attn)\.(\d+)(?=\.|$)'),
+     r'\1_\2_\3_\4'),
+    (re.compile(r'^(down|up)\.(\d+)\.(downsample|upsample)(?=\.|$)'),
+     r'\1_\2_\3'),
+    (re.compile(r'^mid\.(block_1|attn_1|block_2)(?=\.|$)'), r'mid_\1'),
+    (re.compile(r'^(downsamples|upsamples|quantizers|blocks|depths|'
+                r'emb_blocks|tok_emb_levels|tok_emb_depth_levels|'
+                r'pos_emb_depths|ln_levels|head_levels|upsample_t|main|mlp)'
+                r'\.(\d+)(?=\.|$)'), r'\1_\2'),
+]
+
+# The int8 serving collections: {'stage/collection': flax tree}, the JAX
+# package's artifact. An act_scales leaf is a module's 'scale'; kv_scales
+# leaves are an attention layer's 'k' and 'v'.
+SCALE_COLLECTIONS = ('stage1/act_scales', 'stage2/kv_scales',
+                     'stage2/act_scales')
+
+
 def _segment(seg: str) -> str:
     for pat, repl in _PATTERNS:
         m = pat.match(seg)
         if m:
             return repl(m)
     return seg
+
+
+def _flax_path(name: str) -> List[str]:
+    """A port module name -> its flax path segments."""
+    segs = []
+    while name:
+        for pat, repl in _INVERSE:
+            m = pat.match(name)
+            if m:
+                segs.append(m.expand(repl))
+                name = name[m.end():].removeprefix('.')
+                break
+        else:
+            seg, _, name = name.partition('.')
+            segs.append(seg)
+    return segs
 
 
 def _leaves(tree: Mapping[str, Any], prefix=()):
@@ -97,3 +137,49 @@ def convert_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in out.items()}
 
+
+
+def convert_scales(scales: Mapping[str, Any]) -> Dict[str, Dict[str,
+                                                                torch.Tensor]]:
+    """JAX serving scales {'stage1/act_scales' | 'stage2/kv_scales' |
+    'stage2/act_scales': flax tree} -> {same key: {port name: f32 tensor}}:
+    'blocks_0/attn/query/scale' becomes 'blocks.0.attn.query' and
+    'blocks_0/attn/k' 'blocks.0.attn.k'. Collections absent stay absent;
+    others raise."""
+    out = {}
+    for key, tree in scales.items():
+        if key not in SCALE_COLLECTIONS:
+            raise ValueError(f'cannot convert scale collection {key!r}')
+        act = key.endswith('act_scales')
+        coll = {}
+        for path, leaf in _leaves(tree):
+            segs = [_segment(s) for s in path]
+            if act:
+                if segs[-1] != 'scale':
+                    raise ValueError(f'{key}: unexpected leaf {path}')
+                segs = segs[:-1]
+            coll['.'.join(segs)] = torch.from_numpy(
+                np.array(leaf, dtype=np.float32))
+        out[key] = coll
+    return out
+
+
+def export_scales(scales: Mapping[str, Mapping[str, torch.Tensor]]
+                  ) -> Dict[str, Dict[str, Any]]:
+    """The inverse of convert_scales: the port's collections -> flax trees
+    of f32 numpy arrays, the JAX package's artifact layout."""
+    out = {}
+    for key, coll in scales.items():
+        if key not in SCALE_COLLECTIONS:
+            raise ValueError(f'cannot export scale collection {key!r}')
+        tree: Dict[str, Any] = {}
+        for name, t in coll.items():
+            path = _flax_path(name)
+            if key.endswith('act_scales'):
+                path.append('scale')
+            node = tree
+            for seg in path[:-1]:
+                node = node.setdefault(seg, {})
+            node[path[-1]] = t.detach().float().cpu().numpy()
+        out[key] = tree
+    return out

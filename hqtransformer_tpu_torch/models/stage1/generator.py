@@ -14,18 +14,24 @@ pixels.
 Images come in and pixels go out NHWC [B, H, W, 3], code maps are
 [B, H, W], the JAX package's layouts; the convolutions inside run NCHW. The
 EMA update (training), soft codes and the other resamplers are not ported.
+
+`int8_decode(act_scales)` makes the decoder's convolutions A8W8 for the
+duration of one int8max serving call (the JAX package's HQT_INT8_DECODE
+inside `int8_decode_scope`).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import contextlib
+from typing import Iterator, List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ...config import Stage1Config, parse_resample
 from ...ops.resample import pixel_shuffle, pixel_unshuffle
-from .layers import Conv2d, Decoder, Encoder
+from ...ops.int8 import Int8Weight
+from .layers import Conv2d, Decoder, Encoder, QuantizableConv2d
 from .quantizer import EMAVectorQuantizer
 
 
@@ -51,6 +57,29 @@ def _backbone(hp):
 
 class _Stage1Base(nn.Module):
     """Encoder, quant_conv_b and decoder, with NHWC at the boundaries."""
+
+    @contextlib.contextmanager
+    def int8_decode(self, act_scales: Mapping[str, torch.Tensor]
+                    ) -> Iterator[None]:
+        """Quantize every `QuantizableConv2d` of the decoder once, and run
+        them A8W8 until the context exits: with the static scale
+        `act_scales['decoder.<name>']` where there is one, else with
+        max|x| / 127 of each call, as the JAX QuantizableConv. Raises for
+        activations that are not bf16."""
+        if self.dtype != torch.bfloat16:
+            raise ValueError(f'int8 convolutions run on bf16 activations; '
+                             f'this model computes in {self.dtype}')
+        convs = [(f'decoder.{name}', m)
+                 for name, m in self.decoder.named_modules()
+                 if isinstance(m, QuantizableConv2d)]
+        try:
+            for name, m in convs:
+                m.q8 = Int8Weight.from_float(m.weight, m.bias,
+                                             act_scales.get(name))
+            yield
+        finally:
+            for _, m in convs:
+                m.q8 = None
 
     def _encode_map(self, x: torch.Tensor) -> torch.Tensor:
         """Images [B, H, W, in_ch] -> bottom latent [B, h, w, embed_dim]."""

@@ -12,6 +12,11 @@ Convolutions run in their input's dtype (weights may be stored in bf16);
 GroupNorm computes in f32 and returns the input dtype; attention scores and
 softmax are f32. Dropout is left out: every path of the port is inference.
 
+The convolutions the JAX package builds through its `conv()` helper (its
+`QuantizableConv`) are `QuantizableConv2d` here: with `q8` set (the
+generator's `int8_decode` does so for the decoder's during an int8max
+serving call) they run A8W8 (`ops/int8.py::int8_conv2d`).
+
 Reproduced quirks, both of which decide where attention blocks sit:
 - the encoder's `curr_res` starts at `resolution` even when
   `use_init_downsample` has already halved the map, so at the flagship
@@ -23,11 +28,13 @@ Reproduced quirks, both of which decide where attention blocks sit:
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...ops.int8 import Int8Weight, int8_conv2d
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -53,9 +60,25 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
-def conv(cin: int, cout: int, kernel: int) -> Conv2d:
+class QuantizableConv2d(Conv2d):
+    """Conv2d with the A8W8 path of int8max serving: with `q8` set, the
+    input is quantized per tensor (static scale, else max|x| / 127) and
+    convolved with the per-output-channel int8 weight, in int32. Built by
+    `conv()` only, so always dense (no groups, no dilation), the JAX
+    package's condition for its int8 branch."""
+
+    q8: Optional[Int8Weight] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.q8 is None:
+            return super().forward(x)
+        return int8_conv2d(x, self.q8, self.kernel_size, self.stride,
+                           self.padding)
+
+
+def conv(cin: int, cout: int, kernel: int) -> QuantizableConv2d:
     """Stride-1 conv with 'same' padding."""
-    return Conv2d(cin, cout, kernel, padding=kernel // 2)
+    return QuantizableConv2d(cin, cout, kernel, padding=kernel // 2)
 
 
 class Upsample(nn.Module):

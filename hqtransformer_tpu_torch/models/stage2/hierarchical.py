@@ -11,12 +11,19 @@ embedding. Other configurations raise `NotImplementedError`.
 Reproduced reference quirk: the parallel depth sampler embeds the codes of
 the previous depth step with `tok_emb_top_depth`, whether they are the top
 code or a bottom group.
+
+int8max serving: `serving(int8, scales)` prepares one sampler call (see
+`layers.py`); inside it `spatial_prefill`/`spatial_step` run their gemms
+A8W8 when passed `int8=True` and `depth_second_logits` likewise, head_bot
+included, as the JAX package's `int8_stage2_scope` does around them.
+`depth_first_logits` and `embed_cell_step` stay float, as in JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,8 +31,9 @@ from torch import nn
 
 from ...config import ModelTypeSpec, Stage2Hparams, parse_embedding_type
 from ...ops import masks as M
-from .layers import (Block, LayerNorm, Linear, masked_attention,
-                     merge_heads, split_heads)
+from ...ops.int8 import Int8Serving, Int8Weight
+from .layers import (Block, LayerNorm, Linear, QuantizableLinear, act_scale,
+                     masked_attention, merge_heads, split_heads)
 
 DepthKV = Tuple[List[torch.Tensor], List[torch.Tensor]]
 
@@ -100,7 +108,7 @@ class HierarchicalGPT(nn.Module):
         self.ln_top = LayerNorm(Dd)
         self.head_top = Linear(Dd, vocab_size_top, bias=False)
         self.ln_bot = LayerNorm(Dd)
-        self.head_bot = Linear(Dd, vocab_size_bot, bias=False)
+        self.head_bot = QuantizableLinear(Dd, vocab_size_bot, bias=False)
 
     # ------------------------------------------------------------ embedding
     def _emb(self, table: nn.Embedding, idx: torch.Tensor) -> torch.Tensor:
@@ -164,21 +172,73 @@ class HierarchicalGPT(nn.Module):
         return logits_top, logits_bot
 
     # --------------------------------------------------------- decode steps
+    @contextlib.contextmanager
+    def serving(self, int8: Int8Serving = Int8Serving(),
+                scales: Optional[Mapping[str, Mapping[str, torch.Tensor]]]
+                = None) -> Iterator[None]:
+        """Prepare the modules for one serving call and undo it on exit:
+        every attention layer's fused QKV and K/V weights concatenated in
+        the activation dtype; with `int8.spatial_gemms` / `depth_gemms`
+        the spatial / depth blocks' gemms (and head_bot) quantized, with
+        the static activation scales of `scales['stage2/act_scales']`; with
+        `int8.kv_cache` the spatial layers' cache scales from
+        `scales['stage2/kv_scales']`. Raises on a missing scale, and on
+        int8 gemms for activations that are not bf16."""
+        scales = scales or {}
+        if (int8.spatial_gemms or int8.depth_gemms) and \
+                self.dtype != torch.bfloat16:
+            raise ValueError(f'int8 gemms run on bf16 activations; this '
+                             f'model computes in {self.dtype}')
+        act = scales.get('stage2/act_scales', {})
+        kv = scales.get('stage2/kv_scales', {}) if int8.kv_cache else None
+        attn, quantized = [], []
+        for prefix, blocks, gemms in (('blocks', self.blocks,
+                                       int8.spatial_gemms),
+                                      ('depths', self.depths,
+                                       int8.depth_gemms)):
+            for i, blk in enumerate(blocks):
+                name = f'{prefix}.{i}'
+                attn.append(blk.attn.prepare_serving(
+                    self.dtype, act if gemms else None,
+                    kv if prefix == 'blocks' else None, f'{name}.attn'))
+                if gemms:
+                    quantized += [(f'{name}.attn.proj', blk.attn.proj),
+                                  (f'{name}.mlp.0', blk.mlp[0]),
+                                  (f'{name}.mlp.2', blk.mlp[2])]
+        if int8.depth_gemms:
+            quantized.append(('head_bot', self.head_bot))
+        q8 = [Int8Weight.from_float(lin.weight, lin.bias, act_scale(act, name))
+              for name, lin in quantized]
+        # every scale was found: only now does any module change
+        try:
+            for blk, state in zip((*self.blocks, *self.depths), attn):
+                blk.attn.serving = state
+            for (_, lin), w in zip(quantized, q8):
+                lin.q8 = w
+            yield
+        finally:
+            for blk in (*self.blocks, *self.depths):
+                blk.attn.serving = None
+            for _, lin in quantized:
+                lin.q8 = None
+
     def spatial_prefill(self, x: torch.Tensor, k_caches: torch.Tensor,
-                        v_caches: torch.Tensor) -> torch.Tensor:
+                        v_caches: torch.Tensor,
+                        int8: bool = False) -> torch.Tensor:
         """Run the spatial transformer on the conditioning prefix x
         [B, S, D], writing cache rows [0, S) of every layer of the packed
         [L, T, B, D] caches in place. Returns h after ln_f [B, S, D]."""
         for i, blk in enumerate(self.blocks):
-            x = blk.prefill(x, k_caches, v_caches, i)
+            x = blk.prefill(x, k_caches, v_caches, i, int8=int8)
         return self.ln_f(x)
 
     def spatial_step(self, x: torch.Tensor, k_caches: torch.Tensor,
-                     v_caches: torch.Tensor, pos: int) -> torch.Tensor:
+                     v_caches: torch.Tensor, pos: int,
+                     int8: bool = False) -> torch.Tensor:
         """One token x [B, 1, D] at time `pos` against the packed caches
         (updated in place). Returns h after ln_f [B, 1, D]."""
         for i, blk in enumerate(self.blocks):
-            x = blk.step(x, k_caches, v_caches, i, pos)
+            x = blk.step(x, k_caches, v_caches, i, pos, int8)
         return self.ln_f(x)
 
     def embed_cell_step(self, code_t: torch.Tensor, bot_cell: torch.Tensor,
@@ -199,11 +259,7 @@ class HierarchicalGPT(nn.Module):
         for blk in self.depths:
             a = blk.attn
             xn = blk.ln1(x)
-            w = torch.cat([a.key.weight, a.value.weight]).to(xn.dtype)
-            b = None
-            if a.key.bias is not None:
-                b = torch.cat([a.key.bias, a.value.bias]).to(xn.dtype)
-            k, v = F.linear(xn, w, b).split(xn.shape[-1], dim=-1)
+            k, v = a.fused_kv(xn).split(xn.shape[-1], dim=-1)
             k = split_heads(k, a.n_heads)
             v = split_heads(v, a.n_heads)
             x = x + a.proj(merge_heads(v))
@@ -213,11 +269,13 @@ class HierarchicalGPT(nn.Module):
         return self.head_top(self.ln_top(x[:, 0])), (ks, vs)
 
     def depth_second_logits(self, codes: torch.Tensor, depth_kv: DepthKV,
-                            group: int = 1) -> Tuple[torch.Tensor, DepthKV]:
+                            group: int = 1, int8: bool = False
+                            ) -> Tuple[torch.Tensor, DepthKV]:
         """Depth step `group`: logits [B, n, Vb] of the next group of n
         bottom codes, given the previous step's codes [B, 1] or [B, n]
         (embedded with tok_emb_top_depth) and the cached depth (k, v).
-        Full attention over [cached; new] keys."""
+        Full attention over [cached; new] keys. With `int8` every gemm,
+        head_bot included, runs A8W8."""
         ks, vs = depth_kv
         n = self.num_bottom_pred
         pos = self.pos_emb_depth.weight[n * (group - 1):n * group]
@@ -226,13 +284,13 @@ class HierarchicalGPT(nn.Module):
         for i, blk in enumerate(self.depths):
             a = blk.attn
             C = x.shape[-1]
-            q, k_new, v_new = a.fused_qkv(blk.ln1(x)).split(C, dim=-1)
+            q, k_new, v_new = a.fused_qkv(blk.ln1(x), int8).split(C, dim=-1)
             k = torch.cat([ks[i], split_heads(k_new, a.n_heads)], dim=2)
             v = torch.cat([vs[i], split_heads(v_new, a.n_heads)], dim=2)
             y = merge_heads(masked_attention(split_heads(q, a.n_heads), k, v,
                                              None))
-            x = x + a.proj(y)
-            x = x + blk.mlp(blk.ln2(x))
+            x = x + a.proj(y, int8)
+            x = x + blk.mlp_forward(blk.ln2(x), int8)
             new_ks.append(k)
             new_vs.append(v)
-        return self.head_bot(self.ln_bot(x)), (new_ks, new_vs)
+        return self.head_bot(self.ln_bot(x), int8), (new_ks, new_vs)

@@ -14,12 +14,26 @@ the input dtype, and attention scores and softmax are f32.
 The JAX `Block.step_stacked` tells prefill from decode by whether the cache
 length is a static Python int. Here the position is always an int, so
 `prefill` and `step` are separate methods.
+
+int8max serving (the JAX package's `QuantizableDense`, the A8W8 branch of
+`_fused_qkv_flat` and the int8 KV cache of `_PackedStepMixin`):
+- `QuantizableLinear` runs A8W8 when its caller passes `int8=True`, with
+  the weight quantized once per serving call (`q8`, set by
+  `HierarchicalGPT.serving`); the fused QKV gemm runs A8W8 with the
+  query's activation scale;
+- an int8 cache ([L, T, B, D] int8) is written with rows quantized per
+  channel by `1 / scale`; K's scales fold into q and V's into the
+  attention output, around decode attention's int8 variant.
+The serving state (`SelfAttention.serving`, `QuantizableLinear.q8`) also
+hoists the per-call weight concatenations out of the decode loop; outside a
+serving call the float paths concatenate on the fly.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,8 +41,15 @@ from torch import nn
 
 from ...ops import masks as M
 from ...ops.decode_attention import decode_attention_step
+from ...ops.int8 import Int8Weight, quantize_rows
 
 NEG_INF = -1e10
+ACT_SCALES_NEEDED = ('int8 gemms need calibrated activation scales: run '
+                     'TwoStageModel.calibrate_stage2_int8() and pass its '
+                     'scales to the sampler')
+KV_SCALES_NEEDED = ('int8 KV cache needs calibrated scales: run '
+                    'TwoStageModel.calibrate_kv_scales() and pass its scales '
+                    'to the sampler')
 
 
 class Linear(nn.Linear):
@@ -37,6 +58,43 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class QuantizableLinear(Linear):
+    """Linear with the A8W8 path of int8max serving: forward(x, int8=True)
+    quantizes x by its static (calibrated) scale and multiplies by the
+    weight quantized per output channel, both from `q8`, which a serving
+    call sets. Without `q8`, int8=True raises."""
+
+    q8: Optional[Int8Weight] = None
+
+    def forward(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
+        if not int8:
+            return super().forward(x)
+        if self.q8 is None:
+            raise ValueError(ACT_SCALES_NEEDED)
+        return self.q8.linear(x)
+
+
+def act_scale(scales: Mapping[str, torch.Tensor], name: str) -> torch.Tensor:
+    """The calibrated activation scale of module `name`; raises if none."""
+    if name not in scales:
+        raise ValueError(f'{ACT_SCALES_NEEDED} ({name!r} has none)')
+    return scales[name]
+
+
+@dataclass(frozen=True)
+class AttnServing:
+    """What one serving call hoists out of its decode loop for one
+    attention layer: the fused [3C, C] QKV weight and bias and the [2C, C]
+    K/V ones, in the activation dtype; the A8W8 QKV weight (with the
+    query's activation scale) when its gemms run int8; and the int8 KV
+    cache's per-channel scales (k, v, 1 / k, 1 / v) when its cache is
+    int8."""
+    qkv: Tuple[torch.Tensor, Optional[torch.Tensor]]
+    kv: Tuple[torch.Tensor, Optional[torch.Tensor]]
+    qkv_q8: Optional[Int8Weight] = None
+    kv_scales: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 class LayerNorm(nn.LayerNorm):
@@ -101,13 +159,15 @@ class SelfAttention(nn.Module):
     """Multi-head self-attention with full-sequence, prefill and cached
     single-token entry points sharing one set of weights."""
 
+    serving: Optional[AttnServing] = None
+
     def __init__(self, embed_dim: int, n_heads: int, attn_bias: bool = True):
         super().__init__()
         self.n_heads = n_heads
-        self.query = Linear(embed_dim, embed_dim, bias=attn_bias)
-        self.key = Linear(embed_dim, embed_dim, bias=attn_bias)
-        self.value = Linear(embed_dim, embed_dim, bias=attn_bias)
-        self.proj = Linear(embed_dim, embed_dim, bias=attn_bias)
+        self.query = QuantizableLinear(embed_dim, embed_dim, bias=attn_bias)
+        self.key = QuantizableLinear(embed_dim, embed_dim, bias=attn_bias)
+        self.value = QuantizableLinear(embed_dim, embed_dim, bias=attn_bias)
+        self.proj = QuantizableLinear(embed_dim, embed_dim, bias=attn_bias)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -116,41 +176,106 @@ class SelfAttention(nn.Module):
         v = split_heads(self.value(x), self.n_heads)
         return self.proj(merge_heads(masked_attention(q, k, v, mask)))
 
-    def fused_qkv(self, x: torch.Tensor) -> torch.Tensor:
-        """One [C, 3C] projection -> [..., 3C] (q, k, v concatenated)."""
-        w = torch.cat([self.query.weight, self.key.weight,
-                       self.value.weight]).to(x.dtype)
+    def _concat(self, linears, dtype: torch.dtype):
+        w = torch.cat([m.weight for m in linears]).to(dtype)
         b = None
-        if self.query.bias is not None:
-            b = torch.cat([self.query.bias, self.key.bias,
-                           self.value.bias]).to(x.dtype)
+        if linears[0].bias is not None:
+            b = torch.cat([m.bias for m in linears]).to(dtype)
+        return w, b
+
+    def prepare_serving(self, dtype: torch.dtype,
+                        act_scales: Optional[Mapping[str, torch.Tensor]],
+                        kv_scales: Optional[Mapping[str, torch.Tensor]],
+                        name: str) -> AttnServing:
+        """The hoisted state of one serving call: int8 QKV when
+        `act_scales` is given (the query's scale, `<name>.query`), int8
+        cache scales when `kv_scales` is (`<name>.k`, `<name>.v`)."""
+        qkv = self._concat((self.query, self.key, self.value), dtype)
+        q8 = kv = None
+        if act_scales is not None:
+            q8 = Int8Weight.from_float(
+                torch.cat([self.query.weight, self.key.weight,
+                           self.value.weight]),
+                None if qkv[1] is None else torch.cat(
+                    [self.query.bias, self.key.bias, self.value.bias]),
+                act_scale(act_scales, f'{name}.query'))
+        if kv_scales is not None:
+            if f'{name}.k' not in kv_scales:
+                raise ValueError(KV_SCALES_NEEDED)
+            dev = self.query.weight.device
+            k = kv_scales[f'{name}.k'].to(dev, torch.float32)
+            v = kv_scales[f'{name}.v'].to(dev, torch.float32)
+            kv = (k, v, 1.0 / k, 1.0 / v)
+        return AttnServing(qkv, self._concat((self.key, self.value), dtype),
+                           q8, kv)
+
+    def fused_qkv(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
+        """One [C, 3C] projection -> [..., 3C] (q, k, v concatenated); A8W8
+        with the query's scale when `int8`."""
+        if int8:
+            if self.serving is None or self.serving.qkv_q8 is None:
+                raise ValueError(ACT_SCALES_NEEDED)
+            return self.serving.qkv_q8.linear(x)
+        w, b = (self.serving.qkv if self.serving is not None else
+                self._concat((self.query, self.key, self.value), x.dtype))
         return F.linear(x, w, b)
+
+    def fused_kv(self, x: torch.Tensor) -> torch.Tensor:
+        """One [C, 2C] projection -> [..., 2C] (k, v concatenated)."""
+        w, b = (self.serving.kv if self.serving is not None else
+                self._concat((self.key, self.value), x.dtype))
+        return F.linear(x, w, b)
+
+    def _int8_cache_scales(self):
+        if self.serving is None or self.serving.kv_scales is None:
+            raise ValueError(KV_SCALES_NEEDED)
+        return self.serving.kv_scales
 
     def prefill(self, x: torch.Tensor, k_caches: torch.Tensor,
                 v_caches: torch.Tensor, layer: int,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                int8: bool = False) -> torch.Tensor:
         """Write rows [0, T_new) of layer `layer` of the [L, T, B, D] caches
-        in place and attend among the new tokens (causal unless `mask`)."""
+        in place and attend among the new tokens (causal unless `mask`).
+        An int8 cache gets the rows quantized; the attention uses the float
+        k and v."""
         B, T_new, C = x.shape
-        q, k, v = self.fused_qkv(x).split(C, dim=-1)
-        k_caches[layer, :T_new] = k.transpose(0, 1).to(k_caches.dtype)
-        v_caches[layer, :T_new] = v.transpose(0, 1).to(v_caches.dtype)
+        q, k, v = self.fused_qkv(x, int8).split(C, dim=-1)
+        if k_caches.dtype == torch.int8:
+            _, _, inv_k, inv_v = self._int8_cache_scales()
+            k_rows, v_rows = quantize_rows(k, inv_k), quantize_rows(v, inv_v)
+        else:
+            k_rows, v_rows = k.to(k_caches.dtype), v.to(v_caches.dtype)
+        k_caches[layer, :T_new] = k_rows.transpose(0, 1)
+        v_caches[layer, :T_new] = v_rows.transpose(0, 1)
         if mask is None:
             mask = M.causal(T_new, x.device)
         y = masked_attention(split_heads(q, self.n_heads),
                              split_heads(k, self.n_heads),
                              split_heads(v, self.n_heads), mask)
-        return self.proj(merge_heads(y))
+        return self.proj(merge_heads(y), int8)
 
     def step(self, x: torch.Tensor, k_caches: torch.Tensor,
-             v_caches: torch.Tensor, layer: int, pos: int) -> torch.Tensor:
+             v_caches: torch.Tensor, layer: int, pos: int,
+             int8: bool = False) -> torch.Tensor:
         """Single-token decode at time `pos`: x [B, 1, C]. Writes the new
-        K/V row into the float caches in place (decode attention kernel)."""
+        K/V row into the caches in place (decode attention kernel). With an
+        int8 cache, q is multiplied by K's scales, the new rows are
+        quantized by 1 / scale, and the output is multiplied by V's
+        scales."""
         C = x.shape[-1]
-        q, k_new, v_new = self.fused_qkv(x[:, 0]).split(C, dim=-1)
+        q, k_new, v_new = self.fused_qkv(x[:, 0], int8).split(C, dim=-1)
+        v_scale = None
+        if k_caches.dtype == torch.int8:
+            k_scale, v_scale, inv_k, inv_v = self._int8_cache_scales()
+            q = q * k_scale.to(q.dtype)
+            k_new = quantize_rows(k_new, inv_k)
+            v_new = quantize_rows(v_new, inv_v)
         y = decode_attention_step(q, k_new, v_new, k_caches, v_caches,
                                   layer, pos, self.n_heads)
-        return self.proj(y[:, None, :])
+        if v_scale is not None:
+            y = y * v_scale.to(y.dtype)
+        return self.proj(y[:, None, :], int8)
 
 
 class Block(nn.Module):
@@ -163,9 +288,13 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(embed_dim)
         self.attn = SelfAttention(embed_dim, n_heads, attn_bias)
         self.mlp = nn.Sequential(
-            Linear(embed_dim, 4 * embed_dim, bias=mlp_bias),
+            QuantizableLinear(embed_dim, 4 * embed_dim, bias=mlp_bias),
             GELU(gelu_use_approx),
-            Linear(4 * embed_dim, embed_dim, bias=mlp_bias))
+            QuantizableLinear(4 * embed_dim, embed_dim, bias=mlp_bias))
+
+    def mlp_forward(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
+        fc1, act, fc2 = self.mlp
+        return fc2(act(fc1(x, int8)), int8)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -174,12 +303,15 @@ class Block(nn.Module):
 
     def prefill(self, x: torch.Tensor, k_caches: torch.Tensor,
                 v_caches: torch.Tensor, layer: int,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                int8: bool = False) -> torch.Tensor:
         x = x + self.attn.prefill(self.ln1(x), k_caches, v_caches, layer,
-                                  mask)
-        return x + self.mlp(self.ln2(x))
+                                  mask, int8)
+        return x + self.mlp_forward(self.ln2(x), int8)
 
     def step(self, x: torch.Tensor, k_caches: torch.Tensor,
-             v_caches: torch.Tensor, layer: int, pos: int) -> torch.Tensor:
-        x = x + self.attn.step(self.ln1(x), k_caches, v_caches, layer, pos)
-        return x + self.mlp(self.ln2(x))
+             v_caches: torch.Tensor, layer: int, pos: int,
+             int8: bool = False) -> torch.Tensor:
+        x = x + self.attn.step(self.ln1(x), k_caches, v_caches, layer, pos,
+                               int8)
+        return x + self.mlp_forward(self.ln2(x), int8)

@@ -11,6 +11,14 @@ Both write the new K/V row into the caches IN PLACE (the JAX functions
 return updated copies instead) and return y [B, D]. Scores are q.k/sqrt(hd)
 in f32 over cache rows t <= pos (the new row included), the softmax is f32
 and A.V accumulates in f32; y comes back in q's dtype.
+
+Caches are f32 or bf16, with q and the new rows of the same dtype, or int8
+(the int8 KV cache of int8max serving), with an f32 or bf16 q and int8 new
+rows the caller has already quantized. An int8 cache converts to f32 on
+read; its scales are folded in by the caller, K's into q and V's into y.
+
+`decode_attention_step.launches` counts every launch of the kernel and
+`.int8_launches` those on int8 caches.
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ import torch
 
 from . import cuda_build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_FLOATS = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (32, 64)  # the head dims of the repo's configs
 
 
@@ -36,6 +45,7 @@ def decode_attention_step_plain(q: torch.Tensor, k_new: torch.Tensor,
 
     Rows beyond `pos` are not read: the JAX oracle masks them to a -1e10
     score, whose softmax weight is exactly zero."""
+    _check_dtypes(q, k_new, v_new, k_cache, v_cache)
     B, D = q.shape
     hd = D // n_heads
     k_cache[layer, pos] = k_new.to(k_cache.dtype)
@@ -53,10 +63,26 @@ def decode_attention_step_plain(q: torch.Tensor, k_new: torch.Tensor,
 def _kernel():
     fn = cuda_build.load('decode_attention').hqt_decode_attention_step
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    fn.argtypes = [i32, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr,
+    fn.argtypes = [i32, i32, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr,
                    i32, i32, i32, i32, i32, i32, ptr]
     fn.restype = i32
     return fn
+
+
+def _check_dtypes(q, k_new, v_new, k_cache, v_cache):
+    """Caches of one dtype: f32 or bf16 with q and the new rows alike, or
+    int8 with int8 new rows and an f32 or bf16 q."""
+    dtype = k_cache.dtype
+    if v_cache.dtype != dtype or dtype not in _DTYPE_CODES:
+        raise TypeError(f'decode attention takes float32, bfloat16 or int8 '
+                        f'caches of one dtype, got {dtype} and '
+                        f'{v_cache.dtype}')
+    q_ok = q.dtype in _FLOATS if dtype == torch.int8 else q.dtype == dtype
+    if not q_ok or k_new.dtype != dtype or v_new.dtype != dtype:
+        raise TypeError(f'{dtype} caches take {dtype} new rows and a '
+                        f'{"float" if dtype == torch.int8 else dtype} q, '
+                        f'got q {q.dtype}, k_new {k_new.dtype}, v_new '
+                        f'{v_new.dtype}')
 
 
 def _check(q, k_new, v_new, k_cache, v_cache, layer, pos, n_heads):
@@ -64,10 +90,7 @@ def _check(q, k_new, v_new, k_cache, v_cache, layer, pos, n_heads):
         raise ValueError(f'caches must be [L, T, B, D] of one shape, got '
                          f'{tuple(k_cache.shape)} and {tuple(v_cache.shape)}')
     L, T, B, D = k_cache.shape
-    dtype = k_cache.dtype
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f'decode attention kernel takes float32 or bfloat16 '
-                        f'caches, got {dtype}')
+    _check_dtypes(q, k_new, v_new, k_cache, v_cache)
     if D % n_heads or D // n_heads not in _HEAD_DIMS:
         raise ValueError(f'head dim {D}/{n_heads} not in {_HEAD_DIMS}')
     if not (0 <= layer < L and 0 <= pos < T):
@@ -77,9 +100,9 @@ def _check(q, k_new, v_new, k_cache, v_cache, layer, pos, n_heads):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f'{name} must be contiguous and 16-byte aligned')
     for name, t in (('q', q), ('k_new', k_new), ('v_new', v_new)):
-        if t.shape != (B, D) or t.dtype != dtype:
-            raise ValueError(f'{name} must be [{B}, {D}] {dtype}, got '
-                             f'{tuple(t.shape)} {t.dtype}')
+        if t.shape != (B, D):
+            raise ValueError(f'{name} must be [{B}, {D}], got '
+                             f'{tuple(t.shape)}')
         if (t.stride(1) != 1 or t.stride(0) * t.element_size() % 16
                 or t.data_ptr() % 16):
             raise ValueError(f'{name} rows must be contiguous and 16-byte '
@@ -96,8 +119,9 @@ def decode_attention_step(q: torch.Tensor, k_new: torch.Tensor,
     """Decode attention for one layer at time `pos`: the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors. q/k_new/v_new: [B, D]
     (rows may be strided, as slices of a fused qkv); caches: contiguous
-    [L, T, B, D], all of one dtype. The caches are updated in place.
-    Returns y [B, D]."""
+    [L, T, B, D], float with q and the new rows of their dtype, or int8
+    with int8 new rows and a float q. The caches are updated in place.
+    Returns y [B, D] in q's dtype."""
     if k_cache.device.type == 'cpu':
         return decode_attention_step_plain(q, k_new, v_new, k_cache, v_cache,
                                            layer, pos, n_heads)
@@ -107,7 +131,8 @@ def decode_attention_step(q: torch.Tensor, k_new: torch.Tensor,
     L, T, B, D = k_cache.shape
     y = torch.empty((B, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel()(_DTYPE_CODES[q.dtype], q.data_ptr(), k_new.data_ptr(),
+    rc = _kernel()(_DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype],
+                   q.data_ptr(), k_new.data_ptr(),
                    v_new.data_ptr(), q.stride(0), k_new.stride(0),
                    v_new.stride(0), k_cache.data_ptr(), v_cache.data_ptr(),
                    y.data_ptr(), B, T, D, n_heads, layer, pos, stream)
@@ -115,7 +140,10 @@ def decode_attention_step(q: torch.Tensor, k_new: torch.Tensor,
         raise RuntimeError(f'decode_attention kernel launch failed: CUDA '
                            f'error {rc}')
     decode_attention_step.launches += 1
+    if k_cache.dtype == torch.int8:
+        decode_attention_step.int8_launches += 1
     return y
 
 
 decode_attention_step.launches = 0
+decode_attention_step.int8_launches = 0
