@@ -30,6 +30,13 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
    time the card could take (the bound). K2 at both main-path shapes
    ([512, 8192] and [128, 8192] bf16, k 2048), its library call topk +
    softmax + cumsum + searchsorted on the same uniforms.
+   K2 with `bisect3` (the TPU kernel's quartile search) at the 3-level
+   draw shapes [128 | 512 | 2048, 8192], k in {1, 2048}, T 1.0, on random
+   and tied bf16 rows and random f32 rows: its threshold output equals
+   `replay_threshold(bisect3=True)` and `topk_threshold3` bit for bit,
+   with the kept-set and code checks above; then timed at those shapes
+   with `bisect3` off and on, in turns, beside its plain version, the
+   library call and the bound.
 3. The main path at full width: the flagship class-conditional ImageNet-256
    config (12 spatial layers, d=1536) with seeded random weights in bf16,
    TwoStageModel.make_pixel_sampler(top-k 2048, T 0.95) on 128 labels,
@@ -73,7 +80,10 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
 6. A reference on a small input: the tiny config, f32, greedy (top-k 1),
    sampled through the CUDA kernels and through the CPU plain versions with
    the same weights: equal codes, pixels within 1e-3; and the same images
-   encoded on both: `extract_codes` equal, reconstructions within 1e-3.
+   encoded on both: `extract_codes` equal, reconstructions within 1e-3;
+   and the flagship level-3 config cut to a tiny size (d 128), greedy at
+   every level, with and without `bisect3`: the three levels' codes equal,
+   pixels within 1e-3.
 7. int8max serving (run right after phase 3, on its model and weights):
    - decode attention's int8 variant against its plain version with int8
      caches and an f32 or bf16 q, at phase 2's cases: caches bit-equal,
@@ -104,6 +114,16 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
    - the bf16 run's codes through `make_hierarchical_scorer` in bf16 and
      in int8max: top-1 agreement of the per-step logits and their mean KL
      (numbers to record; the weights are random).
+
+8. The 3-level family at full width (after phase 7's model is freed): the
+   flagship level-3 config (12 spatial layers, d 1536, three 8192-code
+   levels, parallel-add) with seeded random bf16 weights,
+   `make_pixel_sampler_multilevel(top-k 2048, T 1.0 a level)` on 128
+   labels, twice, then once with `bisect3`: codes in range, pixels
+   [128, 256, 256, 3] finite in [0, 1], exactly 756 K1 and 192 K2
+   launches a call (all 192 with `bisect3` in the third); samples/s and
+   peak memory; then the AR loop and the stage-1 decode broken down as in
+   phase 3.
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
@@ -471,34 +491,44 @@ def check_sample_topk(st):
                             f'K2 kept set differs from top-k ({case})')
                     require(kept[rows, c1].all(),
                             f'K2 code outside the kept set ({case})')
-                    if k == 1:
-                        require(torch.equal(x[rows, c1], row_max[:, 0]),
-                                f'K2 k=1 drew no argmax ({case})')
-                        require(torch.equal(c1, c2),
-                                f'K2 k=1 differs from plain ({case})')
-                    differ = torch.nonzero(c1 != c2).flatten()
-                    if differ.numel():
-                        x64 = x[differ].double()
-                        p = torch.where(kept[differ], torch.exp(
-                            x64 - x64.amax(-1, keepdim=True)), 0.0)
-                        cdf = torch.cumsum(p, -1)
-                        total = cdf[:, -1]
-                        lo = torch.minimum(c1[differ], c2[differ])
-                        gap = (u[differ].double() * total -
-                               cdf.gather(1, lo[:, None])[:, 0]).abs() / total
-                        require((gap <= 1e-5).all(), f'K2 codes differ away '
-                                f'from a CDF boundary ({case}): '
-                                f'{gap.max().item()}')
-                    frac = differ.numel() / n
-                    require(frac <= 0.01,
-                            f'K2 {differ.numel()} of {n} rows differ ({case})')
-                    max_err = max(max_err, (c1 - c2).abs().max().item())
+                    n_differ, err = compare_draws(x, kept, u, c1, c2, k, case)
+                    frac = n_differ / n
+                    max_err = max(max_err, err)
                     worst_frac = max(worst_frac, frac)
                     print(f'K2 {kind:6s} {str(dtype):14s} V={vocab:4d} '
                           f'k={k:4d}: threshold bit-equal to topk_threshold; '
-                          f'codes in the kept set; {differ.numel()} of {n} '
+                          f'codes in the kept set; {n_differ} of {n} '
                           f'rows differ from plain, all at a CDF boundary')
     return max_err, worst_frac
+
+
+def compare_draws(x, kept, u, c1, c2, k, case):
+    """The kernel's codes c1 against the plain version's c2 on the scaled
+    rows x with the kept set `kept`: k=1 draws an argmax on both; codes
+    differ only in rows whose draw lies within 1e-5 of the row's mass from
+    the CDF boundary between the two codes, at most 1% of rows. Returns
+    (rows differing, max |c1 - c2|)."""
+    n = x.shape[0]
+    if k == 1:
+        rows = torch.arange(n, device=x.device)
+        require(torch.equal(x[rows, c1], x.amax(-1)),
+                f'K2 k=1 drew no argmax ({case})')
+        require(torch.equal(c1, c2), f'K2 k=1 differs from plain ({case})')
+    differ = torch.nonzero(c1 != c2).flatten()
+    if differ.numel():
+        x64 = x[differ].double()
+        p = torch.where(kept[differ], torch.exp(
+            x64 - x64.amax(-1, keepdim=True)), 0.0)
+        cdf = torch.cumsum(p, -1)
+        total = cdf[:, -1]
+        lo = torch.minimum(c1[differ], c2[differ])
+        gap = (u[differ].double() * total -
+               cdf.gather(1, lo[:, None])[:, 0]).abs() / total
+        require((gap <= 1e-5).all(), f'K2 codes differ away from a CDF '
+                f'boundary ({case}): {gap.max().item()}')
+    require(differ.numel() <= 0.01 * n,
+            f'K2 {differ.numel()} of {n} rows differ ({case})')
+    return differ.numel(), (c1 - c2).abs().max().item()
 
 
 def time_sample_topk(st):
@@ -533,6 +563,102 @@ def time_sample_topk(st):
               f'ms, bound {bnd[0]:.5f} ms ({bnd[1]}); the kernel takes '
               f'{kernel / bnd[0]:.2f}x its bound')
         out = out or (kernel, plain, lib, bnd)
+    return out
+
+
+# The 3-level sampler's draws at batch 128: the top [B, V], the mids
+# [4B, V] and the bottoms [16B, V], bf16, top-k 2048 at temperature 1.0.
+K2_LEVEL3_ROWS = (B, 4 * B, 16 * B)
+K2_LEVEL3_K, K2_LEVEL3_TEMP = 2048, 1.0
+
+
+def check_sample_topk_bisect3(st):
+    """K2 with bisect3 (the quartile search) at the 3-level draw shapes:
+    random and tied rows in bf16 at every shape, random rows in f32 at the
+    mids' shape; k in {1, 2048}, T 1.0, shared uniforms. The threshold
+    output equals `replay_threshold(bisect3=True)` (the plain replay of
+    the kernel's select, `bisection3_replay`) and `topk_threshold3` (the
+    quartile search over the logits) bit for bit; the kept set is the
+    exact top-k within [max - 44, max]; codes lie in it and equal the
+    plain version's but at CDF boundaries (as check_sample_topk). Returns
+    the largest code difference."""
+    temp, device = K2_LEVEL3_TEMP, 'cuda'
+    max_err = 0
+    cases = [(n, kind, torch.bfloat16) for n in K2_LEVEL3_ROWS
+             for kind in ('random', 'ties')]
+    cases.append((4 * B, 'random', torch.float32))
+    for i, (n, kind, dtype) in enumerate(cases):
+        logits = k2_rows(kind, n, V, seed=100 + i).to(device, dtype)
+        u = torch.rand(n, generator=torch.Generator().manual_seed(i)).to(
+            device)
+        x = st.scaled_logits(logits, temp)
+        row_max = x.amax(-1, keepdim=True)
+        rows = torch.arange(n, device=device)
+        for k in (1, K2_LEVEL3_K):
+            thr_out = torch.empty(n, device=device)
+            c1 = st.sample_topk(logits, u, k, temp, threshold=thr_out,
+                                bisect3=True).long()
+            c2 = st.sample_topk_plain(logits, u, k, temp, bisect3=True).long()
+            replay = st.replay_threshold(logits, k, temp, bisect3=True)
+            direct = st.topk_threshold3(x, k)
+            torch.cuda.synchronize()
+            case = f'bisect3 {kind} {dtype} [{n}, {V}] k={k}'
+            for name, thr in (('bisection3_replay', replay),
+                              ('topk_threshold3', direct)):
+                require(torch.equal(thr_out.view(torch.int32),
+                                    thr[:, 0].view(torch.int32)),
+                        f'K2 threshold differs from {name} ({case})')
+            kth = torch.topk(x, k, dim=-1).values[:, -1:]
+            kept = x >= torch.maximum(kth, row_max - st.BISECT_RANGE)
+            require(torch.equal(kept, x >= thr_out[:, None]),
+                    f'K2 kept set differs from top-k ({case})')
+            require(kept[rows, c1].all(),
+                    f'K2 code outside the kept set ({case})')
+            n_differ, err = compare_draws(x, kept, u, c1, c2, k, case)
+            max_err = max(max_err, err)
+            binary = (st.topk_threshold(x, k)[:, 0] != thr_out).sum().item()
+            print(f'K2 {case}: threshold bit-equal to bisection3_replay and '
+                  f'topk_threshold3 ({binary} of {n} rows end on other bits '
+                  f'than the binary search); codes in the kept set; '
+                  f'{n_differ} rows differ from plain, all at a CDF boundary')
+    return max_err
+
+
+def time_sample_topk_level3(st):
+    """bf16 K2 at the 3-level draw shapes, k 2048, T 1.0, with the binary
+    and the quartile search, beside the plain version (quartile) and the
+    library yardstick of time_sample_topk. Returns the mids shape's
+    (kernel, plain, library, bound) with bisect3, for the JSON line."""
+    k, temp = K2_LEVEL3_K, K2_LEVEL3_TEMP
+    out = None
+    for n in K2_LEVEL3_ROWS:
+        g = torch.Generator(device='cuda').manual_seed(5)
+        logits = (torch.randn((n, V), generator=g, device='cuda') * 3).to(
+            torch.bfloat16)
+        u = torch.rand(n, generator=g, device='cuda')
+        ms = {False: [], True: []}
+        for b3 in (False, True, True, False):  # in turns
+            ms[b3].append(time_ms(lambda i: st.sample_topk(
+                logits, u, k, temp, bisect3=b3), 200))
+        binary, quartile = (sum(ms[b3]) / 2 for b3 in (False, True))
+        plain = time_ms(lambda i: st.sample_topk_plain(
+            logits, u, k, temp, bisect3=True), 3)
+
+        def library(i):
+            vals, idx = torch.topk(st.scaled_logits(logits, temp), k, dim=-1)
+            cdf = torch.softmax(vals, dim=-1).cumsum(dim=-1)
+            j = torch.searchsorted(cdf, u[:, None]).clamp_max_(k - 1)
+            return idx.gather(1, j)
+
+        lib = time_ms(library, 50)
+        bnd = bound(n * V * 2 + n * 8, K2_OPS_PER_LOGIT * n * V)
+        print(f'K2 bf16 [{n}, {V}] k {k} T {temp}: binary {binary:.5f} ms, '
+              f'bisect3 {quartile:.5f} ms ({quartile / binary:.3f}x), plain '
+              f'(bisect3) {plain:.4f} ms, topk+softmax+cumsum+searchsorted '
+              f'{lib:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); bisect3 '
+              f'takes {quartile / bnd[0]:.2f}x its bound')
+        if n == 4 * B:
+            out = (quartile, plain, lib, bnd)
     return out
 
 
@@ -1189,6 +1315,158 @@ def run_twostage_encode(vq, da, st, model, weights):
               f'({B / seconds:.2f} images/s), launches K3={launches[0]}')
 
 
+# ------------------------------------------------------ 3-level sampling
+
+LEVEL3_S2 = ROOT / 'configs/imagenet/stage2/hqtransformer-l12-top8x8-level3.yaml'
+# One draw a level a position, 12 spatial layers x 63 steps of K1.
+K2_LEVEL3_LAUNCHES = 3 * 64
+
+
+def run_level3_sampling(da, st):
+    """The 3-level family at full width: the flagship level-3 config
+    (12 layers, d 1536, three 8192-code levels, parallel-add) with seeded
+    random bf16 weights, make_pixel_sampler_multilevel at top-k 2048 and
+    T 1.0 a level on 128 labels: two calls, then one with bisect3. Codes in
+    range, pixels [128, 256, 256, 3] finite in [0, 1], 756 K1 and 192 K2
+    launches a call (all bisect3 in the third). Then the AR loop and the
+    stage-1 decode broken down. Returns (K2 bisect3 launches of the third
+    call, samples/s of the second)."""
+    from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.models.twostage import (TwoStageModel,
+                                                         serving_bf16_params)
+
+    cfg = build_twostage_config(str(LEVEL3_S2))
+    model = TwoStageModel(cfg, dtype=torch.bfloat16)
+    require((model.code_levels, model.top_res) == (3, 8),
+            f'3-level grid {model.code_levels} levels, top '
+            f'{model.top_res}x{model.top_res}')
+    weights = {s: serving_bf16_params(w)
+               for s, w in model.init_weights(seed=0).items()}
+    labels = torch.arange(B, device='cuda') % cfg.stage2.hparams.n_classes
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    res = cfg.dataset.image_resolution
+    knobs = dict(top_k=(K2_LEVEL3_K,) * 3, temperature=(K2_LEVEL3_TEMP,) * 3)
+    rates = []
+    for call, bisect3 in ((1, False), (2, False), (3, True)):
+        sampler = model.make_pixel_sampler_multilevel(bisect3=bisect3,
+                                                      **knobs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(da.decode_attention_step, st.sample_topk)
+        st.sample_topk.bisect3_launches = 0
+        t0 = time.perf_counter()
+        pixels, codes = sampler(weights, gen, labels)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = (da.decode_attention_step.launches,
+                    st.sample_topk.launches, st.sample_topk.bisect3_launches)
+        want = (K1_LAUNCHES, K2_LEVEL3_LAUNCHES,
+                K2_LEVEL3_LAUNCHES if bisect3 else 0)
+        require(launches == want, f'3-level launches K1, K2, K2 bisect3 '
+                f'{launches}, expected {want}')
+        require([tuple(c.shape) for c in codes] ==
+                [(B, 64), (B, 64, 4), (B, 64, 16)],
+                f'3-level code shapes {[tuple(c.shape) for c in codes]}')
+        for c in codes:
+            require(int(c.min()) >= 0 and int(c.max()) < N_CODES,
+                    f'3-level codes outside [0, {N_CODES})')
+        require(pixels.shape == (B, res, res, 3),
+                f'3-level pixel shape {pixels.shape}')
+        require(bool(torch.isfinite(pixels).all()),
+                '3-level pixels not finite')
+        require(float(pixels.min()) >= 0.0 and float(pixels.max()) <= 1.0,
+                '3-level pixels outside [0, 1]')
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rates.append(B / seconds)
+        print(f'3-level sampling call {call} (bisect3 {bisect3}): '
+              f'{seconds:.3f} s, {B / seconds:.2f} samples/s at batch {B}, '
+              f'peak {peak:.2f} GiB, launches K1={launches[0]} '
+              f'K2={launches[1]} (bisect3 {launches[2]}), pixels '
+              f'{tuple(pixels.shape)} {pixels.dtype}')
+    level3_breakdown(model, weights, knobs, labels, gen)
+    return launches[2], rates[1]
+
+
+def level3_breakdown(model, weights, knobs, labels, gen):
+    """The 3-level batch's AR loop (make_multilevel_sampler) and stage-1
+    decode, each timed alone and profiled (as phase 3's breakdown)."""
+    from hqtransformer_tpu_torch.models.stage2.multilevel import \
+        cells_to_level
+    from hqtransformer_tpu_torch.sampling.engine import (
+        LevelSampling, make_multilevel_sampler)
+
+    model.load_weights(weights)
+    n = model.top_res
+    sampler = make_multilevel_sampler(model.stage2, n * n, tuple(
+        LevelSampling(top_k=k, temperature=t)
+        for k, t in zip(knobs['top_k'], knobs['temperature'])))
+    tops, mids, bots = sampler(gen, labels)
+
+    @torch.inference_mode()
+    def decode():
+        return model.stage1.decode_code(
+            [tops.reshape(-1, n, n)] +
+            [cells_to_level(c, n, w).reshape(-1, n * w, n * w)
+             for c, w in ((mids, 2), (bots, 4))])
+
+    profile_phases((('3-level AR loop', lambda: sampler(gen, labels)),
+                    ('3-level stage-1 decode', decode)))
+
+
+def level3_tiny_config():
+    """The flagship level-3 config cut to a tiny size, as the CPU tests
+    build it but at d 128 (head dim 32, the least K1 takes): 2 spatial
+    layers, 4 heads, a 4x4 top, vocabularies (32, 48, 64), the 3-level
+    HQ-VAE at 64^2."""
+    from hqtransformer_tpu_torch.config import build_twostage_config
+
+    cfg = build_twostage_config(str(LEVEL3_S2))
+    cfg.dataset.image_resolution = 64
+    s1, s2 = cfg.stage1, cfg.stage2
+    s1.hparams.resolution, s1.hparams.ch, s1.hparams.ch_mult = 64, 32, [1, 2]
+    s1.hparams.z_channels, s1.hparams.attn_resolutions = 64, [16]
+    s1.embed_dim, s1.n_embed, s1.n_embed_levels = 64, 64, [32, 48, 64]
+    s2.vocab_sizes_img, s2.vocab_size_img = [32, 48, 64], 64
+    hp = s2.hparams
+    hp.embed_dim, hp.n_layers, hp.n_heads = 128, 2, 4
+    hp.n_classes, hp.ctx_len_img = 10, 16
+    return cfg
+
+
+def check_level3_reference(st):
+    """Tiny 3-level config, f32, greedy (top-k 1 at every level, and once
+    with bisect3): the CUDA path's codes equal the CPU plain path's with
+    the same weights, pixels within 1e-3."""
+    from hqtransformer_tpu_torch.models.twostage import TwoStageModel
+
+    cfg = level3_tiny_config()
+    labels = torch.arange(8) % cfg.stage2.hparams.n_classes
+    cpu = TwoStageModel(cfg, device='cpu')
+    weights = cpu.init_weights(seed=4)
+    gpu = TwoStageModel(cfg, device='cuda')
+    w_gpu = {s: {k: v.cuda() for k, v in w.items()}
+             for s, w in weights.items()}
+    for bisect3 in (False, True):
+        knobs = dict(top_k=(1, 1, 1), bisect3=bisect3)
+        ref_px, ref = cpu.make_pixel_sampler_multilevel(**knobs)(
+            weights, torch.Generator().manual_seed(0), labels)
+        st.sample_topk.launches = 0
+        px, codes = gpu.make_pixel_sampler_multilevel(**knobs)(
+            w_gpu, torch.Generator(device='cuda').manual_seed(0),
+            labels.cuda())
+        torch.cuda.synchronize()
+        require(st.sample_topk.launches == 3 * 16,
+                f'tiny 3-level sampler launched K2 '
+                f'{st.sample_topk.launches} times')
+        require(all(torch.equal(c.cpu(), r) for c, r in zip(codes, ref)),
+                f'tiny 3-level greedy codes differ between the CUDA and the '
+                f'CPU path (bisect3 {bisect3})')
+        err = (px.cpu() - ref_px).abs().max().item()
+        require(err <= 1e-3, f'tiny 3-level greedy pixels differ by {err}')
+        print(f'tiny 3-level greedy reference (bisect3 {bisect3}): codes '
+              f'equal to the CPU plain path, max|pixels - cpu| = {err:.2e}')
+
+
 def run_level3(vq, da, st):
     """make_reconstructor on the 3-level HQ-VAE at batch 32, bf16."""
     from hqtransformer_tpu_torch.config import build_stage1_config
@@ -1335,6 +1613,8 @@ def main() -> int:
     k3_err = check_vq_argmin(vq)
     k1_times = time_decode_attention(da)
     k2_times = time_sample_topk(st)
+    k2b_err = check_sample_topk_bisect3(st)
+    k2b_times = time_sample_topk_level3(st)
     k3_shapes, k3_served_err = time_vq_argmin(vq, torch.bfloat16)
     k3f_shapes, k3f_served_err = time_vq_argmin(vq, torch.float32)
     launches, samples_per_s, model, weights = run_main_path(da, st)
@@ -1343,9 +1623,13 @@ def main() -> int:
                                                  weights['stage1'])
     run_twostage_encode(vq, da, st, model, weights)
     del model, weights
+    torch.cuda.empty_cache()
+    k2b_launches, level3_samples_per_s = run_level3_sampling(da, st)
+    torch.cuda.empty_cache()
     run_level3(vq, da, st)
     k3f_launches, f32_images_per_s = run_encode_f32(vq, da, st)
     check_small_reference(vq)
+    check_level3_reference(st)
 
     kernels = []
     source = 'hqtransformer_tpu_torch/csrc/'
@@ -1359,6 +1643,9 @@ def main() -> int:
             ('sample_topk', source + 'sample_topk.cu',
              'hqtransformer_tpu/ops/pallas_sample.py:236', launches[1],
              k2_err, k2_times),
+            ('sample_topk_bisect3', source + 'sample_topk.cu',
+             'hqtransformer_tpu/ops/pallas_sample.py:236 (bisect3)',
+             k2b_launches, k2b_err, k2b_times),
             ('vq_argmin', source + 'vq_argmin.cu',
              'hqtransformer_tpu/ops/pallas_vq.py:63', k3_launches,
              max(k3_err, k3_served_err), flagship_entry(k3_shapes)),
@@ -1371,7 +1658,8 @@ def main() -> int:
                         'plain_ms': plain, 'bound_ms': bnd, 'bound_by': by,
                         'library_ms': lib})
     print(f'K2 rows differing from plain at most {k2_frac:.4f}; main path '
-          f'{samples_per_s:.2f} samples/s at batch {B}; encode slice '
+          f'{samples_per_s:.2f} samples/s at batch {B}; 3-level sampling '
+          f'{level3_samples_per_s:.2f} samples/s at batch {B}; encode slice '
           f'{images_per_s:.2f} images/s at batch {B} in bf16, '
           f'{f32_images_per_s:.2f} in f32')
     print(json.dumps({'kernels': kernels}))

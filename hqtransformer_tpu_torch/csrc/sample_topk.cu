@@ -6,7 +6,11 @@
 //   threshold: if k < V, 26 bisection steps on [row_max - 44, row_max + 1e-6]
 //     with mid = 0.5 * (lo + hi) in f32 and count(x >= mid); count >= k moves
 //     lo up, else hi down; a row freezes on an exact count == k. If k >= V,
-//     the threshold is min(x).
+//     the threshold is min(x). With `bisect3` (the TPU kernel's
+//     `threshold3`), 13 passes instead, each counting at the bracket's
+//     quartile points m_i = lo + {0.25, 0.5, 0.75} * (hi - lo): lo goes to
+//     the largest m_i with count >= k, hi to the smallest without, and a
+//     row freezes where any probe counts exactly k.
 //   p = (x >= thr) ? exp(x - row_max) : 0;  cdf = inclusive prefix sum of p
 //   draw = max(u * total, 1e-30);  idx0 = count(cdf < draw)
 //   code = the largest index <= idx0 with p > 0 (snap down, so a rounding
@@ -21,7 +25,9 @@
 // select and v_{k+1} from it (v_k again on a tie, which the select's last
 // histogram shows, else the largest value below v_k, by one block
 // reduction), and replays the 26 steps in one thread with the same f32
-// arithmetic and the same early stop. The replay compares floats, as the
+// arithmetic and the same early stop (the quartile search likewise, its
+// products and sums rounded apart, as the TPU kernel's are: no fused
+// multiply-add). The replay compares floats, as the
 // counts do, so its threshold is bit-identical to the bisection's, ties at
 // the k-th value and +-0 included (-0 and +0 have distinct keys but compare
 // equal); a row whose k-th value lies below row_max - 44 comes out at
@@ -72,6 +78,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBisectIters = 26;
+constexpr int kBisect3Iters = 13;  // 44 / 4^13 == 44 / 2^26
 constexpr float kBisectRange = 44.0f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -309,6 +316,34 @@ __device__ __forceinline__ float bisection_replay(float row_max, float vk,
   return lo;
 }
 
+// The TPU kernel's quartile search (`threshold3`), replayed from the same
+// three numbers: count(x >= m_i) >= k is m_i <= v_k, and count == k is,
+// besides, v_{k+1} < m_i. The probes are rounded as lo + (q * d) with
+// each operation rounded (no contraction into an fma).
+__device__ __forceinline__ float bisection3_replay(float row_max, float vk,
+                                                   float vk1) {
+  float lo = row_max - kBisectRange;
+  float hi = row_max + 1e-6f;
+  for (int it = 0; it < kBisect3Iters; ++it) {
+    const float d = __fsub_rn(hi, lo);
+    const float m1 = __fadd_rn(lo, __fmul_rn(0.25f, d));
+    const float m2 = __fadd_rn(lo, __fmul_rn(0.5f, d));
+    const float m3 = __fadd_rn(lo, __fmul_rn(0.75f, d));
+    const bool g1 = m1 <= vk, g2 = m2 <= vk, g3 = m3 <= vk;
+    float lo2 = g1 ? m1 : lo;
+    lo2 = g2 ? m2 : lo2;
+    lo2 = g3 ? m3 : lo2;
+    float hi2 = g3 ? hi : m3;
+    hi2 = g2 ? hi2 : m2;
+    hi2 = g1 ? hi2 : m1;
+    lo = lo2;
+    hi = hi2;
+    if ((g1 && vk1 < m1) || (g2 && vk1 < m2) || (g3 && vk1 < m3))
+      break;  // frozen: a probe counted exactly k
+  }
+  return lo;
+}
+
 // Four blocks an SM (64 registers a thread) up to V = 8192 in bf16; two in
 // f32, whose rows take twice the registers.
 template <typename T, int VPT>
@@ -316,7 +351,8 @@ __global__ void __launch_bounds__(kThreads,
                                   VPT <= 32 && sizeof(T) == 2 ? 4 : 2)
 sample_topk_kernel(const T* __restrict__ logits, const float* __restrict__ u,
                    int32_t* __restrict__ out, float* __restrict__ thr_out,
-                   int V, int k, float temperature, bool vec) {
+                   int V, int k, float temperature, bool vec,
+                   bool bisect3) {
   using R = Row<T, VPT>;
   __shared__ __align__(16) int hist[R::kMaxBins];
   __shared__ int sh_warp[kWarps];
@@ -388,8 +424,10 @@ sample_topk_kernel(const T* __restrict__ logits, const float* __restrict__ u,
 #pragma unroll
         for (int w = 1; w < kWarps; ++w) key_k1 = max(key_k1, sh_below[w]);
       }
-      thr = bisection_replay(row_max, R::from_key(key_k) / temperature,
-                             R::from_key(key_k1) / temperature);
+      const float vk = R::from_key(key_k) / temperature;
+      const float vk1 = R::from_key(key_k1) / temperature;
+      thr = bisect3 ? bisection3_replay(row_max, vk, vk1)
+                    : bisection_replay(row_max, vk, vk1);
     } else {
       float mn = sh_min[0];
 #pragma unroll
@@ -477,19 +515,23 @@ sample_topk_kernel(const T* __restrict__ logits, const float* __restrict__ u,
 
 template <typename T, int VPT>
 void launch(const void* logits, const float* u, int32_t* out, float* thr_out,
-            int N, int V, int k, float temperature, cudaStream_t stream) {
+            int N, int V, int k, float temperature, bool bisect3,
+            cudaStream_t stream) {
   const bool vec = reinterpret_cast<uintptr_t>(logits) % 16 == 0 &&
                    (static_cast<int64_t>(V) * sizeof(T)) % 16 == 0;
   sample_topk_kernel<T, VPT><<<N, kThreads, 0, stream>>>(
-      static_cast<const T*>(logits), u, out, thr_out, V, k, temperature, vec);
+      static_cast<const T*>(logits), u, out, thr_out, V, k, temperature, vec,
+      bisect3);
 }
 
 template <typename T>
 int dispatch(const void* logits, const float* u, int32_t* out, float* thr_out,
-             int N, int V, int k, float temperature, cudaStream_t stream) {
+             int N, int V, int k, float temperature, bool bisect3,
+             cudaStream_t stream) {
   const int vpt = (V + kThreads - 1) / kThreads;
 #define HQT_LAUNCH(n) \
-  launch<T, n>(logits, u, out, thr_out, N, V, k, temperature, stream)
+  launch<T, n>(logits, u, out, thr_out, N, V, k, temperature, bisect3, \
+               stream)
   if (vpt <= 1) HQT_LAUNCH(1);
   else if (vpt <= 2) HQT_LAUNCH(2);
   else if (vpt <= 4) HQT_LAUNCH(4);
@@ -507,20 +549,23 @@ int dispatch(const void* logits, const float* u, int32_t* out, float* thr_out,
 // dtype: 0 = float32, 1 = bfloat16. logits: contiguous [N, V]; u: [N] f32;
 // out: [N] int32; thr_out: [N] f32 or null, each row's threshold (the kept
 // set is x >= thr). V <= 16384, k >= 1, temperature > 0 and finite.
+// bisect3: 0 replays the binary bisection, 1 the quartile search.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int hqt_sample_topk(int dtype, const void* logits, const float* u,
                                int32_t* out, float* thr_out, int N, int V,
-                               int k, float temperature, void* stream) {
+                               int k, float temperature, int bisect3,
+                               void* stream) {
   if (N <= 0 || V <= 0 || k < 1 || !(temperature > 0.f) ||
       !isfinite(temperature))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == 0)
-    rc = dispatch<float>(logits, u, out, thr_out, N, V, k, temperature, s);
+    rc = dispatch<float>(logits, u, out, thr_out, N, V, k, temperature,
+                         bisect3 != 0, s);
   else if (dtype == 1)
     rc = dispatch<__nv_bfloat16>(logits, u, out, thr_out, N, V, k,
-                                 temperature, s);
+                                 temperature, bisect3 != 0, s);
   else rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

@@ -33,7 +33,7 @@ from ...config import ModelTypeSpec, Stage2Hparams, parse_embedding_type
 from ...ops import masks as M
 from ...ops.int8 import Int8Serving, Int8Weight
 from .layers import (Block, LayerNorm, Linear, QuantizableLinear, act_scale,
-                     masked_attention, merge_heads, split_heads)
+                     merge_heads, split_heads, tiny_attention)
 
 DepthKV = Tuple[List[torch.Tensor], List[torch.Tensor]]
 
@@ -53,7 +53,33 @@ def cells_to_raster(bot_cells: torch.Tensor, h_top: int,
     return x.reshape(B, h_top * win * h_top * win)
 
 
-class HierarchicalGPT(nn.Module):
+class SpatialDecoding:
+    """The spatial transformer's serving steps on the packed [L, T, B, D]
+    KV caches, for a model with `blocks` and `ln_f`: the 2-level and the
+    3-level models share them."""
+
+    def spatial_prefill(self, x: torch.Tensor, k_caches: torch.Tensor,
+                        v_caches: torch.Tensor,
+                        int8: bool = False) -> torch.Tensor:
+        """Run the spatial transformer on the conditioning prefix x
+        [B, S, D], writing cache rows [0, S) of every layer of the packed
+        [L, T, B, D] caches in place. Returns h after ln_f [B, S, D]."""
+        for i, blk in enumerate(self.blocks):
+            x = blk.prefill(x, k_caches, v_caches, i, int8=int8)
+        return self.ln_f(x)
+
+    def spatial_step(self, x: torch.Tensor, k_caches: torch.Tensor,
+                     v_caches: torch.Tensor, pos: int,
+                     int8: bool = False) -> torch.Tensor:
+        """One token x [B, 1, D] at time `pos` against the packed caches
+        (updated in place, decode attention K1). Returns h after ln_f
+        [B, 1, D]."""
+        for i, blk in enumerate(self.blocks):
+            x = blk.step(x, k_caches, v_caches, i, pos, int8)
+        return self.ln_f(x)
+
+
+class HierarchicalGPT(SpatialDecoding, nn.Module):
     """Two-level hierarchical AR transformer (iHQGPT)."""
 
     def __init__(self, vocab_size_top: int, vocab_size_bot: int,
@@ -222,25 +248,6 @@ class HierarchicalGPT(nn.Module):
             for _, lin in quantized:
                 lin.q8 = None
 
-    def spatial_prefill(self, x: torch.Tensor, k_caches: torch.Tensor,
-                        v_caches: torch.Tensor,
-                        int8: bool = False) -> torch.Tensor:
-        """Run the spatial transformer on the conditioning prefix x
-        [B, S, D], writing cache rows [0, S) of every layer of the packed
-        [L, T, B, D] caches in place. Returns h after ln_f [B, S, D]."""
-        for i, blk in enumerate(self.blocks):
-            x = blk.prefill(x, k_caches, v_caches, i, int8=int8)
-        return self.ln_f(x)
-
-    def spatial_step(self, x: torch.Tensor, k_caches: torch.Tensor,
-                     v_caches: torch.Tensor, pos: int,
-                     int8: bool = False) -> torch.Tensor:
-        """One token x [B, 1, D] at time `pos` against the packed caches
-        (updated in place). Returns h after ln_f [B, 1, D]."""
-        for i, blk in enumerate(self.blocks):
-            x = blk.step(x, k_caches, v_caches, i, pos, int8)
-        return self.ln_f(x)
-
     def embed_cell_step(self, code_t: torch.Tensor, bot_cell: torch.Tensor,
                         position: torch.Tensor) -> torch.Tensor:
         """Embed one generated cell for the next spatial step. code_t: [B],
@@ -274,8 +281,9 @@ class HierarchicalGPT(nn.Module):
         """Depth step `group`: logits [B, n, Vb] of the next group of n
         bottom codes, given the previous step's codes [B, 1] or [B, n]
         (embedded with tok_emb_top_depth) and the cached depth (k, v).
-        Full attention over [cached; new] keys. With `int8` every gemm,
-        head_bot included, runs A8W8."""
+        Full attention over [cached; new] keys, with the JAX package's
+        roundings (`tiny_attention`). With `int8` every gemm, head_bot
+        included, runs A8W8."""
         ks, vs = depth_kv
         n = self.num_bottom_pred
         pos = self.pos_emb_depth.weight[n * (group - 1):n * group]
@@ -285,12 +293,10 @@ class HierarchicalGPT(nn.Module):
             a = blk.attn
             C = x.shape[-1]
             q, k_new, v_new = a.fused_qkv(blk.ln1(x), int8).split(C, dim=-1)
-            k = torch.cat([ks[i], split_heads(k_new, a.n_heads)], dim=2)
-            v = torch.cat([vs[i], split_heads(v_new, a.n_heads)], dim=2)
-            y = merge_heads(masked_attention(split_heads(q, a.n_heads), k, v,
-                                             None))
-            x = x + a.proj(y, int8)
+            k = torch.cat([merge_heads(ks[i]), k_new], dim=1)
+            v = torch.cat([merge_heads(vs[i]), v_new], dim=1)
+            x = x + a.proj(tiny_attention(q, k, v, a.n_heads), int8)
             x = x + blk.mlp_forward(blk.ln2(x), int8)
-            new_ks.append(k)
-            new_vs.append(v)
+            new_ks.append(split_heads(k, a.n_heads))
+            new_vs.append(split_heads(v, a.n_heads))
         return self.head_bot(self.ln_bot(x), int8), (new_ks, new_vs)

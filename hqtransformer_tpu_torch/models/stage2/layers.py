@@ -8,8 +8,11 @@ variables loads with `strict=True`.
 
 Mixed precision follows the JAX modules: matrix weights may be stored in
 bf16 and 1-D biases and norm scales in f32 (`serving_bf16_params`); every
-projection runs in its input's dtype, LayerNorm computes in f32 and returns
-the input dtype, and attention scores and softmax are f32.
+projection runs in its input's dtype (in bf16 the product and then the
+bias sum rounded, as flax `Dense` rounds them), LayerNorm computes in f32
+and returns the input dtype, and attention scores and softmax are f32.
+The depth chains attend with `tiny_attention`, the JAX package's
+arithmetic for them.
 
 The JAX `Block.step_stacked` tells prefill from decode by whether the cache
 length is a static Python int. Here the position is always an int, so
@@ -52,12 +55,21 @@ KV_SCALES_NEEDED = ('int8 KV cache needs calibrated scales: run '
                     'to the sampler')
 
 
+def linear(x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor]) -> torch.Tensor:
+    """x @ w.T + b in x's dtype, rounded where flax `Dense` rounds: on bf16
+    activations the product is rounded to bf16 and then the bias sum (two
+    launches); in f32 the bias goes into the one gemm call."""
+    if b is not None and x.dtype == torch.bfloat16:
+        return F.linear(x, w) + b.to(x.dtype)
+    return F.linear(x, w, None if b is None else b.to(x.dtype))
+
+
 class Linear(nn.Linear):
-    """nn.Linear that computes in its input's dtype."""
+    """nn.Linear that computes in its input's dtype (see `linear`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        return linear(x, self.weight.to(x.dtype), self.bias)
 
 
 class QuantizableLinear(Linear):
@@ -155,6 +167,30 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(att.to(v.dtype), v)
 
 
+def tiny_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   n_heads: int,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-head attention over the short depth chains (Tq, Tk <= 21) in
+    the flat [B, T, D] layout, with the JAX package's `tiny_attention`
+    roundings: the products q * k in the activation dtype, summed per head
+    in f32, scaled and masked (`mask` bool [Tq, Tk], True = attend), the
+    softmax over the keys in f32; the weights cast to q's dtype, broadcast
+    over each head's channels, and sum(weight * v) over the keys in f32
+    (XLA fuses that product into the sum: it is not rounded), cast to q's
+    dtype. In bf16 this gives the JAX function's output bit for bit."""
+    B, Tq, D = q.shape
+    Tk = k.shape[1]
+    hd = D // n_heads
+    P = q[:, :, None, :] * k[:, None, :, :]                 # [B, Tq, Tk, D]
+    s = P.reshape(B, Tq, Tk, n_heads, hd).sum(-1, dtype=torch.float32)
+    s = s * (1.0 / math.sqrt(hd))
+    if mask is not None:
+        s = s.masked_fill(~mask[None, :, :, None], NEG_INF)
+    att = torch.softmax(s, dim=2).to(q.dtype).float()       # [B, Tq, Tk, nh]
+    y = att[..., None] * v.float().reshape(B, 1, Tk, n_heads, hd)
+    return y.sum(2).reshape(B, Tq, D).to(q.dtype)
+
+
 class SelfAttention(nn.Module):
     """Multi-head self-attention with full-sequence, prefill and cached
     single-token entry points sharing one set of weights."""
@@ -218,13 +254,13 @@ class SelfAttention(nn.Module):
             return self.serving.qkv_q8.linear(x)
         w, b = (self.serving.qkv if self.serving is not None else
                 self._concat((self.query, self.key, self.value), x.dtype))
-        return F.linear(x, w, b)
+        return linear(x, w, b)
 
     def fused_kv(self, x: torch.Tensor) -> torch.Tensor:
         """One [C, 2C] projection -> [..., 2C] (k, v concatenated)."""
         w, b = (self.serving.kv if self.serving is not None else
                 self._concat((self.key, self.value), x.dtype))
-        return F.linear(x, w, b)
+        return linear(x, w, b)
 
     def _int8_cache_scales(self):
         if self.serving is None or self.serving.kv_scales is None:

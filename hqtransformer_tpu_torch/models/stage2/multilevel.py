@@ -1,0 +1,324 @@
+"""HQ-Transformer for three code levels ('multilevel-hq'): a spatial GPT
+over cells that fuse one top code with its 4 mid and 16 bottom codes, and a
+depth transformer that decodes a cell's 21 codes in three phases (1 top,
+then 4 mids, then 16 bottoms).
+
+Counterpart of `hqtransformer_tpu/models/stage2/multilevel.py::
+MultiLevelHQTransformer` for what the slice serves: class conditioning,
+1-d spatial positions, the `transformer1` cell embedding (no embedding
+blocks: a cell is the mean of its 21 token embeddings plus `pos_emb_emb`)
+and the decoding types 'parallel' and 'parallel-add'. The constructor
+raises `NotImplementedError` for the rest: text or no conditioning, the
+`reduce` and `transformerN` (N > 1) embeddings, 2-d positions,
+'top2mid2bot' and 'tree'. The JAX module's 'tree' reads its 4-row
+`pos_emb_depths_1` at 16 positions, which `jnp.take` fills with NaN, so its
+forward and its bottom phase give NaN logits there.
+
+Parameter names follow the JAX module (`tok_emb_levels.<i>`,
+`tok_emb_depth_levels.<i>`, `pos_emb_depths.<i>`, `ln_levels.<i>`,
+`head_levels.<i>`), so `convert.convert_variables` loads it with
+`strict=True`.
+
+Depth-sequence order: [sos + h, 4 top inputs, 16 mid inputs]; the bottoms
+are in the reference's pyramid order (h1, h2, w1, w2), which is the local
+raster order of a 4x4 cell. Mids and bottoms of a cell are in local raster
+order everywhere (`level_cells`).
+
+The serving path: `spatial_prefill` / `spatial_step` run the spatial blocks
+on the packed [L, T, B, D] caches through decode attention (K1), and
+`depth_phase_cached` runs each phase's new tokens against the cached K/V of
+the earlier phases with `tiny_attention` under `masks.level3_decode`. The
+recompute path `depth_phase` is the JAX module's reference behaviour; the
+tests hold the two equal. int8 serving is not ported for this family.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Iterator, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...config import Stage2Hparams, parse_embedding_type
+from ...ops import masks as M
+from ...ops.int8 import Int8Serving
+from .hierarchical import SpatialDecoding, cells_to_raster, raster_to_cells
+from .layers import Block, LayerNorm, Linear, tiny_attention
+
+DepthKV = Tuple[List[torch.Tensor], List[torch.Tensor]]
+
+CODE_LEVELS = 3
+CODE_LEN = M.LEVEL3_LEN          # 1 top + 4 mid + 16 bottom codes a cell
+DECODING_TYPES = ('parallel', 'parallel-add')
+
+
+# The JAX module's names for the cell layout: raster [B, (H win W win)] <->
+# per-top-cell groups [B, H*W, win*win] in local raster order.
+level_cells = raster_to_cells
+cells_to_level = cells_to_raster
+
+
+def _logits_to_raster(x: torch.Tensor, B: int, h_top: int,
+                      win: int) -> torch.Tensor:
+    """Per-cell logits [(B H W), win*win, K] -> raster [B, (H win W win),
+    K]."""
+    K = x.shape[-1]
+    x = x.reshape(B, h_top, h_top, win, win, K).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, h_top * win * h_top * win, K)
+
+
+def _mid_positions(pos: torch.Tensor) -> torch.Tensor:
+    """pos_emb_depths_1's 16 rows, in (h1 h2 w1 w2) order -> [4 (h1 w1),
+    4 (h2 w2), D]: the position of each of a mid's four bottoms."""
+    D = pos.shape[-1]
+    return pos.reshape(2, 2, 2, 2, D).permute(0, 2, 1, 3, 4).reshape(4, 4, D)
+
+
+def _pyramid(x: torch.Tensor) -> torch.Tensor:
+    """[N, 4 (h1 w1), 4 (h2 w2), D] -> [N, 16 (h1 h2 w1 w2), D]."""
+    N, D = x.shape[0], x.shape[-1]
+    return x.reshape(N, 2, 2, 2, 2, D).permute(0, 1, 3, 2, 4, 5).reshape(
+        N, 16, D)
+
+
+class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
+    """Three-level hierarchical AR transformer."""
+
+    def __init__(self, vocab_sizes: Sequence[int], decoding_type: str,
+                 use_cls_cond: bool, hparams: Stage2Hparams,
+                 hparams_dec: Optional[Stage2Hparams] = None,
+                 use_txt_cond: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        emb = parse_embedding_type(hparams.embedding_type)
+        if len(vocab_sizes) != CODE_LEVELS:
+            raise NotImplementedError(
+                f'{len(vocab_sizes)} code levels: only 3 are ported')
+        if use_txt_cond or not use_cls_cond:
+            raise NotImplementedError('only class conditioning is ported')
+        if decoding_type not in DECODING_TYPES:
+            raise NotImplementedError(
+                f'decoding type {decoding_type!r} is not ported')
+        if emb.kind != 'transformer' or emb.n_layers_emb != 0:
+            raise NotImplementedError(
+                f'embedding type {hparams.embedding_type!r} is not ported')
+        if hparams.position_embedding != '1d' or hparams.use_random_order:
+            raise NotImplementedError('only 1-d, raster-order positions are '
+                                      'ported')
+        self.hparams = hparams
+        self.hpd = hparams_dec or Stage2Hparams(
+            **{**hparams.__dict__, 'n_layers': 4})
+        self.decoding_type = decoding_type
+        self.parallel_type = decoding_type.split('-')[0]
+        self.dtype = dtype
+        hp, hpd = hparams, self.hpd
+        D, Dd = hp.embed_dim, hpd.embed_dim
+
+        def blocks(h, n):
+            return nn.ModuleList(
+                Block(h.embed_dim, h.n_heads, h.mlp_bias, h.attn_bias,
+                      h.gelu_use_approx) for _ in range(n))
+
+        self.tok_emb_levels = nn.ModuleList(
+            nn.Embedding(v, D) for v in vocab_sizes)
+        self.pos_emb_emb = nn.Embedding(CODE_LEN, D)
+        self.sos = nn.Embedding(hp.n_classes, D)
+        self.pos_emb_top = nn.Embedding(hp.ctx_len_img, D)
+        self.blocks = blocks(hp, hp.n_layers)
+        self.ln_f = LayerNorm(D)
+
+        self.sos_depth = nn.Parameter(torch.zeros(1, 1, Dd))
+        self.tok_emb_depth_levels = nn.ModuleList(
+            nn.Embedding(v, D) for v in vocab_sizes)
+        self.pos_emb_depths = nn.ModuleList(
+            [nn.Embedding(4, Dd), nn.Embedding(16, Dd)])
+        self.depths = blocks(hpd, hpd.n_layers)
+        self.ln_levels = nn.ModuleList(LayerNorm(Dd)
+                                       for _ in range(CODE_LEVELS))
+        self.head_levels = nn.ModuleList(Linear(Dd, v, bias=False)
+                                         for v in vocab_sizes)
+
+    # ------------------------------------------------------------ embedding
+    def _emb(self, table: nn.Embedding, idx: torch.Tensor) -> torch.Tensor:
+        return F.embedding(idx, table.weight).to(self.dtype)
+
+    def _rows(self, table: nn.Embedding, n: int) -> torch.Tensor:
+        return table.weight[:n].to(self.dtype)
+
+    def embed_cells(self, cells: Sequence[torch.Tensor],
+                    positions: torch.Tensor) -> torch.Tensor:
+        """Fuse each cell's top code [B, L, 1], mids [B, L, 4] and bottoms
+        [B, L, 16] (local raster) into one spatial token: the mean of
+        [top + pos, mids, bottoms] after adding pos_emb_emb. positions:
+        [B, L] -> [B, L, D]."""
+        B, L = cells[0].shape[:2]
+        e0 = self._emb(self.tok_emb_levels[0], cells[0].reshape(B, L)) + \
+            self._emb(self.pos_emb_top, positions)
+        hs = [e0[:, :, None, :]] + [self._emb(self.tok_emb_levels[li], c)
+                                    for li, c in enumerate(cells) if li]
+        h = torch.cat(hs, dim=2) + self._rows(self.pos_emb_emb, CODE_LEN)
+        return h.mean(dim=2)
+
+    def sos_tokens(self, B: int, labels: torch.Tensor) -> torch.Tensor:
+        """[B, 1, D] class-conditioning prefix."""
+        return self._emb(self.sos, labels)[:, None, :]
+
+    # -------------------------------------------------------------- forward
+    def forward(self, codes: Sequence[torch.Tensor],
+                labels: torch.Tensor) -> List[torch.Tensor]:
+        """Teacher-forced forward. codes: raster maps top [B, L], mid
+        [B, 4L], bottom [B, 16L]. Returns per-level logits [B, L, V0],
+        [B, 4L, V1], [B, 16L, V2] in raster order."""
+        h_top = math.isqrt(codes[0].shape[1])
+        cells = [codes[0][:, :, None]] + [
+            level_cells(c, h_top, 2 ** li) for li, c in enumerate(codes)
+            if li]
+        h = self.forward_embeddings(cells, labels)
+        return self.forward_hierarchy(h, cells, h_top)
+
+    def forward_embeddings(self, cells, labels):
+        B, L = cells[0].shape[:2]
+        positions = torch.arange(L, device=cells[0].device).expand(B, L)
+        h = self.embed_cells(cells, positions)
+        h = torch.cat([self.sos_tokens(B, labels), h[:, :-1]], dim=1)
+        mask = M.causal(h.shape[1], h.device)
+        for blk in self.blocks:
+            h = blk(h, mask)
+        return self.ln_f(h)
+
+    def forward_hierarchy(self, h, cells, h_top):
+        B, L = cells[0].shape[:2]
+        x = torch.cat([
+            self._phase_inputs(h.reshape(B * L, -1), None, None, 0),
+            self._phase_inputs(None, cells[0].reshape(B * L), None, 1),
+            self._phase_inputs(None, cells[0].reshape(B * L),
+                               cells[1].reshape(B * L, 4), 2)], dim=1)
+        mask = M.level3(self.parallel_type, x.device)
+        for blk in self.depths:
+            x = blk(x, mask)
+        return [self._phase_head(x[:, 0], 0).reshape(B, L, -1),
+                _logits_to_raster(self._phase_head(x[:, 1:5], 1), B, h_top,
+                                  2),
+                _logits_to_raster(self._phase_head(x[:, 5:], 2), B, h_top,
+                                  4)]
+
+    # --------------------------------------------------------- decode steps
+    @contextlib.contextmanager
+    def serving(self, int8: Int8Serving = Int8Serving(),
+                scales: Optional[Mapping[str, Mapping[str, torch.Tensor]]]
+                = None) -> Iterator[None]:
+        """Prepare the modules for one serving call and undo it on exit:
+        every attention layer's fused QKV and K/V weights concatenated in
+        the activation dtype. int8 serving of this family is not ported:
+        any int8 switch raises."""
+        if int8 != Int8Serving():
+            raise NotImplementedError(
+                'int8 serving of the 3-level family is not ported')
+        blocks = (*self.blocks, *self.depths)
+        states = [blk.attn.prepare_serving(self.dtype, None, None, '')
+                  for blk in blocks]
+        try:
+            for blk, state in zip(blocks, states):
+                blk.attn.serving = state
+            yield
+        finally:
+            for blk in blocks:
+                blk.attn.serving = None
+
+    def embed_cell_step(self, top: torch.Tensor, mid: torch.Tensor,
+                        bot: torch.Tensor,
+                        position: torch.Tensor) -> torch.Tensor:
+        """Embed one generated cell for the next spatial step: top [B], mid
+        [B, 4], bot [B, 16] (local raster), position [B] -> [B, 1, D]."""
+        return self.embed_cells([top[:, None, None], mid[:, None, :],
+                                 bot[:, None, :]], position[:, None])
+
+    def _phase_inputs(self, h: Optional[torch.Tensor],
+                      top: Optional[torch.Tensor],
+                      mid_local: Optional[torch.Tensor],
+                      phase: int) -> torch.Tensor:
+        """The depth tokens entering at `phase`: 0 -> [B, 1, D] (sos + h,
+        h [B, D]); 1 -> [B, 4, D] (the top code's embedding at 4
+        positions, top [B]); 2 -> [B, 16, D] (each mid's embedding at its
+        four bottoms' positions, plus the top's under 'parallel-add';
+        mid_local [B, 4])."""
+        if phase == 0:
+            return h[:, None, :] + self.sos_depth.to(self.dtype)
+        e_top = self._emb(self.tok_emb_depth_levels[0], top)[:, None, :]
+        if phase == 1:
+            return e_top + self._rows(self.pos_emb_depths[0], 4)[None]
+        e1 = self._emb(self.tok_emb_depth_levels[1], mid_local)  # [B, 4, D]
+        pos1 = _mid_positions(self._rows(self.pos_emb_depths[1], 16))
+        e1 = _pyramid(e1[:, :, None, :] + pos1[None])
+        if self.decoding_type.endswith('-add'):
+            e1 = e1 + e_top
+        return e1
+
+    def _phase_head(self, x: torch.Tensor, phase: int) -> torch.Tensor:
+        """The level head of `phase` over its new tokens' outputs."""
+        return self.head_levels[phase](self.ln_levels[phase](x))
+
+    def depth_phase(self, h: torch.Tensor, top: Optional[torch.Tensor],
+                    mid_local: Optional[torch.Tensor],
+                    phase: int) -> torch.Tensor:
+        """Depth phase by recomputing its whole prefix (1, 5 or 21 tokens)
+        under the level-3 mask: the logits of the top [B, V0], the mids
+        [B, 4, V1] or the bottoms [B, 16, V2] (local raster). h: [B, D];
+        top: [B]; mid_local: [B, 4]."""
+        xs = [self._phase_inputs(h, None, None, 0)]
+        if phase >= 1:
+            xs.append(self._phase_inputs(None, top, None, 1))
+        if phase == 2:
+            xs.append(self._phase_inputs(None, top, mid_local, 2))
+        x = torch.cat(xs, dim=1)
+        T = x.shape[1]
+        mask = M.level3(self.parallel_type, x.device)[:T, :T]
+        for blk in self.depths:
+            x = blk(x, mask)
+        return self._phase_head(x[:, 0] if phase == 0 else
+                                x[:, (1, 5)[phase - 1]:], phase)
+
+    def depth_phase_cached(self, h: Optional[torch.Tensor],
+                           top: Optional[torch.Tensor],
+                           mid_local: Optional[torch.Tensor],
+                           depth_kv: Optional[DepthKV],
+                           phase: int) -> Tuple[torch.Tensor, DepthKV]:
+        """Depth phase on the serving path: only the tokens entering at
+        `phase`, against the flat [B, t, D] K/V that the earlier phases
+        cached. Returns (this level's logits, the K/V extended by this
+        phase's tokens). A phase-p token sees the same columns of the
+        level-3 mask here as in `depth_phase`, so the two agree.
+
+        Phase 0 is one token: the softmax over its one key is 1, so the
+        attention output is its v, and q is never computed."""
+        if phase == 0:
+            x = self._phase_inputs(h, None, None, 0)
+            ks, vs = [], []
+            for blk in self.depths:
+                k, v = blk.attn.fused_kv(blk.ln1(x)).split(x.shape[-1],
+                                                           dim=-1)
+                x = x + blk.attn.proj(v)
+                x = x + blk.mlp_forward(blk.ln2(x))
+                ks.append(k)
+                vs.append(v)
+            return self._phase_head(x[:, 0], 0), (ks, vs)
+
+        x = self._phase_inputs(None, top, mid_local, phase)
+        t_past, t_new = (1, 5)[phase - 1], x.shape[1]
+        mask = M.level3_decode(self.parallel_type, t_past, t_new, x.device)
+        ks, vs = depth_kv
+        new_ks, new_vs = [], []
+        for i, blk in enumerate(self.depths):
+            a = blk.attn
+            q, k_new, v_new = a.fused_qkv(blk.ln1(x)).split(x.shape[-1],
+                                                            dim=-1)
+            k = torch.cat([ks[i], k_new], dim=1)
+            v = torch.cat([vs[i], v_new], dim=1)
+            x = x + a.proj(tiny_attention(q, k, v, a.n_heads, mask))
+            x = x + blk.mlp_forward(blk.ln2(x))
+            new_ks.append(k)
+            new_vs.append(v)
+        return self._phase_head(x, phase), (new_ks, new_vs)

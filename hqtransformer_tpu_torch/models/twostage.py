@@ -2,7 +2,9 @@
 
 Counterpart of `hqtransformer_tpu/models/twostage.py` for the ported paths:
 - `TwoStageModel(cfg).make_pixel_sampler(...)(weights, generator, labels)`
-  gives pixels [B, 256, 256, 3] in [0, 1] at the flagship config;
+  gives pixels [B, 256, 256, 3] in [0, 1] at the flagship config, and
+  `make_pixel_sampler_multilevel(...)` the same for the 3-level family
+  (stage-2 type 'multilevel-hq', the 3-level HQ-VAE);
 - `extract_codes(weights, images)` encodes images [B, 256, 256, 3] in
   [-1, 1] to raster codes, and `forward(weights, images, labels)` runs the
   teacher-forced stage-2 forward on them, giving its logits.
@@ -21,7 +23,9 @@ collection (merge them with `{**a, **b, **c}`); `save_serving_scales` and
 `load_serving_scales` write and read them in the JAX package's artifact
 format, so that calibration and serving can run in separate processes.
 `make_pipelined_sampler` decodes the previous batch on a second CUDA
-stream while the current batch's AR loop runs.
+stream while the current batch's AR loop runs. The 3-level family has its
+bf16 and f32 sampler only: its int8 serving, calibration, encode and
+teacher-forced entry points are not ported and raise.
 """
 
 from __future__ import annotations
@@ -38,24 +42,33 @@ from ..config import TwoStageConfig, parse_model_type
 from ..convert import convert_scales, export_scales
 from ..device import resolve_device
 from ..ops.int8 import Int8Serving, recording_absmax, scale_from_absmax
-from ..sampling.engine import (SamplingParams, Scales,
-                               make_hierarchical_sampler)
+from ..sampling.engine import (LevelSampling, SamplingParams, Scales,
+                               make_hierarchical_sampler,
+                               make_multilevel_sampler)
 from .stage1.generator import build_generator
 from .stage1.layers import QuantizableConv2d
 from .stage1.quantizer import EMAVectorQuantizer
 from .stage2.hierarchical import HierarchicalGPT, cells_to_raster
 from .stage2.layers import QuantizableLinear
+from .stage2.multilevel import MultiLevelHQTransformer, cells_to_level
 
 Weights = Dict[str, Dict[str, torch.Tensor]]
 Codes = Tuple[torch.Tensor, torch.Tensor]
 
 
-def build_stage2(config: TwoStageConfig,
-                 dtype: torch.dtype = torch.float32) -> HierarchicalGPT:
-    """Stage-2 model for `stage2.type`; the slice ports the hq-transformer
-    family."""
+def build_stage2(config: TwoStageConfig, dtype: torch.dtype = torch.float32
+                 ) -> nn.Module:
+    """Stage-2 model for `stage2.type`; the port has the hq-transformer
+    (2-level) and multilevel-hq (3-level) families."""
     s2 = config.stage2
     spec = parse_model_type(s2.type)
+    if spec.family == 'multilevel-hq':
+        return MultiLevelHQTransformer(
+            vocab_sizes=tuple(s2.vocab_sizes_img),
+            decoding_type=s2.decoding_type or 'tree',
+            use_cls_cond=bool(s2.use_cls_cond), hparams=s2.hparams,
+            hparams_dec=s2.hparams_dec, use_txt_cond=bool(s2.use_txt_cond),
+            dtype=dtype)
     if spec.family != 'hq-transformer':
         raise NotImplementedError(f'stage-2 type {s2.type!r} is not ported')
     return HierarchicalGPT(vocab_size_top=s2.vocab_size_img,
@@ -151,10 +164,21 @@ class TwoStageModel:
             stage2 = build_stage2(config, dtype)
         self.stage1 = stage1.to_empty(device=self.device).eval()
         self.stage2 = stage2.to_empty(device=self.device).eval()
-        # top code grid: the stage-1 latent over the bottom-group window
+        # top code grid: the stage-1 latent over the bottom-group window (2
+        # levels) or over 2 per level below the top (N levels)
         self.cell_win = int(math.isqrt(config.stage2.ratio_bot2top or 4))
-        self.top_res = config.stage1.hparams.attn_resolutions[0] // \
-            self.cell_win
+        latent = config.stage1.hparams.attn_resolutions[0]
+        if isinstance(self.stage2, MultiLevelHQTransformer):
+            self.code_levels = len(config.stage2.vocab_sizes_img)
+            self.top_res = latent // 2 ** (self.code_levels - 1)
+        else:
+            self.code_levels = 2
+            self.top_res = latent // self.cell_win
+
+    def _two_levels(self, entry: str) -> None:
+        if self.code_levels != 2:
+            raise NotImplementedError(f'{entry} is not ported for the '
+                                      f'{self.code_levels}-level family')
 
     def init_weights(self, seed: int) -> Weights:
         """Seeded random f32 weights on the model's device."""
@@ -175,6 +199,7 @@ class TwoStageModel:
         """Stage-1 codes of images [B, H, W, 3] in [-1, 1]: ((codes_t
         [B, Ttop], codes_b [B, Tbot]) in raster order, (None, None)); the
         second pair stands for the soft codes, which are not ported."""
+        self._two_levels('extract_codes')
         self.load_weights(weights)
         B = images.shape[0]
         code_t, code_b = self.stage1.get_codes(images.to(self.device))
@@ -201,6 +226,7 @@ class TwoStageModel:
         per-channel absmax over (T, B): max(m, 1e-6) / 127 (the JAX
         function's default margin of 1).
         Returns {'stage2/kv_scales': {'blocks.<l>.attn.k' | '.v': [D]}}."""
+        self._two_levels('calibrate_kv_scales')
         self.load_weights(weights)
         n_top = max_seq_len or self.top_res * self.top_res
         sampler = make_hierarchical_sampler(self.stage2, n_top, params,
@@ -223,6 +249,7 @@ class TwoStageModel:
         quantizable Linear's input over the teacher-forced stage-2 forward
         on (codes_t [B, Ttop], codes_b [B, Tbot] raster, labels), as
         max(m, 1e-8) / 127. Returns {'stage2/act_scales': {name: scale}}."""
+        self._two_levels('calibrate_stage2_int8')
         self.load_weights(weights)
         with recording_absmax(self.stage2, QuantizableLinear) as found:
             self.stage2(codes_t.to(self.device), codes_b.to(self.device),
@@ -239,6 +266,7 @@ class TwoStageModel:
         in `chunk`-sample slices, each conv's input absmax merged by max
         over the slices, as max(m, 1e-8) / 127. Returns
         {'stage1/act_scales': {name: scale}}."""
+        self._two_levels('calibrate_int8_decode')
         self.load_weights(weights)
         with recording_absmax(self.stage1, QuantizableConv2d) as found:
             for i in range(0, code_t.shape[0], chunk):
@@ -282,6 +310,7 @@ class TwoStageModel:
         [B, N, ratio])). `generator` lives on the model's device. The
         stage-1 decode runs in `decode_chunk`-sample chunks. `int8` and
         `scales` choose int8 serving (see the module docstring)."""
+        self._two_levels('make_pixel_sampler')
         n_top = max_seq_len or self.top_res * self.top_res
         sampler = make_hierarchical_sampler(self.stage2, n_top, params, int8,
                                             scales)
@@ -313,6 +342,7 @@ class TwoStageModel:
         stream, which waits for the decode before returning its pixels.
         Tensors that cross streams are recorded on the stream that uses
         them. On the CPU the two parts run one after the other."""
+        self._two_levels('make_pipelined_sampler')
         n_top = max_seq_len or self.top_res * self.top_res
         sampler = make_hierarchical_sampler(self.stage2, n_top, params, int8,
                                             scales)
@@ -344,3 +374,42 @@ class TwoStageModel:
             return codes, pixels
 
         return step
+
+    def make_pixel_sampler_multilevel(
+            self, max_seq_len: Optional[int] = None,
+            top_k: Sequence[Optional[int]] = (None, None, None),
+            temperature: Sequence[float] = (1.0, 1.0, 1.0),
+            bisect3: bool = False, decode_chunk: int = 128) -> Callable:
+        """End-to-end sampler of the 3-level family: fn(weights, generator,
+        labels [B]) -> (pixels [B, H, W, 3] in [0, 1], (tops [B, N], mids
+        [B, N, 4], bots [B, N, 16])), with per-level (top, mid, bottom)
+        `top_k` and `temperature`, and `bisect3` for every draw (see
+        `engine.LevelSampling`). The codes go to the stage-1 decode as
+        raster maps, in `decode_chunk`-sample chunks."""
+        if self.code_levels != 3:
+            raise ValueError('make_pixel_sampler_multilevel needs a 3-level '
+                             'model; use make_pixel_sampler')
+        n_top = max_seq_len or self.top_res * self.top_res
+        sampler = make_multilevel_sampler(
+            self.stage2, n_top, tuple(
+                LevelSampling(top_k=k, temperature=t, bisect3=bisect3)
+                for k, t in zip(top_k, temperature)))
+        top_res = int(math.isqrt(n_top))
+
+        def dec1(*codes):
+            pixels = self.stage1.decode_code(list(codes))
+            return torch.clamp(pixels * 0.5 + 0.5, 0.0, 1.0)
+
+        @torch.inference_mode()
+        def sample_pixels(weights: Weights, generator: torch.Generator,
+                          labels: torch.Tensor):
+            self.load_weights(weights)
+            tops, mids, bots = sampler(generator, labels)
+            maps = [tops.reshape(-1, top_res, top_res)] + [
+                cells_to_level(c, top_res, win).reshape(
+                    -1, top_res * win, top_res * win)
+                for c, win in ((mids, 2), (bots, 4))]
+            return (_decode_chunked(dec1, maps, decode_chunk),
+                    (tops, mids, bots))
+
+        return sample_pixels

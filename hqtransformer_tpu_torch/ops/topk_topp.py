@@ -17,10 +17,12 @@ from .sample_topk import sample_topk
 def sample_from_logits(generator: torch.Generator, logits: torch.Tensor, *,
                        temperature: float = 1.0,
                        top_k: Optional[int] = None,
-                       top_p: Optional[float] = None) -> torch.Tensor:
+                       top_p: Optional[float] = None,
+                       bisect3: bool = False) -> torch.Tensor:
     """temperature -> top-k -> categorical draw over logits [..., V].
     Draws one uniform per row from `generator` (on the logits' device).
-    Returns int32 codes [...]."""
+    `bisect3` finds the top-k threshold by the quartile search (see
+    `sample_topk`). Returns int32 codes [...]."""
     if top_p is not None:
         raise NotImplementedError(
             'nucleus (top-p) filtering is not ported yet')
@@ -30,4 +32,5 @@ def sample_from_logits(generator: torch.Generator, logits: torch.Tensor, *,
     u = torch.rand(flat.shape[0], generator=generator, dtype=torch.float32,
                    device=logits.device)
     k = V if top_k is None else min(int(top_k), V)
-    return sample_topk(flat.contiguous(), u, k, temperature).reshape(shape)
+    return sample_topk(flat.contiguous(), u, k, temperature,
+                       bisect3=bisect3).reshape(shape)

@@ -1,8 +1,9 @@
-"""Sampling engine for the two-level HQ-Transformer, parallel depth mode.
+"""Sampling engine for the two-level HQ-Transformer (parallel depth mode)
+and the three-level one.
 
 Counterpart of `hqtransformer_tpu/sampling/engine.py::
-make_hierarchical_sampler` and `make_hierarchical_scorer` on their
-packed-cache path. Where the JAX package
+make_hierarchical_sampler`, `make_hierarchical_scorer` and
+`make_multilevel_sampler` on their packed-cache path. Where the JAX package
 compiles the whole loop into one `lax.scan`, the port runs it eagerly: one
 spatial step per position (12 launches of the decode attention kernel at
 the flagship depth), then the depth draws (2 launches of the sampling
@@ -11,12 +12,19 @@ kernel).
 Loop order, as in the JAX sampler: prefill the conditioning prefix at cache
 row 0; then for each spatial step i in 1..N-1 embed the previous cell at
 position i-1, run the spatial step at cache row sos_len + i - 1, and draw the
-top code and its bottom group. The sampler and the scorer share this loop
-(`_serving_loop`) and the depth chain (`_depth_chain`); they differ only in
-where each step's codes come from (drawn or given).
+top code and its bottom group (2 levels), or the top code, its 4 mids and
+its 16 bottoms in three depth phases (3 levels). The three share this loop
+(`_serving_loop`); the 2-level sampler and scorer share the depth chain
+(`_depth_chain`) and differ only in where each step's codes come from
+(drawn or given).
 
 Random numbers: every draw takes one uniform per row from the caller's
-`torch.Generator`, the top codes' first and then the bottom group's.
+`torch.Generator`, in depth order: the top codes' first, then the bottom
+group's (2 levels), or the mids' and then the bottoms' (3 levels).
+
+`bisect3` (in `SamplingParams` and per level in `LevelSampling`) has the
+sampling kernel find its top-k threshold by the TPU kernel's quartile
+search instead of its binary one; it is off by default, as in JAX.
 
 int8 serving: `int8` (an `Int8Serving`) and `scales` (the calibrated
 collections, see `models/twostage.py`) choose the int8 KV cache and the
@@ -27,11 +35,12 @@ sampler's cache_dtype and HQT_INT8_* switches do.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Mapping, Optional, Tuple
+from typing import Callable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..models.stage2.hierarchical import HierarchicalGPT
+from ..models.stage2.multilevel import MultiLevelHQTransformer
 from ..ops.int8 import Int8Serving
 from ..ops.topk_topp import sample_from_logits
 
@@ -47,6 +56,23 @@ class SamplingParams:
     top_p_bot: Optional[float] = None
     temperature_top: float = 1.0
     temperature_bot: float = 1.0
+    bisect3: bool = False
+
+
+@dataclass(frozen=True)
+class LevelSampling:
+    """The filtering knobs of one code level of the 3-level sampler."""
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    temperature: float = 1.0
+    bisect3: bool = False
+
+    def draw(self, generator: torch.Generator,
+             logits: torch.Tensor) -> torch.Tensor:
+        return sample_from_logits(generator, logits,
+                                  temperature=self.temperature,
+                                  top_k=self.top_k, top_p=self.top_p,
+                                  bisect3=self.bisect3)
 
 
 def _depth_chain(model: HierarchicalGPT, h: torch.Tensor,
@@ -76,14 +102,19 @@ def _draws(generator: torch.Generator, sp: SamplingParams) -> Callable:
         if step == 0:
             return sample_from_logits(generator, logits,
                                       temperature=sp.temperature_top,
-                                      top_k=sp.top_k_top, top_p=sp.top_p_top)
+                                      top_k=sp.top_k_top, top_p=sp.top_p_top,
+                                      bisect3=sp.bisect3)
         return sample_from_logits(generator, logits,
                                   temperature=sp.temperature_bot,
-                                  top_k=sp.top_k_bot, top_p=sp.top_p_bot)
+                                  top_k=sp.top_k_bot, top_p=sp.top_p_bot,
+                                  bisect3=sp.bisect3)
     return pick
 
 
-def _caches(model: HierarchicalGPT, sos: torch.Tensor, max_seq_len: int,
+Model = Union[HierarchicalGPT, MultiLevelHQTransformer]
+
+
+def _caches(model: Model, sos: torch.Tensor, max_seq_len: int,
             int8: Int8Serving) -> Tuple[torch.Tensor, torch.Tensor]:
     """The packed [L, T, B, D] caches (T = sos_len + N - 1), int8 or in
     the activation dtype."""
@@ -95,14 +126,16 @@ def _caches(model: HierarchicalGPT, sos: torch.Tensor, max_seq_len: int,
     return kc, torch.zeros_like(kc)
 
 
-def _serving_loop(model: HierarchicalGPT, labels: torch.Tensor,
-                  max_seq_len: int, int8: Int8Serving,
-                  scales: Optional[Scales], depth: Callable
+def _serving_loop(model: Model, labels: torch.Tensor, max_seq_len: int,
+                  int8: Int8Serving, scales: Optional[Scales],
+                  depth: Callable
                   ) -> Tuple[list, Tuple[torch.Tensor, torch.Tensor]]:
-    """The AR loop of the sampler and the scorer, in one serving call:
+    """The AR loop of the samplers and the scorer, in one serving call:
     prefill the conditioning prefix, then for each spatial position i run
-    `depth(i, h [B, D]) -> (top [B], bot [B, ratio], out)`, which gives the
-    position's codes, and embed them for the next spatial step. Returns
+    `depth(i, h [B, D]) -> (codes, out)`, where `codes` is the tuple of the
+    position's codes that `model.embed_cell_step` takes ((top [B],
+    bottoms [B, ratio]) for 2 levels, (top, mids [B, 4], bottoms
+    [B, 16]) for 3), and embed them for the next spatial step. Returns
     ([out of every position], (k_caches, v_caches))."""
     sos_len = 1
     B = labels.shape[0]
@@ -115,10 +148,10 @@ def _serving_loop(model: HierarchicalGPT, labels: torch.Tensor,
             if i:
                 position = torch.full((B,), i - 1, dtype=torch.long,
                                       device=sos.device)
-                x = model.embed_cell_step(top, bot, position)
+                x = model.embed_cell_step(*codes, position)
                 h = model.spatial_step(x, kc, vc, sos_len + i - 1,
                                        int8.spatial_gemms)
-            top, bot, out = depth(i, h[:, -1])
+            codes, out = depth(i, h[:, -1])
             outs.append(out)
     return outs, (kc, vc)
 
@@ -148,7 +181,7 @@ def make_hierarchical_sampler(model: HierarchicalGPT, max_seq_len: int = 64,
 
         def depth(i, h):
             top, bot, _ = _depth_chain(model, h, pick, int8.depth_gemms)
-            return top, bot, (top, bot)
+            return (top, bot), (top, bot)
 
         outs, caches = _serving_loop(model, labels, max_seq_len, int8,
                                      scales, depth)
@@ -182,7 +215,7 @@ def make_hierarchical_scorer(model: HierarchicalGPT, max_seq_len: int = 64,
                     codes_b_cells[:, i, (step - 1) * n:step * n]
             top, bot, logits = _depth_chain(model, h, given,
                                             int8.depth_gemms)
-            return top, bot, (logits[0], torch.cat(logits[1:], dim=1))
+            return (top, bot), (logits[0], torch.cat(logits[1:], dim=1))
 
         outs, _ = _serving_loop(model, labels, max_seq_len, int8, scales,
                                 depth)
@@ -190,3 +223,38 @@ def make_hierarchical_scorer(model: HierarchicalGPT, max_seq_len: int = 64,
         return torch.stack(lts, dim=1), torch.stack(lbs, dim=1)
 
     return score
+
+
+def make_multilevel_sampler(model: MultiLevelHQTransformer,
+                            max_seq_len: int = 64,
+                            params: Sequence[LevelSampling] = (
+                                LevelSampling(),) * 3) -> Callable:
+    """Build the sampler for the 3-level model, one `LevelSampling` a
+    level (top, mid, bottom). Returns fn(generator, labels [B]) -> (tops
+    [B, N], mids [B, N, 4], bots [B, N, 16]), int32, mids and bottoms in
+    each top cell's local raster order, N = max_seq_len.
+
+    Per position: depth phase 0 (the top's logits), one draw [B]; phase 1
+    (the 4 mids' logits), one draw [B, 4]; phase 2 (the 16 bottoms'),
+    one draw [B, 16]; each phase runs only its new tokens against the
+    depth K/V the earlier phases cached (`depth_phase_cached`). The
+    spatial steps run on the packed cache, as the 2-level sampler's do."""
+    if len(params) != 3:
+        raise ValueError(f'one LevelSampling a level: got {len(params)}')
+
+    @torch.inference_mode()
+    def sample(generator: torch.Generator, labels: torch.Tensor):
+        def depth(i, h):
+            logits, kv = model.depth_phase_cached(h, None, None, None, 0)
+            top = params[0].draw(generator, logits)
+            logits, kv = model.depth_phase_cached(None, top, None, kv, 1)
+            mids = params[1].draw(generator, logits)
+            logits, _ = model.depth_phase_cached(None, top, mids, kv, 2)
+            codes = (top, mids, params[2].draw(generator, logits))
+            return codes, codes
+
+        outs, _ = _serving_loop(model, labels, max_seq_len, Int8Serving(),
+                                None, depth)
+        return tuple(torch.stack(c, dim=1) for c in zip(*outs))
+
+    return sample

@@ -312,14 +312,9 @@ def _attention_pair(int8_qkv):
     return jm, variables, tm
 
 
-def _rows_agree(ours, ref, exact):
-    ours, ref = ours.numpy().astype(np.int32), np.asarray(ref, np.int32)
-    if exact:
-        np.testing.assert_array_equal(ours, ref)
-    else:
-        diff = np.abs(ours - ref)
-        assert diff.max() <= 1 and (diff == 0).mean() >= 0.995, (
-            diff.max(), (diff == 0).mean())
+def _rows_agree(ours, ref):
+    np.testing.assert_array_equal(ours.numpy().astype(np.int32),
+                                  np.asarray(ref, np.int32))
 
 
 def _bits(t):
@@ -327,30 +322,30 @@ def _bits(t):
 
 
 def _rows_explained(tm, x, jax_qkv, written):
-    """The witness for the float QKV's off-by-one rows. The port's gemm
-    with its bias rounded once (torch's addmm) and then, as XLA does, the
-    product and the bias sum rounded each: the latter gives JAX's bf16 K
-    and V (its fused QKV's output) bit for bit. Those through the port's
-    quantizer give JAX's int8 rows exactly, and a row differs only where
-    its input does. `written` holds (port rows, JAX rows) for K and V,
-    laid out as x's leading dims. Returns the count of rows that differ."""
+    """The witness for the float QKV's rows. The port's fused QKV rounds
+    the bf16 product and then the bias sum, as XLA does, and gives JAX's
+    bf16 K and V (its fused QKV's output) bit for bit; those through the
+    port's quantizer give JAX's int8 rows, which the port wrote. The same
+    gemm with its bias rounded once (torch's addmm, the port's rounding
+    before the repair) gives other K or V entries. `written` holds (port
+    rows, JAX rows) for K and V, laid out as x's leading dims. Returns the
+    count of K and V entries that rounding once would change."""
     C = x.shape[-1]
     w, b = tm.serving.qkv
-    ours = F.linear(x, w, b).split(C, dim=-1)[1:]
-    twice = (F.linear(x, w) + b).split(C, dim=-1)[1:]
+    ours = tm.fused_qkv(x).split(C, dim=-1)[1:]
+    once = F.linear(x, w, b).split(C, dim=-1)[1:]
     ref = torch.from_numpy(np.array(_np(jax_qkv))).bfloat16().reshape(
         ours[0].shape[:-1] + (3 * C,)).split(C, dim=-1)[1:]
     _, _, inv_k, inv_v = tm.serving.kv_scales
     moved = 0
-    for (rows, ref_rows), o, t, r, inv in zip(written, ours, twice, ref,
+    for (rows, ref_rows), o, t, r, inv in zip(written, ours, once, ref,
                                               (inv_k, inv_v)):
         ref_rows = np.asarray(ref_rows)
-        assert torch.equal(t, r)
+        assert torch.equal(o, r)
         np.testing.assert_array_equal(q8.quantize_rows(r, inv).numpy(),
                                       ref_rows)
-        differ = rows.numpy() != ref_rows
-        assert not differ[(o == r).numpy()].any()
-        moved += int(differ.sum())
+        np.testing.assert_array_equal(rows.numpy(), ref_rows)
+        moved += int((t != r).sum())
     return moved
 
 
@@ -358,13 +353,12 @@ def _rows_explained(tm, x, jax_qkv, written):
 def test_step_and_prefill_int8_cache_match_jax(monkeypatch, int8_qkv):
     """step_packed / prefill_packed on int8 caches against SelfAttention.
     step / prefill: with the A8W8 QKV (HQT_INT8_STAGE2, the query's scale)
-    the int8 rows are equal; with the float QKV >= 99.5% of them are
-    (measured 99.8%) and the rest are 1 apart. The cause, witnessed by
-    _rows_explained: the bf16 gemm rounds once (torch's addmm) where XLA
-    rounds the product and then the bias sum, so a K or V entry may be a
-    bf16 rounding step from JAX's, up to a fifth of an int8 step at these
-    scales, which now and then crosses a rounding boundary of the
-    quantizer.
+    and with the float QKV the int8 rows are equal. The float case is
+    witnessed by _rows_explained: the bf16 gemm rounds the product and
+    then the bias sum, as XLA does; rounding once (torch's addmm) would
+    move K or V entries here by a bf16 step, up to a fifth of an int8
+    step at these scales, enough to cross a rounding boundary of the
+    quantizer now and then.
     Outputs within atol 0.05 + 2% (bf16 activations up to ~6 in size, a
     few ulps of which also pass through the proj gemm)."""
     from flax import linen as fnn
@@ -389,8 +383,8 @@ def test_step_and_prefill_int8_cache_match_jax(monkeypatch, int8_qkv):
             jnp.int32(pos), method=jax_layers.SelfAttention.step_packed)
     tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
     y = tm.step(tx, tk, tv, 1, pos, int8=int8_qkv)
-    _rows_agree(tk, jk, int8_qkv)
-    _rows_agree(tv, jv, int8_qkv)
+    _rows_agree(tk, jk)
+    _rows_agree(tv, jv)
     np.testing.assert_allclose(y.float().numpy(), _np(y_ref), atol=0.05,
                                rtol=0.02)
     moved = 0
@@ -406,15 +400,15 @@ def test_step_and_prefill_int8_cache_match_jax(monkeypatch, int8_qkv):
             method=jax_layers.SelfAttention.prefill_packed)
     tk, tv = torch.from_numpy(zeros.copy()), torch.from_numpy(zeros.copy())
     y = tm.prefill(px, tk, tv, 0, int8=int8_qkv)
-    _rows_agree(tk, jk, int8_qkv)
-    _rows_agree(tv, jv, int8_qkv)
+    _rows_agree(tk, jk)
+    _rows_agree(tv, jv)
     np.testing.assert_allclose(y.float().numpy(), _np(y_ref), atol=0.05,
                                rtol=0.02)
     if not int8_qkv:
         moved += _rows_explained(tm, px, calls[-1][3], (
             (tk[0, :3].transpose(0, 1), np.asarray(jk)[0, :3].swapaxes(0, 1)),
             (tv[0, :3].transpose(0, 1), np.asarray(jv)[0, :3].swapaxes(0, 1))))
-        assert moved > 0     # the float QKV's case does arise here
+        assert moved > 0     # rounding once would differ here
 
 
 # --------------------------------------- the whole model: scales, scorer
@@ -592,12 +586,13 @@ def _scorer_readings(bf16_models, bf16_scores, mode, monkeypatch):
                         gap=d.mean() / gap.mean() if gap.any() else None,
                         size=size,
                         top1=float(np.mean(o.argmax(-1) == r.argmax(-1)))))
+    print(f'scorer {mode}: top / bottom {out}')
     return out
 
 
 def _assert_near_jax(r):
     assert r['size'] is None or 0.9 <= r['size'] <= 1.1, r
-    assert r['mean'] <= 4 and r['max'] <= 4 and r['top1'] >= 0.9, r
+    assert r['mean'] <= 3.5 and r['max'] <= 3.5 and r['top1'] >= 0.9, r
 
 
 def test_scorer_int8max_matches_jax(bf16_models, bf16_scores, monkeypatch):
@@ -613,7 +608,7 @@ def test_scorer_int8max_matches_jax(bf16_models, bf16_scores, monkeypatch):
     from the readings in PERF.md section 7: int8max changes the port's
     logits by as much as it changes JAX's (0.9x-1.1x; a float path would
     not change them); the port's logits lie within 0.9x JAX's own
-    int8max-vs-bf16 gap of JAX's; mean and max |d| at most 4x the bf16
+    int8max-vs-bf16 gap of JAX's; mean and max |d| at most 3.5x the bf16
     scorer's port-to-JAX deviation; top-1 agreement >= 90%."""
     for r in _scorer_readings(bf16_models, bf16_scores, q8.INT8MAX,
                               monkeypatch):

@@ -25,8 +25,19 @@ from hqtransformer_tpu_torch.ops import (  # noqa: E402
 from hqtransformer_tpu_torch.ops.decode_attention import \
     decode_attention_step_plain  # noqa: E402
 from hqtransformer_tpu_torch.ops.sample_topk import (  # noqa: E402
-    BISECT_RANGE, bisection_replay, kth_pair, radix_key, replay_threshold,
-    sample_topk, sample_topk_plain, scaled_logits, topk_threshold)
+    BISECT_RANGE, bisection3_replay, bisection_replay, kth_pair, radix_key,
+    replay_threshold, sample_topk, sample_topk_plain, scaled_logits,
+    select_threshold, topk_threshold, topk_threshold3)
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread():
+    """One intra-op thread: these tiny tensors gain nothing from more, and
+    the suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 # --------------------------------------------------------- decode attention
@@ -98,12 +109,14 @@ def _logits(shape, seed, ties=False, bf16=False):
     return x
 
 
-def _check_draws(logits, u, k, temperature, bf16=False):
+def _check_draws(logits, u, k, temperature, bf16=False, bisect3=False):
     """Plain version vs the Pallas kernel (interpret mode) on the same
-    uniforms: identical exact kept sets; identical codes except rows whose
-    draw lies within 1e-4 of the row's mass from the CDF boundary between
-    the two codes (the TPU kernel's two-level prefix sums carry ~2^-17
-    relative error); at most 1% of rows differ; with k = 1 none may."""
+    uniforms, with the binary or (`bisect3`) the quartile threshold search
+    on both sides: identical exact kept sets; identical codes except rows
+    whose draw lies within 1e-4 of the row's mass from the CDF boundary
+    between the two codes (the TPU kernel's two-level prefix sums carry
+    ~2^-17 relative error); at most 1% of rows differ; with k = 1 none
+    may."""
     N, V = logits.shape
     t_logits = torch.from_numpy(logits)
     j_logits = jnp.asarray(logits)
@@ -111,13 +124,13 @@ def _check_draws(logits, u, k, temperature, bf16=False):
         t_logits, j_logits = t_logits.bfloat16(), j_logits.astype(jnp.bfloat16)
     ref = np.asarray(_sample_topk_2d(j_logits, jnp.asarray(u), jnp.int32(k),
                                      jnp.float32(temperature),
-                                     interpret=True))
+                                     interpret=True, bisect3=bisect3))
     ours = sample_topk_plain(t_logits, torch.from_numpy(u), k,
-                             temperature).numpy()
+                             temperature, bisect3).numpy()
     assert ours.dtype == np.int32 and ours.shape == (N,)
 
     x = scaled_logits(t_logits, temperature)
-    thr = topk_threshold(x, k)
+    thr = select_threshold(x, k, bisect3)
     kept = (x >= thr).numpy()
     exact = np.asarray(cutoff_topk_logits(jnp.asarray(x.numpy()), k,
                                           use_bisect=False)) > -np.inf
@@ -138,13 +151,32 @@ def _check_draws(logits, u, k, temperature, bf16=False):
         assert abs(draw - boundary) <= 1e-4 * cdf[r, -1], (r, ours[r], ref[r])
 
 
-@pytest.mark.parametrize('temperature', [0.95, 1.0])
-@pytest.mark.parametrize('k', [1, 8, 40, 'V'])
-@pytest.mark.parametrize('shape', [(200, 256), (64, 1000)])
-def test_sample_topk_plain_matches_pallas(shape, k, temperature):
+def _pallas_cases(test):
+    for mark in (pytest.mark.parametrize('temperature', [0.95, 1.0]),
+                 pytest.mark.parametrize('k', [1, 8, 40, 'V']),
+                 pytest.mark.parametrize('shape', [(200, 256), (64, 1000)])):
+        test = mark(test)
+    return test
+
+
+def _plain_matches_pallas(shape, k, temperature, bisect3):
     logits = _logits(shape, seed=shape[1] + (0 if k == 'V' else k))
     u = np.random.RandomState(shape[0]).rand(shape[0]).astype(np.float32)
-    _check_draws(logits, u, shape[1] if k == 'V' else k, temperature)
+    _check_draws(logits, u, shape[1] if k == 'V' else k, temperature,
+                 bisect3=bisect3)
+
+
+@_pallas_cases
+def test_sample_topk_plain_matches_pallas(shape, k, temperature):
+    _plain_matches_pallas(shape, k, temperature, bisect3=False)
+
+
+@_pallas_cases
+def test_sample_topk_plain_matches_pallas_bisect3(shape, k, temperature):
+    """The twin of each case above with the quartile search
+    (`_sample_topk_2d(bisect3=True)`, the TPU kernel's `threshold3`): its
+    kept sets and codes are those of `topk_threshold3`."""
+    _plain_matches_pallas(shape, k, temperature, bisect3=True)
 
 
 @pytest.mark.parametrize('bf16', [False, True])
@@ -153,6 +185,7 @@ def test_sample_topk_plain_ties_and_bf16(bf16):
     u = np.random.RandomState(8).rand(200).astype(np.float32)
     for k in (1, 40):
         _check_draws(logits, u, k, 0.95, bf16=bf16)
+        _check_draws(logits, u, k, 0.95, bf16=bf16, bisect3=True)
 
 
 def test_sample_topk_wrapper_takes_plain_on_cpu():
@@ -182,11 +215,17 @@ def _hard_rows(kind, n, v, seed):
     return x
 
 
-@pytest.mark.parametrize('V', [256, 1000])
-@pytest.mark.parametrize('bf16', [False, True])
-@pytest.mark.parametrize('kind,seed', [('random', 0), ('random', 1),
-                                       ('random', 2), ('ties', 3),
-                                       ('zeros', 4), ('x30', 5)])
+def _hard_cases(test):
+    for mark in (pytest.mark.parametrize('V', [256, 1000]),
+                 pytest.mark.parametrize('bf16', [False, True]),
+                 pytest.mark.parametrize('kind,seed', [
+                     ('random', 0), ('random', 1), ('random', 2),
+                     ('ties', 3), ('zeros', 4), ('x30', 5)])):
+        test = mark(test)
+    return test
+
+
+@_hard_cases
 def test_bisection_replay_matches_bisection(kind, seed, bf16, V):
     """The CUDA kernel's threshold (select on the logits as stored, divide,
     replay) equals the TPU kernel's bisection (`topk_threshold`) bit for
@@ -211,6 +250,33 @@ def test_bisection_replay_matches_bisection(kind, seed, bf16, V):
         kth = torch.topk(x, k, dim=-1).values[:, -1:]
         window = torch.maximum(kth, row_max - BISECT_RANGE)
         assert torch.equal(x >= thr, x >= window), k
+
+
+@_hard_cases
+def test_bisection3_replay_matches_threshold3(kind, seed, bf16, V):
+    """The twin of each case above for the quartile search: the kernel's
+    `bisect3` threshold (select on the logits as stored, divide,
+    `bisection3_replay`) equals `topk_threshold3` bit for bit, ties, signed
+    zeros, bf16 rows and V = 1000 included; the kept set is the exact
+    top-k within the window [max - 44, max]."""
+    logits = torch.from_numpy(_hard_rows(kind, 48, V, seed))
+    if bf16:
+        logits = logits.bfloat16()
+    x = scaled_logits(logits, 0.95)
+    row_max = x.amax(dim=-1, keepdim=True)
+    differs = 0
+    for k in (1, 2, 40, V - 1):
+        thr = replay_threshold(logits, k, 0.95, bisect3=True)
+        assert torch.equal(thr.view(torch.int32),
+                           topk_threshold3(x, k).view(torch.int32)), k
+        assert torch.equal(thr, bisection3_replay(
+            row_max, *(scaled_logits(v, 0.95) for v in kth_pair(logits, k))))
+        kth = torch.topk(x, k, dim=-1).values[:, -1:]
+        window = torch.maximum(kth, row_max - BISECT_RANGE)
+        assert torch.equal(x >= thr, x >= window), k
+        differs += int((thr != topk_threshold(x, k)).sum())
+    if kind == 'random':
+        assert differs > 0   # the two searches end on other low bits
 
 
 def test_radix_key_sorts_like_values():
@@ -249,6 +315,21 @@ def test_sample_topk_wrapper_threshold_on_cpu():
         codes.numpy(), sample_topk_plain(logits, u, 20, 0.9).numpy())
     assert torch.equal(thr, topk_threshold(scaled_logits(logits, 0.9),
                                            20)[:, 0])
+
+
+def test_sample_topk_wrapper_bisect3_on_cpu():
+    """bisect3 through the wrapper on the CPU: the quartile search's
+    threshold and the plain version's codes with it."""
+    logits = torch.from_numpy(_logits((16, 300), seed=13))
+    u = torch.from_numpy(np.random.RandomState(14).rand(16)
+                         .astype(np.float32))
+    thr = torch.empty(16)
+    codes = sample_topk(logits, u, 20, 0.9, threshold=thr, bisect3=True)
+    np.testing.assert_array_equal(
+        codes.numpy(),
+        sample_topk_plain(logits, u, 20, 0.9, bisect3=True).numpy())
+    assert torch.equal(thr, topk_threshold3(scaled_logits(logits, 0.9),
+                                            20)[:, 0])
 
 
 # ---------------------------------------------------- masks and resampling

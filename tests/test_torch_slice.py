@@ -184,3 +184,24 @@ def test_nucleus_filtering_not_ported():
     with pytest.raises(NotImplementedError):
         sample_from_logits(torch.Generator(), torch.zeros(2, 8), top_k=4,
                            top_p=0.9)
+
+
+@pytest.mark.parametrize('bisect3', [False, True])
+def test_sampler_draws_with_bisect3_as_asked(jax_model, monkeypatch,
+                                             bisect3):
+    """SamplingParams.bisect3 reaches every draw of the 2-level sampler,
+    the top and the bottom groups', 16 positions of each."""
+    import hqtransformer_tpu_torch.ops.topk_topp as tt
+    _, _, weights = jax_model
+    real, seen = tt.sample_topk, []
+
+    def spy(*args, **kw):
+        seen.append(kw['bisect3'])
+        return real(*args, **kw)
+    monkeypatch.setattr(tt, 'sample_topk', spy)
+    tm = TwoStageModel(torch_config(CFG), device='cpu')
+    _, (codes_t, codes_b) = tm.make_pixel_sampler(params=SamplingParams(
+        top_k_top=8, top_k_bot=8, bisect3=bisect3))(
+            weights, torch.Generator().manual_seed(2), torch.arange(3))
+    assert codes_t.shape == (3, 16) and codes_b.shape == (3, 16, 4)
+    assert seen == [bisect3] * 2 * 16

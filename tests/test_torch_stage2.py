@@ -22,12 +22,15 @@ from hqtransformer_tpu.models.stage2.hierarchical import \
     HierarchicalGPT as JaxGPT  # noqa: E402
 from hqtransformer_tpu.models.stage2.layers import \
     Block as JaxBlock  # noqa: E402
+from hqtransformer_tpu.models.stage2.layers import \
+    SelfAttention as JaxAttention  # noqa: E402
 from hqtransformer_tpu.models.twostage import build_stage2  # noqa: E402
 
 from hqtransformer_tpu_torch.config import \
     build_twostage_config as torch_config  # noqa: E402
 from hqtransformer_tpu_torch.convert import convert_variables  # noqa: E402
-from hqtransformer_tpu_torch.models.stage2.layers import Block  # noqa: E402
+from hqtransformer_tpu_torch.models.stage2.layers import (  # noqa: E402
+    Block, SelfAttention)
 from hqtransformer_tpu_torch.models.twostage import \
     TwoStageModel  # noqa: E402
 
@@ -85,6 +88,40 @@ def test_block_forward(masked):
     with torch.no_grad():
         out = tb(_t(x), None if mask is None else _t(mask))
     _close(out, ref)
+
+
+@pytest.mark.parametrize('shape', [(4, 1), (3, 16)])
+def test_bf16_projections_round_as_flax_dense(shape):
+    """bf16 Linear, fused_qkv and fused_kv against flax Dense (bf16
+    weights, f32 biases) on the same bf16 inputs: bit for bit. flax rounds
+    the product to bf16 and then the bias sum; a gemm with the bias folded
+    in (F.linear(x, w, b), one rounding) differs here."""
+    D, nh = 128, 4
+    rng = np.random.RandomState(3)
+    params = {name: {
+        'kernel': jnp.asarray(rng.randn(D, D).astype(np.float32) *
+                              D ** -0.5).astype(jnp.bfloat16),
+        'bias': jnp.asarray(rng.randn(D).astype(np.float32) * 0.3)}
+        for name in ('query', 'key', 'value', 'proj')}
+    jm = JaxAttention(embed_dim=D, n_heads=nh, dtype=jnp.bfloat16)
+    x = rng.randn(*shape, D).astype(np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    ref = jax.jit(lambda p, x: jm.apply({'params': p}, x, method=lambda m, x: (
+        m.query(x), m._fused_qkv_flat(x),
+        jnp.concatenate([m.key(x), m.value(x)], axis=-1))))(params, jx)
+    tm = SelfAttention(D, nh)
+    tm.load_state_dict(convert_variables({'params': params}), assign=True)
+    tx = torch.from_numpy(x).bfloat16()
+    with torch.no_grad():
+        ours = (tm.query(tx), tm.fused_qkv(tx), tm.fused_kv(tx))
+        w, b = tm._concat((tm.key, tm.value), torch.bfloat16)
+        once = torch.nn.functional.linear(tx, w, b)
+    for name, o, r in zip(('Linear', 'fused_qkv', 'fused_kv'), ours, ref):
+        assert o.dtype == torch.bfloat16
+        np.testing.assert_array_equal(o.float().numpy(),
+                                      np.asarray(r.astype(jnp.float32)),
+                                      err_msg=name)
+    assert not torch.equal(once, ours[2])
 
 
 def _codes(seed, B, n, V):
