@@ -4,11 +4,17 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+With `--k1-only` it runs phase 1, decode attention's checks and timings
+of phases 2 and 7 and the K1 sweep, and stops without the result line
+(to compare two commits' K1, run it in a checkout of each, in turns).
+
 1. Device: prints the card, `nvidia-smi`'s name and power limit, the torch
    and CUDA versions; builds every CUDA kernel from
    hqtransformer_tpu_torch/csrc (one nvcc each, all at once) and prints the
    build time and ptxas report (registers, spills, shared memory, and any
-   wgmma or setmaxnreg warning).
+   wgmma or setmaxnreg warning), and for each decode attention kernel its
+   int-to-float conversions (I2F) and byte permutes in the SASS
+   (`cuobjdump`).
 2. Kernels against their plain PyTorch versions at the flagship shapes
    (TF32 off for matmuls and convolutions):
    - decode attention, L=12 T=64 B=128 D=1536 24 heads, f32 and bf16,
@@ -27,7 +33,11 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
      the two codes, at most 1% of rows.
    Then times each kernel, its plain version and one PyTorch library call
    computing the same function, with CUDA events, and computes the least
-   time the card could take (the bound). K2 at both main-path shapes
+   time the card could take (the bound). K1 is also swept over every
+   position the sampler launches it at (1..63), on int8 and on bf16 caches
+   of the same values at batch 128, each time beside its bound, with the
+   fitted fixed and per-row costs and the sum over a batch's 756 launches
+   beside the summed bound. K2 at both main-path shapes
    ([512, 8192] and [128, 8192] bf16, k 2048), its library call topk +
    softmax + cumsum + searchsorted on the same uniforms.
    K2 with `bisect3` (the TPU kernel's quartile search) at the 3-level
@@ -85,13 +95,19 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
    every level, with and without `bisect3`: the three levels' codes equal,
    pixels within 1e-3.
 7. int8max serving (run right after phase 3, on its model and weights):
-   - decode attention's int8 variant against its plain version with int8
-     caches and an f32 or bf16 q, at phase 2's cases: caches bit-equal,
-     y (in the int8 values' units, dequantized by a V scale of 1/127)
-     allclose at 1e-5 (f32 q) / 2e-2 (bf16 q); then timed at pos 33,
-     B 128, beside the bf16 kernel (no single PyTorch call attends over an
-     int8 cache: its library time is null; bf16 SDPA over the dequantized
-     cache is printed for context);
+   - decode attention's int8 kernel against its plain version with int8
+     caches and new rows over all of -128..127 and an f32 or bf16 q, at
+     phase 2's positions, the int8 kernel's stage edges (pos 15..17,
+     31..33, 47..49, 63 at T=64 B=128), partly filled row steps (pos 9,
+     14, 40), round edges (63..65, 127..129 and stage edges at T=160 B=8),
+     batch 1024 at pos 33 and 63, and head dim 32 (48 heads): caches
+     bit-equal, y (in the int8 values' units, dequantized by a V scale of
+     1/127) allclose at 1e-5 (f32 q) / 2e-2 (bf16 q); a q with a NaN and
+     an infinity gives NaN in y exactly where the plain version does;
+     then timed at pos 33, B 128, beside the
+     bf16 kernel (no single PyTorch call attends over an int8 cache: its
+     library time is null; bf16 SDPA over the dequantized cache is printed
+     for context), and at pos 33, B 1024;
    - the A8W8 products on the card against the CPU on the same int8
      inputs (`_int_mm` at the flagship's fused-QKV and MLP gemm shapes,
      the int8 convolution at the decoder's largest, 128 channels at 256^2
@@ -133,6 +149,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import subprocess
@@ -169,7 +186,8 @@ K3_SHAPES = (('flagship top = 3-level middle', 8192, 1024),
 B_LEVEL3 = 32
 NEAR_TIE = 1e-5
 # Names of the port's kernels as the profiler reports them.
-PORT_KERNELS = ('decode_attention_kernel', 'sample_topk_kernel', 'vq_')
+PORT_KERNELS = ('decode_attention_kernel', 'decode_attention_int8_kernel',
+                'sample_topk_kernel', 'vq_')
 # int8max: the batch at which the cache's size matters, and the artifact.
 B_LARGE = 1024
 SCALES_PATH = ROOT / 'build' / 'int8max_scales.pkl'
@@ -255,6 +273,19 @@ def bound(n_bytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
 
 # ------------------------------------------------------- K1 decode attention
 
+def k1_bytes(pos: int, batch: int, int8: bool) -> int:
+    """Bytes K1 must move at `pos` with a bf16 q: q, k_new, v_new and the
+    2 * pos cache rows read once; the two new rows and y written once. The
+    caches and the new rows are int8 or bf16."""
+    c = 1 if int8 else 2
+    return batch * D * (2 + 2 * c + 2 * pos * c + 2 * c + 2)
+
+
+def k1_flops(pos: int, batch: int) -> int:
+    """q.k and a.v over the pos + 1 rows."""
+    return 2 * 2 * (pos + 1) * batch * D
+
+
 # K1 check cases: (L, T, B, positions). The flagship cache at the edges of
 # the rows a warp takes at once (4 at hd 64 in bf16, 2 in f32) and of the
 # shared-memory rounds (64 rows at hd 64 in bf16, 32 in f32); then a longer
@@ -323,29 +354,43 @@ def time_decode_attention(da):
     qh = q.reshape(B, NH, 1, hd)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library = time_ms(lambda i: sdpa(qh, ks[i % L], vs[i % L]), 240)
-    # bytes: q, k_new, v_new and the 2*pos cache rows read; the two new
-    # rows and y written. flops: q.k and a.v over pos+1 rows.
-    n_bytes = B * D * (3 + 2 * pos + 2 + 1) * 2
-    flops = 2 * 2 * (pos + 1) * B * D
+    n_bytes = k1_bytes(pos, B, int8=False)
     rate = n_bytes / (kernel / 1e3)   # bytes per second
     print(f'K1 bf16 pos {pos} B {B}: kernel {kernel:.5f} ms moves the '
           f'bound\'s {n_bytes / 2**20:.2f} MiB at {rate / 1e12:.3f} TB/s '
           f'({rate / HBM_BYTES_PER_S:.1%} of {HBM_BYTES_PER_S / 1e12:.2f} '
           f'TB/s)')
-    return kernel, plain, library, bound(n_bytes, flops)
+    return kernel, plain, library, bound(n_bytes, k1_flops(pos, B))
+
+
+# K1-int8 check cases: (L, T, B, heads, positions). Every position of
+# K1_CASES; on the flagship cache the int8 kernel's stage edges +-1
+# (stages of 16 buffer rows, the new token's row first) and positions whose
+# last step of 8 rows is partly filled (9, 14, 40); its round edges (64
+# rows) +-1 and stage edges on a longer cache; the pipelined batch 1024 (4
+# heads a block); and head dim 32 (48 heads of d 1536) through the stages
+# and rounds.
+K1_INT8_CASES = ((L, T, B, NH, (0, 1, 7, 8, 9, 14, 15, 16, 17, 31, 32, 33,
+                                40, 47, 48, 49, 63)),
+                 (2, 160, 8, NH, (63, 64, 65, 79, 80, 81, 127, 128, 129,
+                                  159)),
+                 (2, T, B_LARGE, NH, (33, 63)),
+                 (2, 160, 8, 2 * NH, (0, 17, 33, 64, 129, 159)))
 
 
 def check_decode_attention_int8(da):
-    """K1's int8 variant: int8 caches and new rows, f32 or bf16 q, at the
-    cases of check_decode_attention."""
+    """K1's int8 kernel: int8 caches and new rows over the full range
+    -128..127, f32 or bf16 q, at K1_INT8_CASES: caches bit-equal, y within
+    the tolerance in units of 1/127. Then a q with a NaN in one head and
+    an infinity in another: y NaN exactly where the plain version's is."""
     max_err = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        for n_layers, n_rows, batch, positions in K1_CASES:
+        for n_layers, n_rows, batch, n_heads, positions in K1_INT8_CASES:
             for pos in positions:
                 g = torch.Generator(device='cuda').manual_seed(pos)
 
                 def randint8(*shape):
-                    return torch.randint(-127, 128, shape, generator=g,
+                    return torch.randint(-128, 128, shape, generator=g,
                                          device='cuda', dtype=torch.int8)
 
                 kc = randint8(n_layers, n_rows, batch, D)
@@ -356,22 +401,47 @@ def check_decode_attention_int8(da):
                 layer = pos % n_layers
                 kc1, vc1 = kc.clone(), vc.clone()
                 y1 = da.decode_attention_step(q, kn, vn, kc1, vc1, layer,
-                                              pos, NH)
+                                              pos, n_heads)
                 y2 = da.decode_attention_step_plain(q, kn, vn, kc, vc, layer,
-                                                    pos, NH)
+                                                    pos, n_heads)
                 torch.cuda.synchronize()
                 require(torch.equal(kc1, kc) and torch.equal(vc1, vc),
                         f'K1 int8 cache rows differ ({dtype} q, T {n_rows}, '
-                        f'pos {pos})')
-                # y is in the int8 values' units (|v| <= 127): compare it
+                        f'B {batch}, pos {pos})')
+                # y is in the int8 values' units (|v| <= 128): compare it
                 # dequantized by a V scale of 1/127, as the caller scales it
                 y1, y2 = y1.float() / 127, y2.float() / 127
                 err = (y1 - y2).abs().max().item()
                 torch.testing.assert_close(y1, y2, atol=tol, rtol=tol)
                 max_err[dtype] = max(max_err.get(dtype, 0.0), err)
                 print(f'K1 int8 cache, {str(dtype):14s} q T={n_rows:3d} '
-                      f'B={batch:3d} pos={pos:3d}: caches bit-equal, '
-                      f'max|y - plain| / 127 = {err:.3e} (tol {tol})')
+                      f'B={batch:4d} hd={D // n_heads} pos={pos:3d}: caches '
+                      f'bit-equal, max|y - plain| / 127 = {err:.3e} (tol '
+                      f'{tol})')
+                del kc, vc, kc1, vc1
+    g = torch.Generator(device='cuda').manual_seed(5)
+    kc, vc = (torch.randint(-128, 128, (L, T, B, D), generator=g,
+                            device='cuda', dtype=torch.int8)
+              for _ in range(2))
+    kn, vn = (torch.randint(-128, 128, (B, D), generator=g, device='cuda',
+                            dtype=torch.int8) for _ in range(2))
+    hd = D // NH
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((B, D), generator=g, device='cuda').to(dtype)
+        q[0, 3] = float('nan')
+        q[1, hd + 5] = float('inf')
+        q[2, 2 * hd] = -float('inf')
+        y1 = da.decode_attention_step(q, kn, vn, kc.clone(), vc.clone(), 1,
+                                      TIMED_POS, NH)
+        y2 = da.decode_attention_step_plain(q, kn, vn, kc.clone(),
+                                            vc.clone(), 1, TIMED_POS, NH)
+        require(torch.equal(y1.isnan(), y2.isnan()) and
+                bool(y2.isnan().any()),
+                f'K1 int8 cache, {dtype} q: NaN in y '
+                f'({int(y1.isnan().sum())}) differs from the plain '
+                f'version\'s ({int(y2.isnan().sum())}) for a non-finite q')
+        print(f'K1 int8 cache, {str(dtype):14s} q with NaN and inf: '
+              f'{int(y1.isnan().sum())} NaN in y, as the plain version')
     return max_err[torch.bfloat16]
 
 
@@ -382,10 +452,10 @@ def time_decode_attention_int8(da):
     so the library time is None; bf16 SDPA over the dequantized cache is
     printed for context."""
     g = torch.Generator(device='cuda').manual_seed(2)
-    kc, vc = (torch.randint(-127, 128, (L, T, B, D), generator=g,
+    kc, vc = (torch.randint(-128, 128, (L, T, B, D), generator=g,
                             device='cuda', dtype=torch.int8)
               for _ in range(2))
-    kn, vn = (torch.randint(-127, 128, (B, D), generator=g, device='cuda',
+    kn, vn = (torch.randint(-128, 128, (B, D), generator=g, device='cuda',
                             dtype=torch.int8) for _ in range(2))
     q = (torch.randn((B, D), generator=g, device='cuda') * 0.02).bfloat16()
     pos, hd = TIMED_POS, D // NH
@@ -404,12 +474,8 @@ def time_decode_attention_int8(da):
     qh = q.reshape(B, NH, 1, hd)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     context = time_ms(lambda i: sdpa(qh, ks[i % L], vs[i % L]), 240)
-    # bytes: q (bf16), k_new and v_new (int8) and the 2*pos int8 cache rows
-    # read; the two new int8 rows and y (bf16) written. flops: q.k and a.v
-    # over pos+1 rows.
-    n_bytes = B * D * (2 + 1 + 1 + 2 * pos + 2 + 2)
-    flops = 2 * 2 * (pos + 1) * B * D
-    bnd = bound(n_bytes, flops)
+    n_bytes = k1_bytes(pos, B, int8=True)
+    bnd = bound(n_bytes, k1_flops(pos, B))
     rate = n_bytes / (kernel / 1e3)
     print(f'K1 int8 cache, bf16 q, pos {pos} B {B}: kernel {kernel:.5f} ms '
           f'({rate / 1e12:.3f} TB/s over the bound\'s {n_bytes / 2**20:.2f} '
@@ -420,6 +486,121 @@ def time_decode_attention_int8(da):
           f'int8 cache); for context only, bf16 SDPA over the dequantized '
           f'cache {context:.5f} ms')
     return kernel, plain, None, bnd
+
+
+# Every position the sampler launches K1 at: the spatial step of position
+# i writes cache row i and attends over rows < i, i = 1..63
+# (sampling/engine.py::_serving_loop), in each of the 12 layers.
+K1_POSITIONS = range(1, T)
+# The sweep's caches hold one layer per timed call, so that no call finds
+# its rows in L2 from an earlier one (at pos 1 a pass over the layers reads
+# 94 MB), as on the main path, where every layer's gemms run in between.
+SWEEP_LAYERS = 240
+
+
+def fit_line(xs, ys):
+    """Least-squares (a, b) of y = a + b x."""
+    n = len(xs)
+    mx, my = sum(xs) / n, sum(ys) / n
+    b = (sum((x - mx) * (y - my) for x, y in zip(xs, ys)) /
+         sum((x - mx) ** 2 for x in xs))
+    return my - b * mx, b
+
+
+def sweep_decode_attention(da):
+    """K1 on int8 caches and on bf16 caches of the same values, bf16 q,
+    batch 128, at every position of K1_POSITIONS, each beside its bound;
+    the fitted fixed and per-row costs; the sum over a batch's 756
+    launches beside the summed bound."""
+    g = torch.Generator(device='cuda').manual_seed(3)
+    shape = (SWEEP_LAYERS, T, B, D)
+    kc8, vc8 = (torch.randint(-128, 128, shape, generator=g, device='cuda',
+                              dtype=torch.int8) for _ in range(2))
+    kn8, vn8 = (torch.randint(-128, 128, (B, D), generator=g, device='cuda',
+                              dtype=torch.int8) for _ in range(2))
+    q = (torch.randn((B, D), generator=g, device='cuda') * 0.02).bfloat16()
+    operands = {'int8': (kn8, vn8, kc8, vc8),
+                'bf16': tuple(x.bfloat16() for x in (kn8, vn8, kc8, vc8))}
+    times = {cache: [] for cache in operands}
+    for pos in K1_POSITIONS:
+        line = [f'K1 sweep pos {pos:2d}:']
+        for cache, (kn, vn, kc, vc) in operands.items():
+            ms = time_ms(lambda i: da.decode_attention_step(
+                q, kn, vn, kc, vc, i % SWEEP_LAYERS, pos, NH), 240)
+            bnd = bound(k1_bytes(pos, B, cache == 'int8'),
+                        k1_flops(pos, B))[0]
+            times[cache].append(ms)
+            line.append(f'{cache} {ms:.5f} ms ({bnd / ms:.1%} of '
+                        f'{bnd:.5f});')
+        print(' '.join(line))
+    positions = list(K1_POSITIONS)
+    for cache in operands:
+        bound_sum = L * sum(bound(k1_bytes(p, B, cache == 'int8'),
+                                  k1_flops(p, B))[0] for p in positions)
+        a, slope = fit_line(positions, times[cache])
+        total = L * sum(times[cache])
+        print(f'K1 sweep {cache} caches, B {B}: time = {a * 1e3:.3f} us + '
+              f'{slope * 1e3:.4f} us x pos (fit over pos {positions[0]}..'
+              f'{positions[-1]}); {len(positions) * L} launches of a batch '
+              f'sum to {total:.4f} ms against a summed bound of '
+              f'{bound_sum:.4f} ms ({bound_sum / total:.1%})')
+    del operands, kc8, vc8
+    torch.cuda.empty_cache()
+
+
+def time_decode_attention_int8_large(da):
+    """K1-int8 at batch 1024 (the pipelined int8max batch), pos 33, bf16 q,
+    the layer rotating over all 12: 12,288 blocks, several waves."""
+    g = torch.Generator(device='cuda').manual_seed(4)
+    kc, vc = (torch.randint(-128, 128, (L, T, B_LARGE, D), generator=g,
+                            device='cuda', dtype=torch.int8)
+              for _ in range(2))
+    kn, vn = (torch.randint(-128, 128, (B_LARGE, D), generator=g,
+                            device='cuda', dtype=torch.int8)
+              for _ in range(2))
+    q = (torch.randn((B_LARGE, D), generator=g, device='cuda') *
+         0.02).bfloat16()
+    pos = TIMED_POS
+    kernel = time_ms(lambda i: da.decode_attention_step(
+        q, kn, vn, kc, vc, i % L, pos, NH), 120)
+    n_bytes = k1_bytes(pos, B_LARGE, int8=True)
+    bnd = bound(n_bytes, k1_flops(pos, B_LARGE))
+    print(f'K1 int8 cache, bf16 q, pos {pos} B {B_LARGE}: kernel '
+          f'{kernel:.5f} ms ({n_bytes / (kernel / 1e3) / 1e12:.3f} TB/s), '
+          f'bound {bnd[0]:.5f} ms ({bnd[1]}; {bnd[0] / kernel:.1%} of it)')
+    return kernel, bnd
+
+
+def print_sass_conversions(so: Path, label: str) -> None:
+    """Per kernel of the built library `so`, from `cuobjdump -sass`: its
+    int-to-float conversions (I2F, I2FP, by opcode) and byte permutes
+    (PRMT) in the SASS text."""
+    from hqtransformer_tpu_torch.ops import cuda_build
+    tool = Path(cuda_build._nvcc()).with_name('cuobjdump')
+    if not tool.exists():
+        print(f'  {label}: I2F count not measured (no cuobjdump)')
+        return
+    out = subprocess.run([str(tool), '-sass', str(so)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    parts = re.split(r'\n\s*Function : (\S+)\s*\n', out)
+    names = subprocess.run(['c++filt'], input='\n'.join(parts[1::2]),
+                           capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    print(f'  {label} SASS (cuobjdump):')
+    for name, body in zip(names, parts[2::2]):
+        ops = re.findall(r'/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?'
+                         r'([A-Z][A-Z0-9]*(?:\.[A-Z0-9_]+)*)', body)
+        conv = {}
+        for op in ops:
+            if op.startswith('I2F'):
+                conv[op] = conv.get(op, 0) + 1
+        n_i2f = sum(conv.values())
+        n_prmt = sum(op.split('.')[0] == 'PRMT' for op in ops)
+        name = name.replace('(anonymous namespace)::', '').split('(')[0]
+        detail = ', '.join(f'{k} {v}' for k, v in sorted(conv.items()))
+        print(f'    {name.removeprefix("void ")}: {len(ops)} instructions, '
+              f'I2F {n_i2f}{f" ({detail})" if detail else ""}, PRMT '
+              f'{n_prmt}')
 
 
 # ---------------------------------------------------------- K2 top-k sample
@@ -1142,6 +1323,7 @@ def run_int8max(da, st, model, weights):
 
     k1_err = check_decode_attention_int8(da)
     k1_times = time_decode_attention_int8(da)
+    time_decode_attention_int8_large(da)
     check_int8_products(q8)
     params = SamplingParams(top_k_top=2048, top_k_bot=2048,
                             temperature_top=0.95, temperature_bot=0.95)
@@ -1583,7 +1765,30 @@ def check_small_reference(vq):
           f'equal to the CPU plain path, max|pixels - cpu| = {err:.2e}')
 
 
-def main() -> int:
+def parse_args(argv):
+    ap = argparse.ArgumentParser(
+        description='Smoke test of the PyTorch/CUDA port on one GPU; with '
+        'no arguments, every phase and the result line.')
+    ap.add_argument('--k1-only', action='store_true',
+                    help='build the kernels, run the K1 checks, timings and '
+                    'sweep, and stop (no result line)')
+    return ap.parse_args(argv)
+
+
+def run_k1_only(da):
+    """The K1 checks and timings of phases 2 and 7 and the sweep."""
+    check_decode_attention(da)
+    check_decode_attention_int8(da)
+    time_decode_attention(da)
+    time_decode_attention_int8(da)
+    time_decode_attention_int8_large(da)
+    sweep_decode_attention(da)
+    print('chip_smoke --k1-only: every K1 check passed')
+    return 0
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
         return 1
@@ -1607,11 +1812,16 @@ def main() -> int:
           f'({", ".join(cuda_build.KERNEL_SOURCES)})')
     for name, text in messages.items():
         print_ptxas_report(name, text)
+    print_sass_conversions(cuda_build.library_path('decode_attention'),
+                           'decode_attention')
+    if args.k1_only:
+        return run_k1_only(da)
 
     k1_err = check_decode_attention(da)
     k2_err, k2_frac = check_sample_topk(st)
     k3_err = check_vq_argmin(vq)
     k1_times = time_decode_attention(da)
+    sweep_decode_attention(da)
     k2_times = time_sample_topk(st)
     k2b_err = check_sample_topk_bisect3(st)
     k2b_times = time_sample_topk_level3(st)
