@@ -93,7 +93,9 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    encoded on both: `extract_codes` equal, reconstructions within 1e-3;
    and the flagship level-3 config cut to a tiny size (d 128), greedy at
    every level, with and without `bisect3`: the three levels' codes equal,
-   pixels within 1e-3.
+   pixels within 1e-3; and that tiny config with the fully causal
+   'top2mid2bot' depth: its teacher-forced logits on the card within 1e-4
+   of the CPU's, f32.
 7. int8max serving (run right after phase 3, on its model and weights):
    - decode attention's int8 kernel against its plain version with int8
      caches and new rows over all of -128..127 and an f32 or bf16 q, at
@@ -140,6 +142,23 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    launches a call (all 192 with `bisect3` in the third); samples/s and
    peak memory; then the AR loop and the stage-1 decode broken down as in
    phase 3.
+9. int8max serving of the 3-level family, on phase 8's model and weights,
+   as the JAX package's measure_throughput.py runs it: KV scales from one
+   bf16 sampling call at batch 128, decode scales from `decode_code` on
+   its three maps, stage-2 scales from the teacher-forced forward on its
+   first 32 samples; saved to build/int8max_level3_scales.pkl and loaded
+   back bit for bit. Two int8max calls of `make_pixel_sampler_multilevel`
+   (top-k 2048, T 1.0) at batch 128: codes in range, pixels
+   [128, 256, 256, 3] finite in [0, 1], exactly 756 K1 launches, all on
+   the int8 variant, 192 K2, int8 gemms and convolutions counted;
+   samples/s and peak memory; the first call's codes' per-level agreement
+   with phase 8's first bf16 call (one generator seed; random weights); the
+   int8max AR loop and int8 decode broken down; one call at batch 256 (the
+   JAX bench family's l12-level3-int8max batch). Then the 4x4-top level-3
+   config (`hqtransformer-l12-top4x4-level3.yaml`, 16 spatial steps) with
+   seeded random bf16 weights: two bf16 calls at batch 128 and, after the
+   same calibration, one int8max call, with the same checks (180 K1 and
+   48 K2 launches a call).
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
@@ -191,6 +210,8 @@ PORT_KERNELS = ('decode_attention_kernel', 'decode_attention_int8_kernel',
 # int8max: the batch at which the cache's size matters, and the artifact.
 B_LARGE = 1024
 SCALES_PATH = ROOT / 'build' / 'int8max_scales.pkl'
+LEVEL3_SCALES_PATH = ROOT / 'build' / 'int8max_level3_scales.pkl'
+TOP4X4_SCALES_PATH = ROOT / 'build' / 'int8max_top4x4_scales.pkl'
 
 
 def require(ok, message) -> None:
@@ -1500,99 +1521,249 @@ def run_twostage_encode(vq, da, st, model, weights):
 # ------------------------------------------------------ 3-level sampling
 
 LEVEL3_S2 = ROOT / 'configs/imagenet/stage2/hqtransformer-l12-top8x8-level3.yaml'
-# One draw a level a position, 12 spatial layers x 63 steps of K1.
-K2_LEVEL3_LAUNCHES = 3 * 64
+LEVEL3_KNOBS = dict(top_k=(K2_LEVEL3_K,) * 3,
+                    temperature=(K2_LEVEL3_TEMP,) * 3)
+TOP4X4_S2 = (ROOT / 'configs/imagenet/stage2/'
+             'hqtransformer-l12-top4x4-level3.yaml')
+# The JAX package calibrates the 3-level stage 2 on 32 samples: its
+# teacher-forced logits are [B, 21 x 64, 8192].
+N_CALIB_STAGE2 = 32
+B_LEVEL3_LARGE = 256     # the JAX bench family's l12-level3-int8max batch
 
 
-def run_level3_sampling(da, st):
-    """The 3-level family at full width: the flagship level-3 config
-    (12 layers, d 1536, three 8192-code levels, parallel-add) with seeded
-    random bf16 weights, make_pixel_sampler_multilevel at top-k 2048 and
-    T 1.0 a level on 128 labels: two calls, then one with bisect3. Codes in
-    range, pixels [128, 256, 256, 3] finite in [0, 1], 756 K1 and 192 K2
-    launches a call (all bisect3 in the third). Then the AR loop and the
-    stage-1 decode broken down. Returns (K2 bisect3 launches of the third
-    call, samples/s of the second)."""
+def level3_call(model, weights, sampler, gen, labels, name, da, st, q8,
+                bisect3=False, int8=False):
+    """One call of a 3-level pixel sampler, checked: codes in [0, 8192) at
+    [B, N], [B, N, 4], [B, N, 16]; pixels [B, res, res, 3] finite in
+    [0, 1]; n_layers x (N - 1) K1 launches (all on the int8 variant with
+    `int8`) and 3 N K2 launches (all bisect3 with `bisect3`); int8 gemms
+    and convolutions counted with `int8`, none without. Prints the call's
+    samples/s and peak memory; returns (codes, samples/s)."""
+    n = labels.shape[0]
+    n_top = model.top_res * model.top_res
+    res = model.config.dataset.image_resolution
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(da.decode_attention_step, st.sample_topk, q8.int8_matmul,
+                 q8.int8_conv2d)
+    da.decode_attention_step.int8_launches = 0
+    st.sample_topk.bisect3_launches = 0
+    t0 = time.perf_counter()
+    pixels, codes = sampler(weights, gen, labels)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1 = model.config.stage2.hparams.n_layers * (n_top - 1)
+    k2 = 3 * n_top
+    launches = (da.decode_attention_step.launches,
+                da.decode_attention_step.int8_launches,
+                st.sample_topk.launches, st.sample_topk.bisect3_launches)
+    want = (k1, k1 if int8 else 0, k2, k2 if bisect3 else 0)
+    require(launches == want, f'{name} launches K1, K1 int8, K2, K2 '
+            f'bisect3 {launches}, expected {want}')
+    gemms, convs = q8.int8_matmul.launches, q8.int8_conv2d.launches
+    require((gemms > 0 and convs > 0) if int8 else (gemms, convs) == (0, 0),
+            f'{name} int8 gemms, convs {(gemms, convs)}')
+    require([tuple(c.shape) for c in codes] ==
+            [(n, n_top), (n, n_top, 4), (n, n_top, 16)],
+            f'{name} code shapes {[tuple(c.shape) for c in codes]}')
+    for c in codes:
+        require(int(c.min()) >= 0 and int(c.max()) < N_CODES,
+                f'{name} codes outside [0, {N_CODES})')
+    require(pixels.shape == (n, res, res, 3),
+            f'{name} pixel shape {tuple(pixels.shape)}')
+    require(bool(torch.isfinite(pixels).all()), f'{name} pixels not finite')
+    require(float(pixels.min()) >= 0.0 and float(pixels.max()) <= 1.0,
+            f'{name} pixels outside [0, 1]')
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f'{name}: {seconds:.3f} s, {n / seconds:.2f} samples/s at batch '
+          f'{n}, peak {peak:.2f} GiB, launches K1={launches[0]} (int8 '
+          f'{launches[1]}) K2={launches[2]} (bisect3 {launches[3]}), int8 '
+          f'gemms {gemms}, int8 convs {convs}, pixels '
+          f'{tuple(pixels.shape)} {pixels.dtype}')
+    return codes, n / seconds
+
+
+def level3_model(config_path):
+    """A 3-level TwoStageModel at full width in bf16 with seeded random
+    bf16 serving weights, and its labels at batch B."""
     from hqtransformer_tpu_torch.config import build_twostage_config
     from hqtransformer_tpu_torch.models.twostage import (TwoStageModel,
                                                          serving_bf16_params)
 
-    cfg = build_twostage_config(str(LEVEL3_S2))
+    cfg = build_twostage_config(str(config_path))
     model = TwoStageModel(cfg, dtype=torch.bfloat16)
-    require((model.code_levels, model.top_res) == (3, 8),
-            f'3-level grid {model.code_levels} levels, top '
-            f'{model.top_res}x{model.top_res}')
     weights = {s: serving_bf16_params(w)
                for s, w in model.init_weights(seed=0).items()}
     labels = torch.arange(B, device='cuda') % cfg.stage2.hparams.n_classes
+    return model, weights, labels
+
+
+def run_level3_sampling(da, st, q8):
+    """Phase 8: the 3-level family at full width: the flagship level-3
+    config (12 layers, d 1536, three 8192-code levels, parallel-add) with
+    seeded random bf16 weights, make_pixel_sampler_multilevel at top-k 2048
+    and T 1.0 a level on 128 labels: two calls, then one with bisect3,
+    each checked by `level3_call`. Then the AR loop and the stage-1 decode
+    broken down. Returns (K2 bisect3 launches of the third call,
+    samples/s of the second, the model, its weights, the first call's
+    codes)."""
+    model, weights, labels = level3_model(LEVEL3_S2)
+    require((model.code_levels, model.top_res) == (3, 8),
+            f'3-level grid {model.code_levels} levels, top '
+            f'{model.top_res}x{model.top_res}')
     gen = torch.Generator(device='cuda').manual_seed(1)
-    res = cfg.dataset.image_resolution
-    knobs = dict(top_k=(K2_LEVEL3_K,) * 3, temperature=(K2_LEVEL3_TEMP,) * 3)
-    rates = []
+    out = []
     for call, bisect3 in ((1, False), (2, False), (3, True)):
         sampler = model.make_pixel_sampler_multilevel(bisect3=bisect3,
-                                                      **knobs)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(da.decode_attention_step, st.sample_topk)
-        st.sample_topk.bisect3_launches = 0
-        t0 = time.perf_counter()
-        pixels, codes = sampler(weights, gen, labels)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = (da.decode_attention_step.launches,
-                    st.sample_topk.launches, st.sample_topk.bisect3_launches)
-        want = (K1_LAUNCHES, K2_LEVEL3_LAUNCHES,
-                K2_LEVEL3_LAUNCHES if bisect3 else 0)
-        require(launches == want, f'3-level launches K1, K2, K2 bisect3 '
-                f'{launches}, expected {want}')
-        require([tuple(c.shape) for c in codes] ==
-                [(B, 64), (B, 64, 4), (B, 64, 16)],
-                f'3-level code shapes {[tuple(c.shape) for c in codes]}')
-        for c in codes:
-            require(int(c.min()) >= 0 and int(c.max()) < N_CODES,
-                    f'3-level codes outside [0, {N_CODES})')
-        require(pixels.shape == (B, res, res, 3),
-                f'3-level pixel shape {pixels.shape}')
-        require(bool(torch.isfinite(pixels).all()),
-                '3-level pixels not finite')
-        require(float(pixels.min()) >= 0.0 and float(pixels.max()) <= 1.0,
-                '3-level pixels outside [0, 1]')
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        rates.append(B / seconds)
-        print(f'3-level sampling call {call} (bisect3 {bisect3}): '
-              f'{seconds:.3f} s, {B / seconds:.2f} samples/s at batch {B}, '
-              f'peak {peak:.2f} GiB, launches K1={launches[0]} '
-              f'K2={launches[1]} (bisect3 {launches[2]}), pixels '
-              f'{tuple(pixels.shape)} {pixels.dtype}')
-    level3_breakdown(model, weights, knobs, labels, gen)
-    return launches[2], rates[1]
+                                                      **LEVEL3_KNOBS)
+        out.append(level3_call(model, weights, sampler, gen, labels,
+                               f'3-level sampling call {call} (bisect3 '
+                               f'{bisect3})', da, st, q8, bisect3=bisect3))
+    k2b_launches = st.sample_topk.bisect3_launches
+    level3_breakdown(model, weights, labels, gen, '3-level')
+    return k2b_launches, out[1][1], model, weights, out[0][0]
 
 
-def level3_breakdown(model, weights, knobs, labels, gen):
+def level3_breakdown(model, weights, labels, gen, name, int8=None,
+                     scales=None):
     """The 3-level batch's AR loop (make_multilevel_sampler) and stage-1
-    decode, each timed alone and profiled (as phase 3's breakdown)."""
+    decode, each timed alone and profiled (as phase 3's breakdown); in
+    int8max with `int8` and `scales`."""
     from hqtransformer_tpu_torch.models.stage2.multilevel import \
         cells_to_level
+    from hqtransformer_tpu_torch.ops.int8 import Int8Serving
     from hqtransformer_tpu_torch.sampling.engine import (
         LevelSampling, make_multilevel_sampler)
 
+    int8 = int8 or Int8Serving()
     model.load_weights(weights)
     n = model.top_res
     sampler = make_multilevel_sampler(model.stage2, n * n, tuple(
         LevelSampling(top_k=k, temperature=t)
-        for k, t in zip(knobs['top_k'], knobs['temperature'])))
+        for k, t in zip(LEVEL3_KNOBS['top_k'],
+                        LEVEL3_KNOBS['temperature'])), int8, scales)
     tops, mids, bots = sampler(gen, labels)
+    maps = [tops.reshape(-1, n, n)] + [
+        cells_to_level(c, n, w).reshape(-1, n * w, n * w)
+        for c, w in ((mids, 2), (bots, 4))]
 
     @torch.inference_mode()
     def decode():
-        return model.stage1.decode_code(
-            [tops.reshape(-1, n, n)] +
-            [cells_to_level(c, n, w).reshape(-1, n * w, n * w)
-             for c, w in ((mids, 2), (bots, 4))])
+        if not int8.decode_convs:
+            return model.stage1.decode_code(maps)
+        with model.stage1.int8_decode(scales['stage1/act_scales']):
+            return model.stage1.decode_code(maps)
 
-    profile_phases((('3-level AR loop', lambda: sampler(gen, labels)),
-                    ('3-level stage-1 decode', decode)))
+    decode_name = 'int8 stage-1 decode' if int8.decode_convs else \
+        'stage-1 decode'
+    profile_phases(((f'{name} AR loop', lambda: sampler(gen, labels)),
+                    (f'{name} {decode_name}', decode)))
+
+
+def calibrate_level3(model, weights, labels, path):
+    """The three calibrations of a 3-level model, as the JAX package's
+    measure_throughput.py runs them for int8max: KV scales from one bf16
+    sampling run on `labels` (top-k 2048, T 1.0), decode scales from
+    decode_code on the same draw's three maps (one generator seed), stage-2
+    scales from the teacher-forced forward on its first 32 samples; saved
+    to `path` and loaded back bit for bit. Returns the loaded scales."""
+    from hqtransformer_tpu_torch.models.stage2.multilevel import \
+        cells_to_level
+    from hqtransformer_tpu_torch.models.twostage import (load_serving_scales,
+                                                         save_serving_scales)
+    from hqtransformer_tpu_torch.sampling.engine import (
+        LevelSampling, make_multilevel_sampler)
+
+    n, nb = model.top_res, labels.shape[0]
+    levels = tuple(LevelSampling(top_k=k, temperature=t)
+                   for k, t in zip(LEVEL3_KNOBS['top_k'],
+                                   LEVEL3_KNOBS['temperature']))
+    t0 = time.perf_counter()
+    scales = model.calibrate_kv_scales(
+        weights, torch.Generator(device='cuda').manual_seed(7), labels,
+        levels)
+    codes = make_multilevel_sampler(model.stage2, n * n, levels)(
+        torch.Generator(device='cuda').manual_seed(7), labels)
+    rasters = [codes[0]] + [cells_to_level(c, n, w).reshape(nb, -1)
+                            for c, w in ((codes[1], 2), (codes[2], 4))]
+    scales.update(model.calibrate_int8_decode(weights, [
+        r.reshape(nb, n * w, n * w) for r, w in zip(rasters, (1, 2, 4))]))
+    scales.update(model.calibrate_stage2_int8(
+        weights, [r[:N_CALIB_STAGE2] for r in rasters],
+        labels[:N_CALIB_STAGE2]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_serving_scales(scales, str(path))
+    loaded = load_serving_scales(str(path))
+    require(sorted(loaded) == sorted(scales) and all(
+        sorted(loaded[k]) == sorted(scales[k]) and all(
+            torch.equal(loaded[k][m], scales[k][m].cpu()) for m in scales[k])
+        for k in scales), f'{path.name}: scales changed through the artifact')
+    counts = ', '.join(f'{k} {len(v)}' for k, v in sorted(loaded.items()))
+    print(f'3-level calibration at batch {nb} (stage 2 on '
+          f'{N_CALIB_STAGE2}): {seconds:.2f} s ({counts} scales), saved to '
+          f'{path.relative_to(ROOT)} and loaded back bit for bit')
+    return loaded
+
+
+def run_level3_int8max(da, st, q8, model, weights, bf16_codes):
+    """Phase 9: int8max serving of the 3-level family on phase 8's model
+    and weights: calibration (`calibrate_level3`), two int8max calls of
+    make_pixel_sampler_multilevel at batch 128 (the first on phase 8's
+    first generator seed, its codes' per-level agreement with phase 8's
+    bf16 codes printed: random weights, a number to record), the int8max
+    AR loop and int8 decode broken down, and one call at batch 256."""
+    t0 = time.perf_counter()
+    labels = torch.arange(B, device='cuda') % \
+        model.config.stage2.hparams.n_classes
+    scales = calibrate_level3(model, weights, labels, LEVEL3_SCALES_PATH)
+    sampler = model.make_pixel_sampler_multilevel(
+        int8=q8.INT8MAX, scales=scales, **LEVEL3_KNOBS)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    for call in (1, 2):
+        codes, _ = level3_call(model, weights, sampler, gen, labels,
+                               f'3-level int8max call {call}', da, st, q8,
+                               int8=True)
+        if call == 1:
+            agree = [float((a == b).float().mean())
+                     for a, b in zip(codes, bf16_codes)]
+            print(f'3-level int8max codes equal to bf16 on the same '
+                  f'generator seed: top {agree[0]:.4f}, mid {agree[1]:.4f}, '
+                  f'bottom {agree[2]:.4f} (random weights)')
+    level3_breakdown(model, weights, labels, gen, '3-level int8max',
+                     q8.INT8MAX, scales)
+    large = torch.arange(B_LEVEL3_LARGE, device='cuda') % \
+        model.config.stage2.hparams.n_classes
+    level3_call(model, weights, sampler, gen, large,
+                f'3-level int8max at batch {B_LEVEL3_LARGE}', da, st, q8,
+                int8=True)
+    print(f'phase 9 (3-level int8max): {time.perf_counter() - t0:.1f} s')
+
+
+def run_top4x4(da, st, q8):
+    """The 4x4-top level-3 config (stage-1 ch_mult [1, 2, 4, 4], a 16x16
+    latent; 4x4 / 8x8 / 16x16 codes over 16 spatial steps) at full width
+    with seeded random bf16 weights: two bf16 calls of
+    make_pixel_sampler_multilevel (top-k 2048, T 1.0) at batch 128, then
+    calibration as phase 9 and one int8max call, each checked by
+    `level3_call` (12 x 15 K1 and 48 K2 launches a call)."""
+    t0 = time.perf_counter()
+    model, weights, labels = level3_model(TOP4X4_S2)
+    require((model.code_levels, model.top_res) == (3, 4),
+            f'4x4-top grid {model.code_levels} levels, top '
+            f'{model.top_res}x{model.top_res}')
+    sampler = model.make_pixel_sampler_multilevel(**LEVEL3_KNOBS)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    for call in (1, 2):
+        level3_call(model, weights, sampler, gen, labels,
+                    f'4x4-top bf16 call {call}', da, st, q8)
+    scales = calibrate_level3(model, weights, labels, TOP4X4_SCALES_PATH)
+    sampler = model.make_pixel_sampler_multilevel(
+        int8=q8.INT8MAX, scales=scales, **LEVEL3_KNOBS)
+    level3_call(model, weights, sampler, gen, labels,
+                '4x4-top int8max call', da, st, q8, int8=True)
+    print(f'4x4-top config: {time.perf_counter() - t0:.1f} s')
 
 
 def level3_tiny_config():
@@ -1647,6 +1818,33 @@ def check_level3_reference(st):
         require(err <= 1e-3, f'tiny 3-level greedy pixels differ by {err}')
         print(f'tiny 3-level greedy reference (bisect3 {bisect3}): codes '
               f'equal to the CPU plain path, max|pixels - cpu| = {err:.2e}')
+
+
+def check_top2mid2bot_reference():
+    """The tiny level-3 config with 'top2mid2bot' (the fully causal depth,
+    which has a teacher-forced forward and no sampler), f32: its
+    teacher-forced logits on the card equal the CPU's within 1e-4."""
+    from hqtransformer_tpu_torch.models.twostage import (build_stage2,
+                                                         random_state)
+
+    cfg = level3_tiny_config()
+    cfg.stage2.decoding_type = 'top2mid2bot'
+    cpu = build_stage2(cfg).eval()
+    state = random_state(cpu, torch.Generator().manual_seed(5))
+    cpu.load_state_dict(state)
+    gpu = build_stage2(cfg).cuda().eval()
+    gpu.load_state_dict(state)
+    g = torch.Generator().manual_seed(6)
+    codes = [torch.randint(0, v, (8, 16 * 4 ** li), generator=g)
+             for li, v in enumerate(cfg.stage2.vocab_sizes_img)]
+    labels = torch.arange(8) % cfg.stage2.hparams.n_classes
+    with torch.inference_mode():
+        ref = cpu(codes, labels)
+        out = gpu([c.cuda() for c in codes], labels.cuda())
+    err = max((o.cpu() - r).abs().max().item() for o, r in zip(out, ref))
+    require(err <= 1e-4, f'tiny top2mid2bot logits differ by {err}')
+    print(f'tiny top2mid2bot teacher-forced logits: max|card - cpu| = '
+          f'{err:.2e} over {[tuple(o.shape) for o in out]}')
 
 
 def run_level3(vq, da, st):
@@ -1834,12 +2032,19 @@ def main(argv=None) -> int:
     run_twostage_encode(vq, da, st, model, weights)
     del model, weights
     torch.cuda.empty_cache()
-    k2b_launches, level3_samples_per_s = run_level3_sampling(da, st)
+    from hqtransformer_tpu_torch.ops import int8 as q8
+    (k2b_launches, level3_samples_per_s, model, weights,
+     bf16_codes) = run_level3_sampling(da, st, q8)
+    run_level3_int8max(da, st, q8, model, weights, bf16_codes)
+    del model, weights, bf16_codes
+    torch.cuda.empty_cache()
+    run_top4x4(da, st, q8)
     torch.cuda.empty_cache()
     run_level3(vq, da, st)
     k3f_launches, f32_images_per_s = run_encode_f32(vq, da, st)
     check_small_reference(vq)
     check_level3_reference(st)
+    check_top2mid2bot_reference()
 
     kernels = []
     source = 'hqtransformer_tpu_torch/csrc/'

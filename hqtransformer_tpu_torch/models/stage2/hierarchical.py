@@ -54,9 +54,61 @@ def cells_to_raster(bot_cells: torch.Tensor, h_top: int,
 
 
 class SpatialDecoding:
-    """The spatial transformer's serving steps on the packed [L, T, B, D]
-    KV caches, for a model with `blocks` and `ln_f`: the 2-level and the
-    3-level models share them."""
+    """The serving state and the spatial transformer's serving steps on
+    the packed [L, T, B, D] KV caches, for a model with `blocks`, `depths`,
+    `ln_f`, `dtype` and `int8_heads()`: the 2-level and the 3-level models
+    share them."""
+
+    @contextlib.contextmanager
+    def serving(self, int8: Int8Serving = Int8Serving(),
+                scales: Optional[Mapping[str, Mapping[str, torch.Tensor]]]
+                = None) -> Iterator[None]:
+        """Prepare the modules for one serving call and undo it on exit:
+        every attention layer's fused QKV and K/V weights concatenated in
+        the activation dtype; with `int8.spatial_gemms` / `depth_gemms`
+        the spatial / depth blocks' gemms (and the `int8_heads()`)
+        quantized, with the static activation scales of
+        `scales['stage2/act_scales']`; with `int8.kv_cache` the spatial
+        layers' cache scales from `scales['stage2/kv_scales']`. Raises on a
+        missing scale before any module changes, and on int8 gemms for
+        activations that are not bf16."""
+        scales = scales or {}
+        if (int8.spatial_gemms or int8.depth_gemms) and \
+                self.dtype != torch.bfloat16:
+            raise ValueError(f'int8 gemms run on bf16 activations; this '
+                             f'model computes in {self.dtype}')
+        act = scales.get('stage2/act_scales', {})
+        kv = scales.get('stage2/kv_scales', {}) if int8.kv_cache else None
+        attn, quantized = [], []
+        for prefix, blocks, gemms in (('blocks', self.blocks,
+                                       int8.spatial_gemms),
+                                      ('depths', self.depths,
+                                       int8.depth_gemms)):
+            for i, blk in enumerate(blocks):
+                name = f'{prefix}.{i}'
+                attn.append(blk.attn.prepare_serving(
+                    self.dtype, act if gemms else None,
+                    kv if prefix == 'blocks' else None, f'{name}.attn'))
+                if gemms:
+                    quantized += [(f'{name}.attn.proj', blk.attn.proj),
+                                  (f'{name}.mlp.0', blk.mlp[0]),
+                                  (f'{name}.mlp.2', blk.mlp[2])]
+        if int8.depth_gemms:
+            quantized += self.int8_heads()
+        q8 = [Int8Weight.from_float(lin.weight, lin.bias, act_scale(act, name))
+              for name, lin in quantized]
+        # every scale was found: only now does any module change
+        try:
+            for blk, state in zip((*self.blocks, *self.depths), attn):
+                blk.attn.serving = state
+            for (_, lin), w in zip(quantized, q8):
+                lin.q8 = w
+            yield
+        finally:
+            for blk in (*self.blocks, *self.depths):
+                blk.attn.serving = None
+            for _, lin in quantized:
+                lin.q8 = None
 
     def spatial_prefill(self, x: torch.Tensor, k_caches: torch.Tensor,
                         v_caches: torch.Tensor,
@@ -198,55 +250,10 @@ class HierarchicalGPT(SpatialDecoding, nn.Module):
         return logits_top, logits_bot
 
     # --------------------------------------------------------- decode steps
-    @contextlib.contextmanager
-    def serving(self, int8: Int8Serving = Int8Serving(),
-                scales: Optional[Mapping[str, Mapping[str, torch.Tensor]]]
-                = None) -> Iterator[None]:
-        """Prepare the modules for one serving call and undo it on exit:
-        every attention layer's fused QKV and K/V weights concatenated in
-        the activation dtype; with `int8.spatial_gemms` / `depth_gemms`
-        the spatial / depth blocks' gemms (and head_bot) quantized, with
-        the static activation scales of `scales['stage2/act_scales']`; with
-        `int8.kv_cache` the spatial layers' cache scales from
-        `scales['stage2/kv_scales']`. Raises on a missing scale, and on
-        int8 gemms for activations that are not bf16."""
-        scales = scales or {}
-        if (int8.spatial_gemms or int8.depth_gemms) and \
-                self.dtype != torch.bfloat16:
-            raise ValueError(f'int8 gemms run on bf16 activations; this '
-                             f'model computes in {self.dtype}')
-        act = scales.get('stage2/act_scales', {})
-        kv = scales.get('stage2/kv_scales', {}) if int8.kv_cache else None
-        attn, quantized = [], []
-        for prefix, blocks, gemms in (('blocks', self.blocks,
-                                       int8.spatial_gemms),
-                                      ('depths', self.depths,
-                                       int8.depth_gemms)):
-            for i, blk in enumerate(blocks):
-                name = f'{prefix}.{i}'
-                attn.append(blk.attn.prepare_serving(
-                    self.dtype, act if gemms else None,
-                    kv if prefix == 'blocks' else None, f'{name}.attn'))
-                if gemms:
-                    quantized += [(f'{name}.attn.proj', blk.attn.proj),
-                                  (f'{name}.mlp.0', blk.mlp[0]),
-                                  (f'{name}.mlp.2', blk.mlp[2])]
-        if int8.depth_gemms:
-            quantized.append(('head_bot', self.head_bot))
-        q8 = [Int8Weight.from_float(lin.weight, lin.bias, act_scale(act, name))
-              for name, lin in quantized]
-        # every scale was found: only now does any module change
-        try:
-            for blk, state in zip((*self.blocks, *self.depths), attn):
-                blk.attn.serving = state
-            for (_, lin), w in zip(quantized, q8):
-                lin.q8 = w
-            yield
-        finally:
-            for blk in (*self.blocks, *self.depths):
-                blk.attn.serving = None
-            for _, lin in quantized:
-                lin.q8 = None
+    def int8_heads(self) -> List[Tuple[str, nn.Module]]:
+        """The heads that run A8W8 under `depth_gemms`: head_bot (the
+        depth-second chain's; head_top stays float, as in JAX)."""
+        return [('head_bot', self.head_bot)]
 
     def embed_cell_step(self, code_t: torch.Tensor, bot_cell: torch.Tensor,
                         position: torch.Tensor) -> torch.Tensor:

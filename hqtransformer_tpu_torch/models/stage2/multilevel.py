@@ -1,18 +1,25 @@
 """HQ-Transformer for three code levels ('multilevel-hq'): a spatial GPT
 over cells that fuse one top code with its 4 mid and 16 bottom codes, and a
 depth transformer that decodes a cell's 21 codes in three phases (1 top,
-then 4 mids, then 16 bottoms).
+then 4 mids, then 16 bottoms), or fully causally ('top2mid2bot').
 
 Counterpart of `hqtransformer_tpu/models/stage2/multilevel.py::
 MultiLevelHQTransformer` for what the slice serves: class conditioning,
 1-d spatial positions, the `transformer1` cell embedding (no embedding
 blocks: a cell is the mean of its 21 token embeddings plus `pos_emb_emb`)
-and the decoding types 'parallel' and 'parallel-add'. The constructor
-raises `NotImplementedError` for the rest: text or no conditioning, the
-`reduce` and `transformerN` (N > 1) embeddings, 2-d positions,
-'top2mid2bot' and 'tree'. The JAX module's 'tree' reads its 4-row
+and the decoding types 'parallel', 'parallel-add' and 'top2mid2bot'. The
+constructor raises `NotImplementedError` for the rest: text or no
+conditioning, the `reduce` and `transformerN` (N > 1) embeddings, 2-d
+positions and 'tree'. The JAX module's 'tree' reads its 4-row
 `pos_emb_depths_1` at 16 positions, which `jnp.take` fills with NaN, so its
-forward and its bottom phase give NaN logits there.
+forward and its bottom phase give NaN logits there. 'top2mid2bot-add'
+raises `ValueError`, as the JAX forward does.
+
+'top2mid2bot' has the teacher-forced forward (`forward_causal`) and no
+serving path: the JAX package has no sampler for it (its depth phases take
+the level-3 mask, which has no 'top2mid2bot' form, and read
+`pos_emb_depths_1`, which that type lacks), so `serving`, the depth phases
+and the sampler refuse it with a `ValueError`.
 
 Parameter names follow the JAX module (`tok_emb_levels.<i>`,
 `tok_emb_depth_levels.<i>`, `pos_emb_depths.<i>`, `ln_levels.<i>`,
@@ -22,21 +29,31 @@ Parameter names follow the JAX module (`tok_emb_levels.<i>`,
 Depth-sequence order: [sos + h, 4 top inputs, 16 mid inputs]; the bottoms
 are in the reference's pyramid order (h1, h2, w1, w2), which is the local
 raster order of a 4x4 cell. Mids and bottoms of a cell are in local raster
-order everywhere (`level_cells`).
+order everywhere (`level_cells`), but for the mid inputs of
+`forward_causal` (the reference's layout quirk, see there).
 
 The serving path: `spatial_prefill` / `spatial_step` run the spatial blocks
 on the packed [L, T, B, D] caches through decode attention (K1), and
 `depth_phase_cached` runs each phase's new tokens against the cached K/V of
 the earlier phases with `tiny_attention` under `masks.level3_decode`. The
 recompute path `depth_phase` is the JAX module's reference behaviour; the
-tests hold the two equal. int8 serving is not ported for this family.
+tests hold the two equal.
+
+int8max serving: `serving(int8, scales)` (shared with the 2-level model)
+quantizes the spatial blocks' gemms under `spatial_gemms`, and every depth
+block's gemms and `head_levels.<i>` under `depth_gemms`. The JAX sampler
+wraps all three depth phases in `int8_stage2_scope`, so with
+`depth_phase_cached(..., int8=True)` every phase runs A8W8 but for phase
+0's K/V, which JAX computes with a float `jnp.dot` on the concatenated
+key and value kernels (not a `QuantizableDense`); `tiny_attention` holds no
+gemm and stays in the activation dtype. `embed_cell_step` has no gemm
+under `transformer1`.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
-from typing import Iterator, List, Mapping, Optional, Sequence, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,13 +63,18 @@ from ...config import Stage2Hparams, parse_embedding_type
 from ...ops import masks as M
 from ...ops.int8 import Int8Serving
 from .hierarchical import SpatialDecoding, cells_to_raster, raster_to_cells
-from .layers import Block, LayerNorm, Linear, tiny_attention
+from .layers import Block, LayerNorm, QuantizableLinear, tiny_attention
 
 DepthKV = Tuple[List[torch.Tensor], List[torch.Tensor]]
 
 CODE_LEVELS = 3
 CODE_LEN = M.LEVEL3_LEN          # 1 top + 4 mid + 16 bottom codes a cell
-DECODING_TYPES = ('parallel', 'parallel-add')
+DECODING_TYPES = ('parallel', 'parallel-add', 'top2mid2bot')
+NO_PHASES = ("'top2mid2bot' decodes its 21 depth tokens fully causally and "
+             "has no phase decode, sampler or serving path, nor has it in "
+             "the JAX package (its depth phases take the level-3 mask, which "
+             "has no 'top2mid2bot' form, and read pos_emb_depths_1, which "
+             "this type lacks); only its teacher-forced forward is ported")
 
 
 # The JAX module's names for the cell layout: raster [B, (H win W win)] <->
@@ -99,6 +121,9 @@ class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
                 f'{len(vocab_sizes)} code levels: only 3 are ported')
         if use_txt_cond or not use_cls_cond:
             raise NotImplementedError('only class conditioning is ported')
+        if decoding_type == 'top2mid2bot-add':
+            raise ValueError("decoding_type 'top2mid2bot' does not support "
+                             "'-add' (broken in the reference as well)")
         if decoding_type not in DECODING_TYPES:
             raise NotImplementedError(
                 f'decoding type {decoding_type!r} is not ported')
@@ -113,6 +138,7 @@ class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
             **{**hparams.__dict__, 'n_layers': 4})
         self.decoding_type = decoding_type
         self.parallel_type = decoding_type.split('-')[0]
+        self.is_causal_depth = decoding_type == 'top2mid2bot'
         self.dtype = dtype
         hp, hpd = hparams, self.hpd
         D, Dd = hp.embed_dim, hpd.embed_dim
@@ -134,12 +160,13 @@ class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
         self.tok_emb_depth_levels = nn.ModuleList(
             nn.Embedding(v, D) for v in vocab_sizes)
         self.pos_emb_depths = nn.ModuleList(
+            [nn.Embedding(CODE_LEN, Dd)] if self.is_causal_depth else
             [nn.Embedding(4, Dd), nn.Embedding(16, Dd)])
         self.depths = blocks(hpd, hpd.n_layers)
         self.ln_levels = nn.ModuleList(LayerNorm(Dd)
                                        for _ in range(CODE_LEVELS))
-        self.head_levels = nn.ModuleList(Linear(Dd, v, bias=False)
-                                         for v in vocab_sizes)
+        self.head_levels = nn.ModuleList(
+            QuantizableLinear(Dd, v, bias=False) for v in vocab_sizes)
 
     # ------------------------------------------------------------ embedding
     def _emb(self, table: nn.Embedding, idx: torch.Tensor) -> torch.Tensor:
@@ -177,6 +204,8 @@ class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
             level_cells(c, h_top, 2 ** li) for li, c in enumerate(codes)
             if li]
         h = self.forward_embeddings(cells, labels)
+        if self.is_causal_depth:
+            return self.forward_causal(h, codes, h_top)
         return self.forward_hierarchy(h, cells, h_top)
 
     def forward_embeddings(self, cells, labels):
@@ -196,37 +225,57 @@ class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
             self._phase_inputs(None, cells[0].reshape(B * L), None, 1),
             self._phase_inputs(None, cells[0].reshape(B * L),
                                cells[1].reshape(B * L, 4), 2)], dim=1)
-        mask = M.level3(self.parallel_type, x.device)
+        return self._depth_logits(x, M.level3(self.parallel_type, x.device),
+                                  B, h_top)
+
+    def forward_causal(self, h, codes, h_top):
+        """'top2mid2bot': the 21 depth tokens [sos + h, top, 4 mids,
+        15 bottoms] under a causal mask, one `pos_emb_depths.0` row each
+        after the first. The reference's layout quirk, reproduced: cell
+        (h, w) takes its mid inputs from the mid raster factorised as
+        (H h1 h2 W), that is rows 2h and 2h + 1 at columns w and w + H, in
+        (h1, h2) order, not from its raster children; its mid logits map to
+        the true children, as the bottoms do."""
+        B, L = codes[0].shape
+        N = B * L
+        e0, e1, e2 = (self._emb(self.tok_emb_depth_levels[li], c)
+                      for li, c in enumerate((
+                          codes[0], codes[1], level_cells(codes[2], h_top,
+                                                          4))))
+        D = e0.shape[-1]
+        # B (H h1 h2 W) D -> (B H W) (h1 h2) D
+        e1 = e1.reshape(B, h_top, 4, h_top, D).transpose(2, 3)
+        e0, e1, e2 = (e.reshape(N, -1, D) for e in (e0, e1, e2))
+        x = torch.cat([h.reshape(N, 1, -1), e0, e1, e2[:, :-1]], dim=1)
+        x = x + torch.cat([self.sos_depth.to(self.dtype),
+                           self._rows(self.pos_emb_depths[0],
+                                      CODE_LEN - 1)[None]], dim=1)
+        return self._depth_logits(x, M.causal(CODE_LEN, x.device), B, h_top)
+
+    def _depth_logits(self, x, mask, B, h_top):
+        """The depth blocks over the 21-token inputs x [(B L), 21, D] under
+        `mask`, and each level's logits in raster order."""
         for blk in self.depths:
             x = blk(x, mask)
-        return [self._phase_head(x[:, 0], 0).reshape(B, L, -1),
+        return [self._phase_head(x[:, 0], 0).reshape(B, h_top * h_top, -1),
                 _logits_to_raster(self._phase_head(x[:, 1:5], 1), B, h_top,
                                   2),
                 _logits_to_raster(self._phase_head(x[:, 5:], 2), B, h_top,
                                   4)]
 
     # --------------------------------------------------------- decode steps
-    @contextlib.contextmanager
     def serving(self, int8: Int8Serving = Int8Serving(),
                 scales: Optional[Mapping[str, Mapping[str, torch.Tensor]]]
-                = None) -> Iterator[None]:
-        """Prepare the modules for one serving call and undo it on exit:
-        every attention layer's fused QKV and K/V weights concatenated in
-        the activation dtype. int8 serving of this family is not ported:
-        any int8 switch raises."""
-        if int8 != Int8Serving():
-            raise NotImplementedError(
-                'int8 serving of the 3-level family is not ported')
-        blocks = (*self.blocks, *self.depths)
-        states = [blk.attn.prepare_serving(self.dtype, None, None, '')
-                  for blk in blocks]
-        try:
-            for blk, state in zip(blocks, states):
-                blk.attn.serving = state
-            yield
-        finally:
-            for blk in blocks:
-                blk.attn.serving = None
+                = None):
+        """`SpatialDecoding.serving`; refused for 'top2mid2bot'."""
+        if self.is_causal_depth:
+            raise ValueError(NO_PHASES)
+        return super().serving(int8, scales)
+
+    def int8_heads(self) -> List[Tuple[str, nn.Module]]:
+        """The heads that run A8W8 under `depth_gemms`: every level's."""
+        return [(f'head_levels.{i}', head)
+                for i, head in enumerate(self.head_levels)]
 
     def embed_cell_step(self, top: torch.Tensor, mid: torch.Tensor,
                         bot: torch.Tensor,
@@ -245,6 +294,8 @@ class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
         positions, top [B]); 2 -> [B, 16, D] (each mid's embedding at its
         four bottoms' positions, plus the top's under 'parallel-add';
         mid_local [B, 4])."""
+        if self.is_causal_depth:
+            raise ValueError(NO_PHASES)
         if phase == 0:
             return h[:, None, :] + self.sos_depth.to(self.dtype)
         e_top = self._emb(self.tok_emb_depth_levels[0], top)[:, None, :]
@@ -257,9 +308,10 @@ class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
             e1 = e1 + e_top
         return e1
 
-    def _phase_head(self, x: torch.Tensor, phase: int) -> torch.Tensor:
+    def _phase_head(self, x: torch.Tensor, phase: int,
+                    int8: bool = False) -> torch.Tensor:
         """The level head of `phase` over its new tokens' outputs."""
-        return self.head_levels[phase](self.ln_levels[phase](x))
+        return self.head_levels[phase](self.ln_levels[phase](x), int8)
 
     def depth_phase(self, h: torch.Tensor, top: Optional[torch.Tensor],
                     mid_local: Optional[torch.Tensor],
@@ -285,12 +337,16 @@ class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
                            top: Optional[torch.Tensor],
                            mid_local: Optional[torch.Tensor],
                            depth_kv: Optional[DepthKV],
-                           phase: int) -> Tuple[torch.Tensor, DepthKV]:
+                           phase: int, int8: bool = False
+                           ) -> Tuple[torch.Tensor, DepthKV]:
         """Depth phase on the serving path: only the tokens entering at
         `phase`, against the flat [B, t, D] K/V that the earlier phases
         cached. Returns (this level's logits, the K/V extended by this
         phase's tokens). A phase-p token sees the same columns of the
-        level-3 mask here as in `depth_phase`, so the two agree.
+        level-3 mask here as in `depth_phase`, so the two agree. With
+        `int8` (inside an int8 serving call) the phase's gemms and its
+        level's head run A8W8, but for phase 0's K/V (the module
+        docstring says why).
 
         Phase 0 is one token: the softmax over its one key is 1, so the
         attention output is its v, and q is never computed."""
@@ -300,11 +356,11 @@ class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
             for blk in self.depths:
                 k, v = blk.attn.fused_kv(blk.ln1(x)).split(x.shape[-1],
                                                            dim=-1)
-                x = x + blk.attn.proj(v)
-                x = x + blk.mlp_forward(blk.ln2(x))
+                x = x + blk.attn.proj(v, int8)
+                x = x + blk.mlp_forward(blk.ln2(x), int8)
                 ks.append(k)
                 vs.append(v)
-            return self._phase_head(x[:, 0], 0), (ks, vs)
+            return self._phase_head(x[:, 0], 0, int8), (ks, vs)
 
         x = self._phase_inputs(None, top, mid_local, phase)
         t_past, t_new = (1, 5)[phase - 1], x.shape[1]
@@ -313,12 +369,12 @@ class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
         new_ks, new_vs = [], []
         for i, blk in enumerate(self.depths):
             a = blk.attn
-            q, k_new, v_new = a.fused_qkv(blk.ln1(x)).split(x.shape[-1],
-                                                            dim=-1)
+            q, k_new, v_new = a.fused_qkv(blk.ln1(x), int8).split(
+                x.shape[-1], dim=-1)
             k = torch.cat([ks[i], k_new], dim=1)
             v = torch.cat([vs[i], v_new], dim=1)
-            x = x + a.proj(tiny_attention(q, k, v, a.n_heads, mask))
-            x = x + blk.mlp_forward(blk.ln2(x))
+            x = x + a.proj(tiny_attention(q, k, v, a.n_heads, mask), int8)
+            x = x + blk.mlp_forward(blk.ln2(x), int8)
             new_ks.append(k)
             new_vs.append(v)
-        return self._phase_head(x, phase), (new_ks, new_vs)
+        return self._phase_head(x, phase, int8), (new_ks, new_vs)

@@ -23,9 +23,11 @@ collection (merge them with `{**a, **b, **c}`); `save_serving_scales` and
 `load_serving_scales` write and read them in the JAX package's artifact
 format, so that calibration and serving can run in separate processes.
 `make_pipelined_sampler` decodes the previous batch on a second CUDA
-stream while the current batch's AR loop runs. The 3-level family has its
-bf16 and f32 sampler only: its int8 serving, calibration, encode and
-teacher-forced entry points are not ported and raise.
+stream while the current batch's AR loop runs. The 3-level family serves
+through `make_pixel_sampler_multilevel`, in bf16, f32 and int8max, and
+calibrates with the same three functions (their arguments per family as in
+the JAX package); `extract_codes`, `forward` and the two 2-level samplers
+are the 2-level family's only, as in the JAX package, and raise for it.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from __future__ import annotations
 import contextlib
 import math
 import pickle
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -50,7 +52,7 @@ from .stage1.layers import QuantizableConv2d
 from .stage1.quantizer import EMAVectorQuantizer
 from .stage2.hierarchical import HierarchicalGPT, cells_to_raster
 from .stage2.layers import QuantizableLinear
-from .stage2.multilevel import MultiLevelHQTransformer, cells_to_level
+from .stage2.multilevel import MultiLevelHQTransformer
 
 Weights = Dict[str, Dict[str, torch.Tensor]]
 Codes = Tuple[torch.Tensor, torch.Tensor]
@@ -86,6 +88,15 @@ def serving_bf16_params(state: Dict[str, torch.Tensor]
     return {k: v.to(torch.bfloat16)
             if v.dtype == torch.float32 and v.dim() >= 2 else v
             for k, v in state.items()}
+
+
+def _on_device(args: Any, device: torch.device,
+               samples: slice = slice(None)) -> Any:
+    """The `samples` of every tensor in `args` (tensors and lists of
+    them), moved to `device`."""
+    if isinstance(args, (list, tuple)):
+        return type(args)(_on_device(a, device, samples) for a in args)
+    return args[samples].to(device)
 
 
 def _decode_chunked(dec1: Callable, arrays: Sequence[torch.Tensor],
@@ -219,18 +230,26 @@ class TwoStageModel:
     @torch.inference_mode()
     def calibrate_kv_scales(self, weights: Weights,
                             generator: torch.Generator, labels: torch.Tensor,
-                            params: SamplingParams = SamplingParams(),
+                            params: Union[SamplingParams,
+                                          Sequence[LevelSampling], None]
+                            = None,
                             max_seq_len: Optional[int] = None) -> Scales:
         """Per-channel scales of the int8 KV cache: one float sampling run
-        on `labels`, whose final caches are reduced to each layer's
-        per-channel absmax over (T, B): max(m, 1e-6) / 127 (the JAX
-        function's default margin of 1).
+        on `labels` (`params`: the family's sampling knobs, by default
+        the JAX function's, no top-k at temperature 1), whose final caches
+        are reduced to each layer's per-channel absmax over (T, B):
+        max(m, 1e-6) / 127 (the JAX function's default margin of 1).
         Returns {'stage2/kv_scales': {'blocks.<l>.attn.k' | '.v': [D]}}."""
-        self._two_levels('calibrate_kv_scales')
         self.load_weights(weights)
         n_top = max_seq_len or self.top_res * self.top_res
-        sampler = make_hierarchical_sampler(self.stage2, n_top, params,
-                                            return_caches=True)
+        if self.code_levels == 2:
+            sampler = make_hierarchical_sampler(
+                self.stage2, n_top, params or SamplingParams(),
+                return_caches=True)
+        else:
+            sampler = make_multilevel_sampler(
+                self.stage2, n_top, params or (LevelSampling(),) * 3,
+                return_caches=True)
         _, caches = sampler(generator, labels.to(self.device))
         out = {}
         for which, c in zip('kv', caches):
@@ -242,36 +261,39 @@ class TwoStageModel:
         return {'stage2/kv_scales': out}
 
     @torch.inference_mode()
-    def calibrate_stage2_int8(self, weights: Weights, codes_t: torch.Tensor,
-                              codes_b: torch.Tensor,
-                              labels: torch.Tensor) -> Scales:
+    def calibrate_stage2_int8(self, weights: Weights, *forward_args) -> Scales:
         """Static activation scales of the A8W8 gemms: the absmax of every
-        quantizable Linear's input over the teacher-forced stage-2 forward
-        on (codes_t [B, Ttop], codes_b [B, Tbot] raster, labels), as
-        max(m, 1e-8) / 127. Returns {'stage2/act_scales': {name: scale}}."""
-        self._two_levels('calibrate_stage2_int8')
+        quantizable Linear's input over the teacher-forced stage-2 forward,
+        as max(m, 1e-8) / 127. `forward_args` are the forward's: (codes_t
+        [B, Ttop], codes_b [B, Tbot] raster, labels) for 2 levels, ([top,
+        mid, bottom] raster maps [B, T_l], labels) for 3. The 3-level
+        logits are [B, 21 Ttop, V]: the JAX package calibrates on 32
+        samples. Returns {'stage2/act_scales': {name: scale}}."""
         self.load_weights(weights)
+        args = _on_device(forward_args, self.device)
         with recording_absmax(self.stage2, QuantizableLinear) as found:
-            self.stage2(codes_t.to(self.device), codes_b.to(self.device),
-                        labels.to(self.device))
+            self.stage2(*args)
         return {'stage2/act_scales': {n: scale_from_absmax(m)
                                       for n, m in found.items()}}
 
     @torch.inference_mode()
-    def calibrate_int8_decode(self, weights: Weights, code_t: torch.Tensor,
-                              code_b: torch.Tensor,
+    def calibrate_int8_decode(self, weights: Weights, *decode_args,
                               chunk: int = 128) -> Scales:
         """Static activation scales of the A8W8 decoder convolutions:
-        `decode_code` on code maps code_t [B, Ht, Wt], code_b [B, Hb, Wb]
-        in `chunk`-sample slices, each conv's input absmax merged by max
-        over the slices, as max(m, 1e-8) / 127. Returns
-        {'stage1/act_scales': {name: scale}}."""
-        self._two_levels('calibrate_int8_decode')
+        `decode_code(*decode_args)` in `chunk`-sample slices, each conv's
+        input absmax merged by max over the slices, as max(m, 1e-8) / 127.
+        `decode_args` are the stage-1 decode's: code maps code_t
+        [B, Ht, Wt], code_b [B, Hb, Wb] for 2 levels, the list of the
+        levels' maps, top first, for N. Returns {'stage1/act_scales':
+        {name: scale}}."""
         self.load_weights(weights)
+        first = decode_args[0]
+        batch = (first[0] if isinstance(first, (list, tuple))
+                 else first).shape[0]
         with recording_absmax(self.stage1, QuantizableConv2d) as found:
-            for i in range(0, code_t.shape[0], chunk):
-                self.stage1.decode_code(code_t[i:i + chunk].to(self.device),
-                                        code_b[i:i + chunk].to(self.device))
+            for i in range(0, batch, chunk):
+                self.stage1.decode_code(*_on_device(
+                    decode_args, self.device, slice(i, i + chunk)))
         return {'stage1/act_scales': {n: scale_from_absmax(m)
                                       for n, m in found.items()}}
 
@@ -279,24 +301,28 @@ class TwoStageModel:
     def _pixel_decoder(self, n_top: int, decode_chunk: int,
                        int8: Int8Serving, scales: Optional[Scales]
                        ) -> Callable:
-        """fn(codes_t [B, N], codes_b [B, N, ratio]) -> pixels [B, H, W, 3]
-        in [0, 1], the stage-1 decode in `decode_chunk`-sample chunks, with
-        A8W8 convolutions under `int8.decode_convs`."""
+        """fn(*codes) -> pixels [B, H, W, 3] in [0, 1] of a sampler's codes
+        (codes_t [B, N], codes_b [B, N, ratio] for 2 levels; tops [B, N],
+        mids [B, N, 4], bots [B, N, 16] for 3), the stage-1 decode of their
+        raster maps in `decode_chunk`-sample chunks, with A8W8
+        convolutions under `int8.decode_convs`."""
         top_res = int(math.isqrt(n_top))
-        bot_res = top_res * self.cell_win
+        wins = (self.cell_win,) if self.code_levels == 2 else (2, 4)
         act = (scales or {}).get('stage1/act_scales', {})
 
-        def dec1(ct, cb):
-            pixels = self.stage1.decode_code(ct, cb)
+        def dec1(*maps):
+            pixels = (self.stage1.decode_code(*maps) if self.code_levels == 2
+                      else self.stage1.decode_code(list(maps)))
             return torch.clamp(pixels * 0.5 + 0.5, 0.0, 1.0)
 
-        def decode(codes_t, codes_b):
-            ct = codes_t.reshape(-1, top_res, top_res)
-            cb = cells_to_raster(codes_b, top_res, self.cell_win).reshape(
-                -1, bot_res, bot_res)
+        def decode(top, *groups):
+            maps = [top.reshape(-1, top_res, top_res)] + [
+                cells_to_raster(g, top_res, w).reshape(-1, top_res * w,
+                                                       top_res * w)
+                for g, w in zip(groups, wins)]
             with (self.stage1.int8_decode(act) if int8.decode_convs
                   else contextlib.nullcontext()):
-                return _decode_chunked(dec1, [ct, cb], decode_chunk)
+                return _decode_chunked(dec1, maps, decode_chunk)
 
         return decode
 
@@ -379,13 +405,16 @@ class TwoStageModel:
             self, max_seq_len: Optional[int] = None,
             top_k: Sequence[Optional[int]] = (None, None, None),
             temperature: Sequence[float] = (1.0, 1.0, 1.0),
-            bisect3: bool = False, decode_chunk: int = 128) -> Callable:
+            bisect3: bool = False, decode_chunk: int = 128,
+            int8: Int8Serving = Int8Serving(),
+            scales: Optional[Scales] = None) -> Callable:
         """End-to-end sampler of the 3-level family: fn(weights, generator,
         labels [B]) -> (pixels [B, H, W, 3] in [0, 1], (tops [B, N], mids
         [B, N, 4], bots [B, N, 16])), with per-level (top, mid, bottom)
         `top_k` and `temperature`, and `bisect3` for every draw (see
         `engine.LevelSampling`). The codes go to the stage-1 decode as
-        raster maps, in `decode_chunk`-sample chunks."""
+        raster maps, in `decode_chunk`-sample chunks. `int8` and `scales`
+        choose int8 serving (see the module docstring)."""
         if self.code_levels != 3:
             raise ValueError('make_pixel_sampler_multilevel needs a 3-level '
                              'model; use make_pixel_sampler')
@@ -393,23 +422,14 @@ class TwoStageModel:
         sampler = make_multilevel_sampler(
             self.stage2, n_top, tuple(
                 LevelSampling(top_k=k, temperature=t, bisect3=bisect3)
-                for k, t in zip(top_k, temperature)))
-        top_res = int(math.isqrt(n_top))
-
-        def dec1(*codes):
-            pixels = self.stage1.decode_code(list(codes))
-            return torch.clamp(pixels * 0.5 + 0.5, 0.0, 1.0)
+                for k, t in zip(top_k, temperature)), int8, scales)
+        decode = self._pixel_decoder(n_top, decode_chunk, int8, scales)
 
         @torch.inference_mode()
         def sample_pixels(weights: Weights, generator: torch.Generator,
                           labels: torch.Tensor):
             self.load_weights(weights)
-            tops, mids, bots = sampler(generator, labels)
-            maps = [tops.reshape(-1, top_res, top_res)] + [
-                cells_to_level(c, top_res, win).reshape(
-                    -1, top_res * win, top_res * win)
-                for c, win in ((mids, 2), (bots, 4))]
-            return (_decode_chunked(dec1, maps, decode_chunk),
-                    (tops, mids, bots))
+            codes = sampler(generator, labels)
+            return decode(*codes), codes
 
         return sample_pixels

@@ -42,8 +42,15 @@ class Int8Serving:
     the sampler's cache_dtype; the port takes them as this argument.
     - kv_cache: the spatial KV cache in int8 (decode attention's int8
       variant), with calibrated per-channel scales;
-    - depth_gemms: A8W8 gemms in the depth-second chain and head_bot;
-    - spatial_gemms: A8W8 gemms in the spatial prefill and steps;
+    - depth_gemms: A8W8 gemms in the depth transformer: for the 2-level
+      model the depth-second chain and head_bot (the depth-first step and
+      head_top stay float); for the 3-level model every depth phase and
+      every head_levels.<i>, except phase 0's K/V, which JAX computes with
+      a float product (the JAX sampler wraps all three phases in its
+      int8 scope);
+    - spatial_gemms: A8W8 gemms in the spatial prefill and steps (the
+      blocks.* gemms; JAX's switch also covers the cell-embedding blocks,
+      which the `transformer1` embedding of both families does not have);
     - decode_convs: A8W8 convolutions in the stage-1 decoder.
     The gemm and conv switches need bf16 activations and raise otherwise,
     where JAX stays float silently. Spatial gemms come only with the depth

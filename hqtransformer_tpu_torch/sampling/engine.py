@@ -28,8 +28,9 @@ search instead of its binary one; it is off by default, as in JAX.
 
 int8 serving: `int8` (an `Int8Serving`) and `scales` (the calibrated
 collections, see `models/twostage.py`) choose the int8 KV cache and the
-A8W8 gemms of the spatial steps and of the depth-second chain, as the JAX
-sampler's cache_dtype and HQT_INT8_* switches do.
+A8W8 gemms of the spatial steps and of the depth chain (the 2-level
+depth-second chain; every 3-level depth phase), as the JAX samplers'
+cache_dtype and HQT_INT8_* switches do.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from typing import Callable, List, Mapping, Optional, Sequence, Tuple, Union
 import torch
 
 from ..models.stage2.hierarchical import HierarchicalGPT
-from ..models.stage2.multilevel import MultiLevelHQTransformer
+from ..models.stage2.multilevel import NO_PHASES, MultiLevelHQTransformer
 from ..ops.int8 import Int8Serving
 from ..ops.topk_topp import sample_from_logits
 
@@ -228,33 +229,49 @@ def make_hierarchical_scorer(model: HierarchicalGPT, max_seq_len: int = 64,
 def make_multilevel_sampler(model: MultiLevelHQTransformer,
                             max_seq_len: int = 64,
                             params: Sequence[LevelSampling] = (
-                                LevelSampling(),) * 3) -> Callable:
+                                LevelSampling(),) * 3,
+                            int8: Int8Serving = Int8Serving(),
+                            scales: Optional[Scales] = None,
+                            return_caches: bool = False) -> Callable:
     """Build the sampler for the 3-level model, one `LevelSampling` a
     level (top, mid, bottom). Returns fn(generator, labels [B]) -> (tops
     [B, N], mids [B, N, 4], bots [B, N, 16]), int32, mids and bottoms in
-    each top cell's local raster order, N = max_seq_len.
+    each top cell's local raster order, N = max_seq_len; with
+    `return_caches`, (codes, (k_caches, v_caches)), the calibration hook of
+    `TwoStageModel.calibrate_kv_scales`.
 
     Per position: depth phase 0 (the top's logits), one draw [B]; phase 1
     (the 4 mids' logits), one draw [B, 4]; phase 2 (the 16 bottoms'),
     one draw [B, 16]; each phase runs only its new tokens against the
     depth K/V the earlier phases cached (`depth_phase_cached`). The
-    spatial steps run on the packed cache, as the 2-level sampler's do."""
+    spatial steps run on the packed cache, as the 2-level sampler's do.
+    `int8` and `scales` choose int8 serving as for the 2-level sampler;
+    `depth_gemms` covers all three depth phases, as the JAX sampler's
+    `int8_stage2_scope` does. A 'top2mid2bot' model has no sampler (nor
+    has it in JAX) and raises ValueError."""
     if len(params) != 3:
         raise ValueError(f'one LevelSampling a level: got {len(params)}')
+    if model.is_causal_depth:
+        raise ValueError(NO_PHASES)
+    depth8 = int8.depth_gemms
 
     @torch.inference_mode()
     def sample(generator: torch.Generator, labels: torch.Tensor):
         def depth(i, h):
-            logits, kv = model.depth_phase_cached(h, None, None, None, 0)
+            logits, kv = model.depth_phase_cached(h, None, None, None, 0,
+                                                  depth8)
             top = params[0].draw(generator, logits)
-            logits, kv = model.depth_phase_cached(None, top, None, kv, 1)
+            logits, kv = model.depth_phase_cached(None, top, None, kv, 1,
+                                                  depth8)
             mids = params[1].draw(generator, logits)
-            logits, _ = model.depth_phase_cached(None, top, mids, kv, 2)
+            logits, _ = model.depth_phase_cached(None, top, mids, kv, 2,
+                                                 depth8)
             codes = (top, mids, params[2].draw(generator, logits))
             return codes, codes
 
-        outs, _ = _serving_loop(model, labels, max_seq_len, Int8Serving(),
-                                None, depth)
-        return tuple(torch.stack(c, dim=1) for c in zip(*outs))
+        outs, caches = _serving_loop(model, labels, max_seq_len, int8,
+                                     scales, depth)
+        codes = tuple(torch.stack(c, dim=1) for c in zip(*outs))
+        return (codes, caches) if return_caches else codes
 
     return sample

@@ -41,12 +41,12 @@ from hqtransformer_tpu_torch.convert import convert_variables  # noqa: E402
 from hqtransformer_tpu_torch.models import twostage  # noqa: E402
 from hqtransformer_tpu_torch.models.stage2 import layers  # noqa: E402
 from hqtransformer_tpu_torch.models.stage2 import multilevel  # noqa: E402
-from hqtransformer_tpu_torch.ops import int8 as q8  # noqa: E402
 from hqtransformer_tpu_torch.ops import masks  # noqa: E402
 from hqtransformer_tpu_torch.sampling.engine import (  # noqa: E402
     LevelSampling, make_multilevel_sampler)
 
 FLAGSHIP = 'configs/imagenet/stage2/hqtransformer-l12-top8x8-level3.yaml'
+TOP4X4 = 'configs/imagenet/stage2/hqtransformer-l12-top4x4-level3.yaml'
 VOCABS = (32, 48, 64)
 TOL = dict(atol=2e-4, rtol=1e-3)
 B, N_TOP = 3, 16
@@ -437,7 +437,6 @@ REJECTED = {
         embedding_type='transformer2')),
     '2-d positions': dict(hparams=_hp(position_embedding='2d')),
     'random order': dict(hparams=_hp(use_random_order=True)),
-    'top2mid2bot': dict(decoding_type='top2mid2bot'),
     'tree': dict(decoding_type='tree'),
     'reduce depth inputs': dict(decoding_type='parallel-reduce'),
     'four levels': dict(vocab_sizes=VOCABS + (64,)),
@@ -451,6 +450,115 @@ def test_unported_options_raise(option):
     kw.update(REJECTED[option])
     with pytest.raises(NotImplementedError):
         multilevel.MultiLevelHQTransformer(**kw)
+
+
+def test_top2mid2bot_forward_matches_jax():
+    """'top2mid2bot', the fully causal depth: the port's state dict has the
+    JAX export's keys (one pos_emb_depths table of 21 rows) and its
+    teacher-forced logits are within atol 2e-4 of JAX's at every level.
+    The codes' mid raster is not symmetric, so the reference's layout
+    quirk shows: a cell's mid inputs, the raster factorised as
+    (H h1 h2 W), differ from its raster children, which its mid logits
+    map to."""
+    jm, variables, tm = stage2_pair('top2mid2bot')
+    assert sorted(tm.state_dict()) == sorted(
+        export_torch_state_dict(variables))
+    assert tm.pos_emb_depths[0].weight.shape == (21, 64)
+    codes = _codes(5)
+    quirk = codes[1].reshape(B, 4, 4, 4).transpose(0, 1, 3, 2)
+    assert not np.array_equal(quirk.reshape(B, 16, 4), multilevel.level_cells(
+        _t(codes[1]), 4, 2).numpy())
+    labels = np.array([2, 5, 8], np.int32)
+    ref = jax.jit(jm.apply)(variables, [jnp.asarray(c) for c in codes],
+                            jnp.asarray(labels))
+    ours = tm([_t(c) for c in codes], _t(labels))
+    for li, (o, r) in enumerate(zip(ours, ref)):
+        assert tuple(o.shape) == (B, N_TOP * 4 ** li, VOCABS[li])
+        _close(o, r, err_msg=f'level {li}', **TOL)
+
+
+def test_top2mid2bot_add_and_sampling_raise():
+    """'top2mid2bot-add' raises ValueError in both packages (the
+    reference's broadcast fails there too). JAX has no sampler for
+    'top2mid2bot': its sampler raises ValueError at the mid phase, whose
+    level-3 mask has no 'top2mid2bot' form; the port refuses the
+    sampler, serving, the depth phases and the pixel sampler with a
+    ValueError of its own."""
+    codes = [jnp.asarray(c) for c in _codes(0)]
+    with pytest.raises(ValueError, match='-add'):
+        _jax_stage2('top2mid2bot-add').init(jax.random.PRNGKey(0), codes,
+                                            jnp.zeros((B,), jnp.int32))
+    with pytest.raises(ValueError, match='-add'):
+        twostage.build_stage2(tiny_config(torch_config, 'top2mid2bot-add'))
+    jm, variables, tm = stage2_pair('top2mid2bot')
+    with pytest.raises(ValueError, match='top2mid2bot'):
+        jax_sampler(jm, N_TOP, top_k=(1, 1, 1), attention='packed')(
+            variables, jax.random.PRNGKey(1), jnp.asarray(LABELS))
+    with pytest.raises(ValueError, match='no phase decode'):
+        make_multilevel_sampler(tm, N_TOP)
+    with pytest.raises(ValueError, match='no phase decode'):
+        tm.serving()
+    with pytest.raises(ValueError, match='no phase decode'):
+        tm.depth_phase(torch.zeros(B, 64), None, None, 0)
+    two = twostage.TwoStageModel(tiny_config(torch_config, 'top2mid2bot'),
+                                 device='cpu')
+    with pytest.raises(ValueError, match='no phase decode'):
+        two.make_pixel_sampler_multilevel()
+
+
+def top4x4_tiny_config(build):
+    """The 4x4-top level-3 config file cut to a tiny width by `build`:
+    the stage-1 keeps its resolution 256, four ch_mult entries and a
+    16x16 latent (so a 4x4 / 8x8 / 16x16 code pyramid over 16 spatial
+    steps) at ch 32, one res block, embed dim 16; the stage-2 at d 64, 2
+    layers, 4 heads; vocabularies (32, 48, 64)."""
+    cfg = build(TOP4X4)
+    s1, s2 = cfg.stage1, cfg.stage2
+    s1.hparams.ch, s1.hparams.z_channels = 32, 32
+    s1.hparams.num_res_blocks = 1
+    s1.embed_dim, s1.n_embed, s1.n_embed_levels = 16, 64, list(VOCABS)
+    s2.vocab_sizes_img, s2.vocab_size_img = list(VOCABS), max(VOCABS)
+    hp = s2.hparams
+    hp.embed_dim, hp.n_layers, hp.n_heads, hp.n_classes = 64, 2, 4, 10
+    return cfg
+
+
+def test_top4x4_level3_config_matches_jax():
+    """configs/imagenet/stage2/hqtransformer-l12-top4x4-level3.yaml: both
+    parsers read it alike (ch_mult [1, 2, 4, 4], a 16x16 latent, three
+    8192-code levels); cut to a tiny width, the port's model has a 4x4
+    top and its greedy (top-k 1) make_pixel_sampler_multilevel in f32
+    gives JAX's codes at every level, and pixels within atol 2e-4 / rtol
+    1e-3 of JAX's (test_pixel_sampler_matches_jax's bound)."""
+    ref_cfg, cfg = build_twostage_config(TOP4X4), torch_config(TOP4X4)
+    for a, b in ((ref_cfg.stage1.hparams, cfg.stage1.hparams),
+                 (ref_cfg.stage2.hparams, cfg.stage2.hparams)):
+        assert a.__dict__ == b.__dict__
+    assert cfg.stage1.hparams.ch_mult == [1, 2, 4, 4]
+    assert cfg.stage1.hparams.attn_resolutions == [16]
+    assert cfg.stage2.vocab_sizes_img == [8192] * 3
+    jm = jax_twostage.TwoStageModel(top4x4_tiny_config(build_twostage_config))
+    k1, k2 = jax.random.split(jax.random.PRNGKey(6))
+    v1 = jax.jit(jm.stage1.init)(k1, jnp.zeros((1, 64, 64, 3)))
+    v2 = jax.jit(jm.stage2.init)(k2, [jnp.asarray(c[:1]) for c in _codes(0)],
+                                 jnp.zeros((1,), jnp.int32))
+    labels = LABELS[:2]
+    ref_px, ref = jm.make_pixel_sampler_multilevel(
+        top_k=(1, 1, 1), attention='packed')(
+            {'stage1': v1, 'stage2': v2}, jax.random.PRNGKey(1),
+            jnp.asarray(labels))
+    tm = twostage.TwoStageModel(top4x4_tiny_config(torch_config),
+                                device='cpu')
+    assert (tm.code_levels, tm.top_res) == (3, 4)
+    weights = {'stage1': convert_variables(v1),
+               'stage2': convert_variables(v2)}
+    px, codes = tm.make_pixel_sampler_multilevel(top_k=(1, 1, 1))(
+        weights, torch.Generator().manual_seed(0), _t(labels))
+    for li, (c, r) in enumerate(zip(codes, ref)):
+        np.testing.assert_array_equal(c.numpy(), np.asarray(r),
+                                      err_msg=f'level {li}')
+    assert px.shape == (2, 256, 256, 3)
+    _close(px, ref_px)
 
 
 def test_tree_gives_nan_in_jax():
@@ -470,13 +578,11 @@ def test_tree_gives_nan_in_jax():
 
 
 def test_int8_serving_and_two_level_entries_raise():
-    """int8 serving, calibration, encode and the 2-level samplers are not
-    ported for the 3-level family; the 3-level sampler refuses a 2-level
-    model."""
+    """Encode and the 2-level samplers are the 2-level family's only, as
+    in the JAX package; the 3-level sampler refuses a 2-level model. (The
+    3-level family's int8 serving is ported:
+    tests/test_torch_int8_multilevel.py.)"""
     tm = twostage.TwoStageModel(tiny_config(torch_config), device='cpu')
-    with pytest.raises(NotImplementedError):
-        with tm.stage2.serving(q8.INT8MAX):
-            pass
     for entry in (tm.make_pixel_sampler, tm.make_pipelined_sampler):
         with pytest.raises(NotImplementedError):
             entry()
