@@ -52,9 +52,10 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    TwoStageModel.make_pixel_sampler(top-k 2048, T 0.95) on 128 labels,
    twice (the first call warms up): codes in range, pixels
    [128, 256, 256, 3] finite in [0, 1], and exactly 756 decode-attention
-   and 128 sampling launches per call. Prints samples/s and peak memory,
-   then a breakdown: the AR loop and the stage-1 decode timed apart, with
-   the device's busy time and largest kernels from torch.profiler.
+   launches (at pos 1..63) and 128 sampling launches per call. Prints
+   samples/s and peak memory, then a breakdown: the AR loop and the stage-1
+   decode timed apart, with the device's busy time and largest kernels from
+   torch.profiler.
 4. Nearest-code search (K3) against its plain version (TF32 off): N=8191,
    D in {256, 1024, 4096}, K in {8192, 1000}, f32 (6 pairs of bf16
    pieces) and bf16 (1 pair), both mixed pairs at D=256 (3 pairs), and
@@ -95,7 +96,10 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    every level, with and without `bisect3`: the three levels' codes equal,
    pixels within 1e-3; and that tiny config with the fully causal
    'top2mid2bot' depth: its teacher-forced logits on the card within 1e-4
-   of the CPU's, f32.
+   of the CPU's, f32; and the tiny 2-level config with text conditioning
+   (an 8-token caption) and unconditional with the `reduce` embedding: the
+   teacher-forced logits (the text logits too) within 1e-4 of the CPU's,
+   f32.
 7. int8max serving (run right after phase 3, on its model and weights):
    - decode attention's int8 kernel against its plain version with int8
      caches and new rows over all of -128..127 and an f32 or bf16 q, at
@@ -159,6 +163,36 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    seeded random bf16 weights: two bf16 calls at batch 128 and, after the
    same calibration, one int8max call, with the same checks (180 K1 and
    48 K2 launches a call).
+10. The other conditionings at full width, with seeded random bf16
+   weights (after phase 9's models are freed):
+   - K1 against its plain version (caches bit-equal, y within 2e-2, in
+     units of 1/127 on int8 caches) on the text path's cache, T 127 (a
+     64-token caption and 64 image positions), B 128, d 1536, at pos 63,
+     64, 65, 95 and 126, bf16 and int8 caches; at FFHQ's d 1024 with
+     16 heads, T 64, B 128, at pos 0, 33 and 63; and in bf16 at B 1024,
+     the large calls' batch: T 127 d 1536 at pos 64 and 95, a 12-layer
+     T 127 cache (2.4e9 elements) at layer 11 (past 2^31 elements) and
+     pos 64 and 126, and d 1024 T 64 at pos 33 and 63. Then K1 timed at every
+     text position 64..126 on both caches (pos 95 and 126 printed beside
+     their bounds; the sum over a text batch's 756 launches beside the
+     summed bound, with the fitted fixed and per-row costs) and at pos 33
+     on FFHQ's cache;
+   - FFHQ l24 (`configs/ffhq/stage2/hqtransformer-l24-ffhq.yaml`:
+     unconditional, `reduce`, 24 layers, d 1024) through
+     make_pixel_sampler(top-k 2048, T 0.95) on 128 dummy labels, twice:
+     codes in range, pixels [128, 256, 256, 3] finite in [0, 1], exactly
+     1,512 K1 launches (pos 1..63) and 128 K2; samples/s, peak memory, the
+     AR loop and stage-1 decode broken down; one call at batch 1024;
+   - CC15M l12 (`configs/cc15m/stage2/hqtransformer-l12-cc15m.yaml`):
+     128 captions written here, tokenized by the port's BPE-16k tokenizer
+     into [128, 64] ids; two bf16 calls with the same checks and 756 K1
+     launches, all at pos 64..126, a breakdown, one call at batch 1024;
+     then int8max calibrated as measure_throughput.py does (KV scales, a
+     bf16 pixel-sampler call's codes for the decode scales, its first 64
+     samples for the stage-2 scales), saved to
+     build/int8max_txt_scales.pkl and loaded back bit for bit, and one
+     int8max call at batch 128 (756 K1 launches, all int8) on the first
+     bf16 call's generator seed, with the per-level code agreement.
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
@@ -169,6 +203,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -188,10 +223,8 @@ BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 # K1 at the flagship main path: 12 layers, 64 cache rows, batch 128,
 # d=1536, 24 heads; 12 launches per spatial step x 63 steps.
 L, T, B, D, NH = 12, 64, 128, 1536, 24
-K1_LAUNCHES = L * 63
 # K2: one top draw [B, V] and one bottom-group draw [4B, V] per position.
 V = 8192
-K2_LAUNCHES = 2 * 64
 TIMED_POS = 33
 # K3: one launch per code level; N = batch x level area, K = 8192 codes.
 # The 3-level middle and bottom levels at batch 32 have the flagship top's
@@ -294,17 +327,17 @@ def bound(n_bytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
 
 # ------------------------------------------------------- K1 decode attention
 
-def k1_bytes(pos: int, batch: int, int8: bool) -> int:
-    """Bytes K1 must move at `pos` with a bf16 q: q, k_new, v_new and the
-    2 * pos cache rows read once; the two new rows and y written once. The
-    caches and the new rows are int8 or bf16."""
+def k1_bytes(pos: int, batch: int, int8: bool, d: int = D) -> int:
+    """Bytes K1 must move at `pos` with a bf16 q of width d: q, k_new, v_new
+    and the 2 * pos cache rows read once; the two new rows and y written
+    once. The caches and the new rows are int8 or bf16."""
     c = 1 if int8 else 2
-    return batch * D * (2 + 2 * c + 2 * pos * c + 2 * c + 2)
+    return batch * d * (2 + 2 * c + 2 * pos * c + 2 * c + 2)
 
 
-def k1_flops(pos: int, batch: int) -> int:
+def k1_flops(pos: int, batch: int, d: int = D) -> int:
     """q.k and a.v over the pos + 1 rows."""
-    return 2 * 2 * (pos + 1) * batch * D
+    return 2 * 2 * (pos + 1) * batch * d
 
 
 # K1 check cases: (L, T, B, positions). The flagship cache at the edges of
@@ -1034,60 +1067,131 @@ def flagship_entry(shapes):
 
 # ------------------------------------------------------------ main path
 
-def run_main_path(da, st):
+@contextlib.contextmanager
+def k1_positions():
+    """The positions at which the spatial steps launch K1 while the
+    context is open (a spy on the name `layers.step` calls)."""
+    from hqtransformer_tpu_torch.models.stage2 import layers
+    real, seen = layers.decode_attention_step, []
+
+    def spy(*args, **kwargs):
+        seen.append(args[6])
+        return real(*args, **kwargs)
+    layers.decode_attention_step = spy
+    try:
+        yield seen
+    finally:
+        layers.decode_attention_step = real
+
+
+def checked_call(model, call, labels, name, da, st, q8, int8=False,
+                 bisect3=False):
+    """One call of a pixel sampler, checked: `call()` gives (pixels,
+    codes) for `labels`' batch n. Codes in [0, 8192) at [n, N], [n, N, 4]
+    (and [n, N, 16] with 3 levels), N = top_res^2; pixels [n, res, res, 3]
+    finite in [0, 1]; n_layers x (N - 1) K1 launches at pos sos_len ..
+    sos_len + N - 2 (all on the int8 variant with `int8`); levels x N K2
+    launches (all with the quartile search with `bisect3`); int8 gemms and
+    convolutions counted with `int8`, none without. Prints samples/s and
+    peak memory; returns (codes, samples/s)."""
+    n = labels.shape[0]
+    n_top = model.top_res * model.top_res
+    res = model.config.dataset.image_resolution
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(da.decode_attention_step, st.sample_topk, q8.int8_matmul,
+                 q8.int8_conv2d)
+    da.decode_attention_step.int8_launches = 0
+    st.sample_topk.bisect3_launches = 0
+    with k1_positions() as positions:
+        t0 = time.perf_counter()
+        pixels, codes = call()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    k1 = model.config.stage2.hparams.n_layers * (n_top - 1)
+    k2 = model.code_levels * n_top
+    launches = (da.decode_attention_step.launches,
+                da.decode_attention_step.int8_launches,
+                st.sample_topk.launches, st.sample_topk.bisect3_launches)
+    want = (k1, k1 if int8 else 0, k2, k2 if bisect3 else 0)
+    require(launches == want, f'{name} launches K1, K1 int8, K2, K2 '
+            f'bisect3 {launches}, expected {want}')
+    first = model.stage2.sos_len
+    span = (min(positions), max(positions)) if positions else None
+    require(len(positions) == k1 and span == (first, first + n_top - 2),
+            f'{name} K1 at pos {span}, expected {first}..'
+            f'{first + n_top - 2}')
+    gemms, convs = q8.int8_matmul.launches, q8.int8_conv2d.launches
+    require((gemms > 0 and convs > 0) if int8 else (gemms, convs) == (0, 0),
+            f'{name} int8 gemms, convs {(gemms, convs)}')
+    shapes = [(n, n_top)] + [(n, n_top, 4 ** i)
+                             for i in range(1, model.code_levels)]
+    require([tuple(c.shape) for c in codes] == shapes,
+            f'{name} code shapes {[tuple(c.shape) for c in codes]}')
+    for c in codes:
+        require(int(c.min()) >= 0 and int(c.max()) < N_CODES,
+                f'{name} codes outside [0, {N_CODES})')
+    require(pixels.shape == (n, res, res, 3),
+            f'{name} pixel shape {tuple(pixels.shape)}')
+    require(bool(torch.isfinite(pixels).all()), f'{name} pixels not finite')
+    require(float(pixels.min()) >= 0.0 and float(pixels.max()) <= 1.0,
+            f'{name} pixels outside [0, 1]')
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f'{name}: {seconds:.3f} s, {n / seconds:.2f} samples/s at batch '
+          f'{n}, peak {peak:.2f} GiB, launches K1={launches[0]} (int8 '
+          f'{launches[1]}, pos {span[0]}..{span[1]}) K2={launches[2]} '
+          f'(bisect3 {launches[3]}), int8 gemms {gemms}, int8 convs {convs}')
+    return codes, n / seconds
+
+
+def sampler_call(model, weights, sampler, gen, labels, name, da, st, q8,
+                 **kinds):
+    """`checked_call` of `sampler(weights, gen, labels)`."""
+    return checked_call(model, lambda: sampler(weights, gen, labels), labels,
+                        name, da, st, q8, **kinds)
+
+
+def bf16_model(config_path, labels_of):
+    """A TwoStageModel at full width in bf16 with seeded random bf16
+    serving weights, and `labels_of(config)` on the card."""
     from hqtransformer_tpu_torch.config import build_twostage_config
     from hqtransformer_tpu_torch.models.twostage import (TwoStageModel,
                                                          serving_bf16_params)
-    from hqtransformer_tpu_torch.sampling.engine import SamplingParams
 
-    cfg = build_twostage_config(str(FLAGSHIP))
+    cfg = build_twostage_config(str(config_path))
     model = TwoStageModel(cfg, dtype=torch.bfloat16)
     weights = {s: serving_bf16_params(w)
                for s, w in model.init_weights(seed=0).items()}
-    params = SamplingParams(top_k_top=2048, top_k_bot=2048,
-                            temperature_top=0.95, temperature_bot=0.95)
+    return model, weights, labels_of(cfg).cuda()
+
+
+SAMPLING_2048 = dict(top_k_top=2048, top_k_bot=2048, temperature_top=0.95,
+                     temperature_bot=0.95)
+
+
+def run_main_path(da, st):
+    from hqtransformer_tpu_torch.ops import int8 as q8
+    from hqtransformer_tpu_torch.sampling.engine import SamplingParams
+
+    model, weights, labels = bf16_model(
+        FLAGSHIP, lambda cfg: torch.arange(B) % cfg.stage2.hparams.n_classes)
+    params = SamplingParams(**SAMPLING_2048)
     sampler = model.make_pixel_sampler(params=params)
-    labels = torch.arange(B, device='cuda') % cfg.stage2.hparams.n_classes
     gen = torch.Generator(device='cuda').manual_seed(1)
-    n_codes = cfg.stage2.vocab_size_img
-    res = cfg.dataset.image_resolution
     for call in (1, 2):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        da.decode_attention_step.launches = 0
-        st.sample_topk.launches = 0
-        t0 = time.perf_counter()
-        pixels, (codes_t, codes_b) = sampler(weights, gen, labels)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = (da.decode_attention_step.launches,
-                    st.sample_topk.launches)
-        require(launches == (K1_LAUNCHES, K2_LAUNCHES),
-                f'kernel launches {launches}, expected '
-                f'{(K1_LAUNCHES, K2_LAUNCHES)}')
-        require(codes_t.shape == (B, 64) and codes_b.shape == (B, 64, 4),
-                f'code shapes {codes_t.shape}, {codes_b.shape}')
-        for c in (codes_t, codes_b):
-            require(int(c.min()) >= 0 and int(c.max()) < n_codes,
-                    f'codes outside [0, {n_codes})')
-        require(pixels.shape == (B, res, res, 3),
-                f'pixel shape {pixels.shape}')
-        require(torch.isfinite(pixels).all(), 'pixels not finite')
-        require(float(pixels.min()) >= 0.0 and float(pixels.max()) <= 1.0,
-                'pixels outside [0, 1]')
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f'main path call {call}: {seconds:.3f} s, '
-              f'{B / seconds:.2f} samples/s at batch {B}, peak '
-              f'{peak:.2f} GiB, launches K1={launches[0]} K2={launches[1]}, '
-              f'pixels {tuple(pixels.shape)} {pixels.dtype}')
+        _, samples_per_s = sampler_call(model, weights, sampler, gen,
+                                        labels, f'main path call {call}',
+                                        da, st, q8)
+    launches = (da.decode_attention_step.launches, st.sample_topk.launches)
     breakdown(model, weights, params, labels, gen)
-    return launches, B / seconds, model, weights
+    return launches, samples_per_s, model, weights
 
 
-def breakdown(model, weights, params, labels, gen):
+def breakdown(model, weights, params, labels, gen, name=''):
     """Where one batch's time goes: the AR loop (stage 2) and the stage-1
     decode, each timed alone on the host clock, then run once more under
-    torch.profiler for the device's busy time and its largest kernels."""
+    torch.profiler for the device's busy time and its largest kernels;
+    `name` prefixes the phases' lines."""
     from hqtransformer_tpu_torch.models.stage2.hierarchical import \
         cells_to_raster
     from hqtransformer_tpu_torch.sampling.engine import \
@@ -1105,8 +1209,8 @@ def breakdown(model, weights, params, labels, gen):
             -1, n_top * win, n_top * win)
         return model.stage1.decode_code(ct, cb)
 
-    profile_phases((('AR loop', lambda: sampler(gen, labels)),
-                    ('stage-1 decode', decode)))
+    profile_phases(((f'{name}AR loop', lambda: sampler(gen, labels)),
+                    (f'{name}stage-1 decode', decode)))
 
 
 def profile_phases(phases):
@@ -1240,49 +1344,14 @@ def run_pipelined(model, weights, params, labels, int8, scales, name, da, st,
     sampler = model.make_pipelined_sampler(params=params, int8=int8,
                                            scales=scales)
     gen = torch.Generator(device='cuda').manual_seed(11)
-    n = labels.shape[0]
-    res = model.config.dataset.image_resolution
     calls = ('steady',) if prev is not None else ('fill', 'steady', 'steady')
     codes = prev
-    int8max = int8.kv_cache
     for kind in calls:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(da.decode_attention_step, st.sample_topk,
-                     q8.int8_matmul, q8.int8_conv2d)
-        da.decode_attention_step.int8_launches = 0
-        t0 = time.perf_counter()
-        codes, pixels = sampler(weights, gen, labels,
-                                None if kind == 'fill' else codes)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = (da.decode_attention_step.launches,
-                  da.decode_attention_step.int8_launches,
-                  st.sample_topk.launches, q8.int8_matmul.launches,
-                  q8.int8_conv2d.launches)
-        k1_int8 = K1_LAUNCHES if int8max else 0
-        require(counts[:3] == (K1_LAUNCHES, k1_int8, K2_LAUNCHES),
-                f'{name} launches K1, K1 int8, K2 {counts[:3]}, expected '
-                f'{(K1_LAUNCHES, k1_int8, K2_LAUNCHES)}')
-        require((counts[3] > 0 and counts[4] > 0) if int8max
-                else counts[3:] == (0, 0),
-                f'{name} int8 gemms, convs {counts[3:]}')
-        require(codes[0].shape == (n, 64) and codes[1].shape == (n, 64, 4),
-                f'{name} code shapes')
-        for c in codes:
-            require(int(c.min()) >= 0 and int(c.max()) < N_CODES,
-                    f'{name} codes outside [0, {N_CODES})')
-        require(pixels.shape == (n, res, res, 3), f'{name} pixel shape '
-                f'{tuple(pixels.shape)}')
-        require(bool(torch.isfinite(pixels).all()), f'{name} pixels not '
-                f'finite')
-        require(float(pixels.min()) >= 0.0 and float(pixels.max()) <= 1.0,
-                f'{name} pixels outside [0, 1]')
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f'{name} pipelined {kind} call at batch {n}: {seconds:.3f} s, '
-              f'{n / seconds:.2f} samples/s, peak {peak:.2f} GiB, launches K1 '
-              f'{counts[0]} (int8 {counts[1]}) K2 {counts[2]}, int8 gemms '
-              f'{counts[3]}, int8 convs {counts[4]}')
+        last = None if kind == 'fill' else codes
+        codes, _ = checked_call(
+            model, lambda: sampler(weights, gen, labels, last)[::-1], labels,
+            f'{name} pipelined {kind} call at batch {labels.shape[0]}', da,
+            st, q8, int8=int8.kv_cache)
     return codes
 
 
@@ -1346,8 +1415,7 @@ def run_int8max(da, st, model, weights):
     k1_times = time_decode_attention_int8(da)
     time_decode_attention_int8_large(da)
     check_int8_products(q8)
-    params = SamplingParams(top_k_top=2048, top_k_bot=2048,
-                            temperature_top=0.95, temperature_bot=0.95)
+    params = SamplingParams(**SAMPLING_2048)
     n_classes = model.config.stage2.hparams.n_classes
     labels = torch.arange(B, device='cuda') % n_classes
     scales = calibrate_int8max(model, weights, params, labels)
@@ -1531,71 +1599,11 @@ N_CALIB_STAGE2 = 32
 B_LEVEL3_LARGE = 256     # the JAX bench family's l12-level3-int8max batch
 
 
-def level3_call(model, weights, sampler, gen, labels, name, da, st, q8,
-                bisect3=False, int8=False):
-    """One call of a 3-level pixel sampler, checked: codes in [0, 8192) at
-    [B, N], [B, N, 4], [B, N, 16]; pixels [B, res, res, 3] finite in
-    [0, 1]; n_layers x (N - 1) K1 launches (all on the int8 variant with
-    `int8`) and 3 N K2 launches (all bisect3 with `bisect3`); int8 gemms
-    and convolutions counted with `int8`, none without. Prints the call's
-    samples/s and peak memory; returns (codes, samples/s)."""
-    n = labels.shape[0]
-    n_top = model.top_res * model.top_res
-    res = model.config.dataset.image_resolution
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(da.decode_attention_step, st.sample_topk, q8.int8_matmul,
-                 q8.int8_conv2d)
-    da.decode_attention_step.int8_launches = 0
-    st.sample_topk.bisect3_launches = 0
-    t0 = time.perf_counter()
-    pixels, codes = sampler(weights, gen, labels)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    k1 = model.config.stage2.hparams.n_layers * (n_top - 1)
-    k2 = 3 * n_top
-    launches = (da.decode_attention_step.launches,
-                da.decode_attention_step.int8_launches,
-                st.sample_topk.launches, st.sample_topk.bisect3_launches)
-    want = (k1, k1 if int8 else 0, k2, k2 if bisect3 else 0)
-    require(launches == want, f'{name} launches K1, K1 int8, K2, K2 '
-            f'bisect3 {launches}, expected {want}')
-    gemms, convs = q8.int8_matmul.launches, q8.int8_conv2d.launches
-    require((gemms > 0 and convs > 0) if int8 else (gemms, convs) == (0, 0),
-            f'{name} int8 gemms, convs {(gemms, convs)}')
-    require([tuple(c.shape) for c in codes] ==
-            [(n, n_top), (n, n_top, 4), (n, n_top, 16)],
-            f'{name} code shapes {[tuple(c.shape) for c in codes]}')
-    for c in codes:
-        require(int(c.min()) >= 0 and int(c.max()) < N_CODES,
-                f'{name} codes outside [0, {N_CODES})')
-    require(pixels.shape == (n, res, res, 3),
-            f'{name} pixel shape {tuple(pixels.shape)}')
-    require(bool(torch.isfinite(pixels).all()), f'{name} pixels not finite')
-    require(float(pixels.min()) >= 0.0 and float(pixels.max()) <= 1.0,
-            f'{name} pixels outside [0, 1]')
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f'{name}: {seconds:.3f} s, {n / seconds:.2f} samples/s at batch '
-          f'{n}, peak {peak:.2f} GiB, launches K1={launches[0]} (int8 '
-          f'{launches[1]}) K2={launches[2]} (bisect3 {launches[3]}), int8 '
-          f'gemms {gemms}, int8 convs {convs}, pixels '
-          f'{tuple(pixels.shape)} {pixels.dtype}')
-    return codes, n / seconds
-
-
 def level3_model(config_path):
     """A 3-level TwoStageModel at full width in bf16 with seeded random
     bf16 serving weights, and its labels at batch B."""
-    from hqtransformer_tpu_torch.config import build_twostage_config
-    from hqtransformer_tpu_torch.models.twostage import (TwoStageModel,
-                                                         serving_bf16_params)
-
-    cfg = build_twostage_config(str(config_path))
-    model = TwoStageModel(cfg, dtype=torch.bfloat16)
-    weights = {s: serving_bf16_params(w)
-               for s, w in model.init_weights(seed=0).items()}
-    labels = torch.arange(B, device='cuda') % cfg.stage2.hparams.n_classes
-    return model, weights, labels
+    return bf16_model(config_path, lambda cfg: torch.arange(B) %
+                      cfg.stage2.hparams.n_classes)
 
 
 def run_level3_sampling(da, st, q8):
@@ -1603,7 +1611,7 @@ def run_level3_sampling(da, st, q8):
     config (12 layers, d 1536, three 8192-code levels, parallel-add) with
     seeded random bf16 weights, make_pixel_sampler_multilevel at top-k 2048
     and T 1.0 a level on 128 labels: two calls, then one with bisect3,
-    each checked by `level3_call`. Then the AR loop and the stage-1 decode
+    each checked by `checked_call`. Then the AR loop and the stage-1 decode
     broken down. Returns (K2 bisect3 launches of the third call,
     samples/s of the second, the model, its weights, the first call's
     codes)."""
@@ -1616,9 +1624,9 @@ def run_level3_sampling(da, st, q8):
     for call, bisect3 in ((1, False), (2, False), (3, True)):
         sampler = model.make_pixel_sampler_multilevel(bisect3=bisect3,
                                                       **LEVEL3_KNOBS)
-        out.append(level3_call(model, weights, sampler, gen, labels,
-                               f'3-level sampling call {call} (bisect3 '
-                               f'{bisect3})', da, st, q8, bisect3=bisect3))
+        out.append(sampler_call(model, weights, sampler, gen, labels,
+                                f'3-level sampling call {call} (bisect3 '
+                                f'{bisect3})', da, st, q8, bisect3=bisect3))
     k2b_launches = st.sample_topk.bisect3_launches
     level3_breakdown(model, weights, labels, gen, '3-level')
     return k2b_launches, out[1][1], model, weights, out[0][0]
@@ -1722,9 +1730,9 @@ def run_level3_int8max(da, st, q8, model, weights, bf16_codes):
         int8=q8.INT8MAX, scales=scales, **LEVEL3_KNOBS)
     gen = torch.Generator(device='cuda').manual_seed(1)
     for call in (1, 2):
-        codes, _ = level3_call(model, weights, sampler, gen, labels,
-                               f'3-level int8max call {call}', da, st, q8,
-                               int8=True)
+        codes, _ = sampler_call(model, weights, sampler, gen, labels,
+                                f'3-level int8max call {call}', da, st, q8,
+                                int8=True)
         if call == 1:
             agree = [float((a == b).float().mean())
                      for a, b in zip(codes, bf16_codes)]
@@ -1735,9 +1743,9 @@ def run_level3_int8max(da, st, q8, model, weights, bf16_codes):
                      q8.INT8MAX, scales)
     large = torch.arange(B_LEVEL3_LARGE, device='cuda') % \
         model.config.stage2.hparams.n_classes
-    level3_call(model, weights, sampler, gen, large,
-                f'3-level int8max at batch {B_LEVEL3_LARGE}', da, st, q8,
-                int8=True)
+    sampler_call(model, weights, sampler, gen, large,
+                 f'3-level int8max at batch {B_LEVEL3_LARGE}', da, st, q8,
+                 int8=True)
     print(f'phase 9 (3-level int8max): {time.perf_counter() - t0:.1f} s')
 
 
@@ -1747,7 +1755,7 @@ def run_top4x4(da, st, q8):
     with seeded random bf16 weights: two bf16 calls of
     make_pixel_sampler_multilevel (top-k 2048, T 1.0) at batch 128, then
     calibration as phase 9 and one int8max call, each checked by
-    `level3_call` (12 x 15 K1 and 48 K2 launches a call)."""
+    `checked_call` (12 x 15 K1 and 48 K2 launches a call)."""
     t0 = time.perf_counter()
     model, weights, labels = level3_model(TOP4X4_S2)
     require((model.code_levels, model.top_res) == (3, 4),
@@ -1756,13 +1764,13 @@ def run_top4x4(da, st, q8):
     sampler = model.make_pixel_sampler_multilevel(**LEVEL3_KNOBS)
     gen = torch.Generator(device='cuda').manual_seed(1)
     for call in (1, 2):
-        level3_call(model, weights, sampler, gen, labels,
-                    f'4x4-top bf16 call {call}', da, st, q8)
+        sampler_call(model, weights, sampler, gen, labels,
+                     f'4x4-top bf16 call {call}', da, st, q8)
     scales = calibrate_level3(model, weights, labels, TOP4X4_SCALES_PATH)
     sampler = model.make_pixel_sampler_multilevel(
         int8=q8.INT8MAX, scales=scales, **LEVEL3_KNOBS)
-    level3_call(model, weights, sampler, gen, labels,
-                '4x4-top int8max call', da, st, q8, int8=True)
+    sampler_call(model, weights, sampler, gen, labels,
+                 '4x4-top int8max call', da, st, q8, int8=True)
     print(f'4x4-top config: {time.perf_counter() - t0:.1f} s')
 
 
@@ -1963,6 +1971,326 @@ def check_small_reference(vq):
           f'equal to the CPU plain path, max|pixels - cpu| = {err:.2e}')
 
 
+# ------------------------------------- phase 10: the other conditionings
+
+FFHQ_S2 = ROOT / 'configs/ffhq/stage2/hqtransformer-l24-ffhq.yaml'
+CC15M_S2 = ROOT / 'configs/cc15m/stage2/hqtransformer-l12-cc15m.yaml'
+TXT_SCALES_PATH = ROOT / 'build' / 'int8max_txt_scales.pkl'
+# K1 on the text path: 12 layers over a 64-token caption and 64 image
+# positions, T = 64 + 64 - 1 cache rows, the steps at pos 64..126 (past
+# both kernels' first 64-row round); on FFHQ l24: 24 layers at d 1024, 16
+# heads (hd 64), T = 64.
+N_TXT = 64
+T_TXT = N_TXT + 64 - 1
+TXT_POSITIONS = range(N_TXT, T_TXT)
+D_FFHQ, NH_FFHQ = 1024, 16
+# (layers, rows, batch, d, heads, caches, positions, layer); layer None
+# is pos % layers. Batch 1024 as phase 10's large calls run K1; the
+# 12-layer text cache at batch 1024 holds 2.4e9 elements, and its layer
+# 11 lies past 2^31 of them.
+K1_TXT_CASES = (
+    (2, T_TXT, B, D, NH, ('bf16', 'int8'), (63, 64, 65, 95, 126), None),
+    (2, T, B, D_FFHQ, NH_FFHQ, ('bf16',), (0, 33, 63), None),
+    (2, T_TXT, B_LARGE, D, NH, ('bf16',), (64, 95), None),
+    (12, T_TXT, B_LARGE, D, NH, ('bf16',), (64, 126), 11),
+    (2, T, B_LARGE, D_FFHQ, NH_FFHQ, ('bf16',), (33, 63), None))
+# The text sweep's caches rotate over this many layers, so that no timed
+# call finds its rows in L2 from an earlier one (one layer's bf16 cache at
+# T 127 is 50 MB).
+TXT_SWEEP_LAYERS = 60
+# 128 captions: every combination of these subjects, looks and scenes.
+SUBJECTS = ('a red fox', 'two old sailboats', 'a bowl of ramen',
+            'a snowy mountain cabin')
+LOOKS = ('in watercolor', 'photographed at dusk', 'as a pencil sketch',
+         'under neon lights')
+SCENES = ('on a quiet street', 'beside a lake', 'in a busy market',
+          'at the edge of a forest', 'during heavy rain', 'on a sunny beach',
+          'inside a glass greenhouse', 'above the clouds')
+CAPTIONS = [f'{s.capitalize()} {look}, {scene}.' for s in SUBJECTS
+            for look in LOOKS for scene in SCENES]
+
+
+def k1_case(da, cache, n_layers, n_rows, batch, d, n_heads, pos, layer,
+            seed):
+    """K1 on one case, bf16 q, at `layer` of the cache, against its plain
+    version: caches bit-equal; returns max |y - plain| (in units of 1/127
+    on an int8 cache, as `check_decode_attention_int8` reads it)."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    shape = (n_layers, n_rows, batch, d)
+    if cache == 'int8':
+        kc, vc = (torch.randint(-128, 128, shape, generator=g, device='cuda',
+                                dtype=torch.int8) for _ in range(2))
+        kn, vn = (torch.randint(-128, 128, (batch, d), generator=g,
+                                device='cuda', dtype=torch.int8)
+                  for _ in range(2))
+        q = (torch.randn((batch, d), generator=g, device='cuda') *
+             0.02).bfloat16()
+    else:
+        kc, vc = (torch.randn(shape, generator=g, device='cuda',
+                              dtype=torch.bfloat16) for _ in range(2))
+        q, kn, vn = (torch.randn((batch, d), generator=g,
+                                 device='cuda').bfloat16() for _ in range(3))
+    kc1, vc1 = kc.clone(), vc.clone()
+    y1 = da.decode_attention_step(q, kn, vn, kc1, vc1, layer, pos, n_heads)
+    y2 = da.decode_attention_step_plain(q, kn, vn, kc, vc, layer, pos,
+                                        n_heads)
+    torch.cuda.synchronize()
+    require(torch.equal(kc1, kc) and torch.equal(vc1, vc),
+            f'K1 {cache} cache rows differ (L {n_layers} T {n_rows} B '
+            f'{batch} d {d}, layer {layer} pos {pos})')
+    scale = 127 if cache == 'int8' else 1
+    y1, y2 = y1.float() / scale, y2.float() / scale
+    torch.testing.assert_close(y1, y2, atol=2e-2, rtol=2e-2)
+    return (y1 - y2).abs().max().item()
+
+
+def check_k1_conditioned(da):
+    """K1 against its plain version at the shapes of phase 10's paths
+    (K1_TXT_CASES): the text path's 127-row cache at pos 63..126 (bf16 and
+    int8 caches), FFHQ's d 1024 with 16 heads (bf16), both at batch 128
+    and 1024."""
+    for (n_layers, n_rows, batch, d, n_heads, caches, positions,
+         layer) in K1_TXT_CASES:
+        for cache in caches:
+            for pos in positions:
+                at = pos % n_layers if layer is None else layer
+                err = k1_case(da, cache, n_layers, n_rows, batch, d,
+                              n_heads, pos, at, seed=pos + d)
+                unit = ' / 127' if cache == 'int8' else ''
+                print(f'K1 {cache} cache, bf16 q, L={n_layers} T={n_rows} '
+                      f'B={batch} d={d} heads={n_heads} layer={at} '
+                      f'pos={pos:3d}: caches bit-equal, max|y - plain|{unit} '
+                      f'= {err:.3e} (tol 2e-2)')
+        torch.cuda.empty_cache()
+
+
+def time_k1_conditioned(da):
+    """K1 at pos 95 and 126 on the text path's cache (T 127, B 128, d 1536,
+    bf16 and int8) and at pos 33 on FFHQ's (d 1024, 16 heads), each beside
+    its bound; then every text position 64..126 on both caches, summed
+    over a text batch's 756 launches beside the summed bound."""
+    g = torch.Generator(device='cuda').manual_seed(21)
+    q = (torch.randn((B, D), generator=g, device='cuda') * 0.02).bfloat16()
+    shape = (TXT_SWEEP_LAYERS, T_TXT, B, D)
+    kc8, vc8 = (torch.randint(-128, 128, shape, generator=g, device='cuda',
+                              dtype=torch.int8) for _ in range(2))
+    kn8, vn8 = (torch.randint(-128, 128, (B, D), generator=g, device='cuda',
+                              dtype=torch.int8) for _ in range(2))
+    operands = {'int8': (kn8, vn8, kc8, vc8),
+                'bf16': tuple(x.bfloat16() for x in (kn8, vn8, kc8, vc8))}
+    times = {cache: {} for cache in operands}
+    for pos in TXT_POSITIONS:
+        for cache, (kn, vn, kc, vc) in operands.items():
+            times[cache][pos] = time_ms(lambda i: da.decode_attention_step(
+                q, kn, vn, kc, vc, i % TXT_SWEEP_LAYERS, pos, NH), 120)
+    for pos in (95, 126):
+        for cache in operands:
+            ms = times[cache][pos]
+            bnd = bound(k1_bytes(pos, B, cache == 'int8'),
+                        k1_flops(pos, B))
+            print(f'K1 {cache} cache, bf16 q, T {T_TXT} pos {pos} B {B}: '
+                  f'kernel {ms:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}; '
+                  f'kernel {ms / bnd[0]:.2f}x)')
+    for cache in operands:
+        ts = [times[cache][p] for p in TXT_POSITIONS]
+        a, slope = fit_line(list(TXT_POSITIONS), ts)
+        total = L * sum(ts)
+        bound_sum = L * sum(bound(k1_bytes(p, B, cache == 'int8'),
+                                  k1_flops(p, B))[0] for p in TXT_POSITIONS)
+        print(f'K1 text sweep {cache} caches, B {B}, pos 64..126: time = '
+              f'{a * 1e3:.3f} us + {slope * 1e3:.4f} us x pos; a text '
+              f'batch\'s {len(ts) * L} launches sum to {total:.4f} ms '
+              f'against a summed bound of {bound_sum:.4f} ms '
+              f'({bound_sum / total:.1%})')
+    del operands, kc8, vc8
+    n_layers, pos = 24, 33
+    kc, vc = (torch.randn((n_layers, T, B, D_FFHQ), generator=g,
+                          device='cuda').bfloat16() for _ in range(2))
+    qf, kn, vn = (torch.randn((B, D_FFHQ), generator=g,
+                              device='cuda').bfloat16() for _ in range(3))
+    ms = time_ms(lambda i: da.decode_attention_step(
+        qf, kn, vn, kc, vc, i % n_layers, pos, NH_FFHQ), 240)
+    bnd = bound(k1_bytes(pos, B, False, D_FFHQ),
+                k1_flops(pos, B, D_FFHQ))
+    print(f'K1 bf16 cache, d {D_FFHQ} {NH_FFHQ} heads, pos {pos} B {B}: '
+          f'kernel {ms:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}; kernel '
+          f'{ms / bnd[0]:.2f}x); FFHQ\'s 1,512 launches a batch at about '
+          f'{ms * 24 * 63:.2f} ms')
+    del kc, vc
+    torch.cuda.empty_cache()
+
+
+def run_ffhq(da, st, q8):
+    """FFHQ l24 as released (unconditional, `reduce`, 24 layers, d 1024):
+    make_pixel_sampler at top-k 2048, T 0.95 on 128 dummy labels, twice,
+    then a breakdown, then one call at batch 1024."""
+    from hqtransformer_tpu_torch.sampling.engine import SamplingParams
+
+    model, weights, labels = bf16_model(
+        FFHQ_S2, lambda cfg: torch.zeros(B, dtype=torch.long))
+    require((model.stage2.use_cls_cond, model.stage2.use_txt_cond,
+             model.stage2.emb.kind, model.top_res) ==
+            (False, False, 'reduce', 8), 'FFHQ l24 is not the unconditional '
+            '"reduce" model of an 8x8 top')
+    params = SamplingParams(**SAMPLING_2048)
+    sampler = model.make_pixel_sampler(params=params)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    for call in (1, 2):
+        sampler_call(model, weights, sampler, gen, labels,
+                     f'FFHQ l24 bf16 call {call}', da, st, q8)
+    breakdown(model, weights, params, labels, gen, 'FFHQ l24 ')
+    sampler_call(model, weights, sampler, gen,
+                 torch.zeros(B_LARGE, dtype=torch.long, device='cuda'),
+                 f'FFHQ l24 bf16 at batch {B_LARGE}', da, st, q8)
+    del model, weights
+    torch.cuda.empty_cache()
+
+
+def caption_ids(n_txt):
+    """CAPTIONS through the port's BPE-16k tokenizer: [128, n_txt] ids."""
+    from hqtransformer_tpu_torch.data.tokenizers import tokenize
+    return torch.tensor(tokenize(CAPTIONS, n_txt), dtype=torch.long)
+
+
+def calibrate_txt(model, weights, tokens, params):
+    """int8max scales of the text model as measure_throughput.py takes
+    them: KV scales from one bf16 sampling run, decode scales on the codes
+    of a bf16 pixel-sampler call, stage-2 scales on its first 64 samples;
+    saved to build/int8max_txt_scales.pkl and loaded back bit for bit."""
+    from hqtransformer_tpu_torch.models.stage2.hierarchical import \
+        cells_to_raster
+    from hqtransformer_tpu_torch.models.twostage import (load_serving_scales,
+                                                         save_serving_scales)
+
+    t0 = time.perf_counter()
+    scales = model.calibrate_kv_scales(
+        weights, torch.Generator(device='cuda').manual_seed(2), tokens)
+    _, (ct, cb) = model.make_pixel_sampler(params=params)(
+        weights, torch.Generator(device='cuda').manual_seed(3), tokens)
+    tr, win = model.top_res, model.cell_win
+    raster = cells_to_raster(cb, tr, win)
+    scales.update(model.calibrate_int8_decode(
+        weights, ct.reshape(-1, tr, tr),
+        raster.reshape(-1, tr * win, tr * win)))
+    n = min(64, ct.shape[0])
+    scales.update(model.calibrate_stage2_int8(
+        weights, ct[:n], raster.reshape(ct.shape[0], -1)[:n], tokens[:n]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    TXT_SCALES_PATH.parent.mkdir(parents=True, exist_ok=True)
+    save_serving_scales(scales, str(TXT_SCALES_PATH))
+    loaded = load_serving_scales(str(TXT_SCALES_PATH))
+    require(sorted(loaded) == sorted(scales) and all(
+        torch.equal(loaded[k][n], scales[k][n].cpu())
+        for k in scales for n in scales[k]),
+        'text serving scales changed through the artifact')
+    require('head_txt' not in loaded['stage2/act_scales'],
+            'head_txt got an int8 scale')
+    counts = ', '.join(f'{k} {len(v)}' for k, v in sorted(loaded.items()))
+    print(f'CC15M int8max calibration at batch {tokens.shape[0]}: '
+          f'{seconds:.2f} s ({counts} scales), saved to '
+          f'{TXT_SCALES_PATH.relative_to(ROOT)} and loaded back bit for bit')
+    return loaded
+
+
+def run_cc15m(da, st, q8):
+    """CC15M l12 text-to-image as released: 128 captions tokenized by the
+    port's tokenizer, make_pixel_sampler at top-k 2048, T 0.95, twice in
+    bf16, a breakdown, one call at batch 1024; then int8max calibrated as
+    measure_throughput.py does and one int8max call at batch 128 on the
+    first bf16 call's generator seed, with the per-level code agreement."""
+    from hqtransformer_tpu_torch.sampling.engine import SamplingParams
+
+    model, weights, tokens = bf16_model(
+        CC15M_S2, lambda cfg: caption_ids(cfg.stage2.hparams.ctx_len_txt))
+    require(model.stage2.use_txt_cond and model.stage2.sos_len == N_TXT and
+            tuple(tokens.shape) == (B, N_TXT), 'CC15M is not the text model '
+            f'of a 64-token caption ({tuple(tokens.shape)})')
+    require(bool((tokens > 0).sum(1).min() > 0) and bool(
+        (tokens < model.config.stage2.vocab_size_txt).all()),
+        'caption ids out of range or empty')
+    params = SamplingParams(**SAMPLING_2048)
+    sampler = model.make_pixel_sampler(params=params)
+    seed = 1
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    codes16, _ = sampler_call(model, weights, sampler, gen, tokens,
+                              'CC15M text bf16 call 1', da, st, q8)
+    sampler_call(model, weights, sampler, gen, tokens,
+                 'CC15M text bf16 call 2', da, st, q8)
+    breakdown(model, weights, params, tokens, gen, 'CC15M text ')
+    sampler_call(model, weights, sampler, gen,
+                 tokens.repeat(B_LARGE // B, 1),
+                 f'CC15M text bf16 at batch {B_LARGE}', da, st, q8)
+    scales = calibrate_txt(model, weights, tokens, params)
+    sampler8 = model.make_pixel_sampler(params=params, int8=q8.INT8MAX,
+                                        scales=scales)
+    codes8, _ = sampler_call(
+        model, weights, sampler8,
+        torch.Generator(device='cuda').manual_seed(seed), tokens,
+        'CC15M text int8max call', da, st, q8, int8=True)
+    agree = [float((a == b).float().mean()) for a, b in zip(codes8, codes16)]
+    print(f'CC15M int8max vs bf16 codes on one generator seed (random '
+          f'weights): top {agree[0]:.2%}, bottom {agree[1]:.2%}')
+    del model, weights
+    torch.cuda.empty_cache()
+
+
+def run_conditioned(da, st, q8):
+    """Phase 10: K1 at the new paths' shapes, FFHQ l24 and CC15M text."""
+    t0 = time.perf_counter()
+    check_k1_conditioned(da)
+    time_k1_conditioned(da)
+    run_ffhq(da, st, q8)
+    run_cc15m(da, st, q8)
+    print(f'phase 10 (the other conditionings): '
+          f'{time.perf_counter() - t0:.1f} s')
+
+
+def tiny_conditioned_config(cond, embedding):
+    """The tiny 2-level config (d 128, 4 heads) with `cond` ('text', an
+    8-token caption of a 32-token vocabulary, or 'none') and `embedding`."""
+    from hqtransformer_tpu_torch.config import build_twostage_config
+
+    cfg = build_twostage_config(str(TINY))
+    s2 = cfg.stage2
+    s2.use_cls_cond, s2.use_txt_cond = False, cond == 'text'
+    s2.vocab_size_txt, s2.hparams.ctx_len_txt = 32, 8
+    s2.hparams.embedding_type = embedding
+    return cfg
+
+
+def check_conditioned_reference():
+    """A tiny text model and a tiny unconditional `reduce` model, f32:
+    their teacher-forced logits (the text logits too) on the card within
+    1e-4 of the CPU's."""
+    from hqtransformer_tpu_torch.models.twostage import (build_stage2,
+                                                         random_state)
+
+    for cond, embedding in (('text', 'transformer1'), ('none', 'reduce')):
+        cfg = tiny_conditioned_config(cond, embedding)
+        cpu = build_stage2(cfg).eval()
+        state = random_state(cpu, torch.Generator().manual_seed(7))
+        cpu.load_state_dict(state)
+        gpu = build_stage2(cfg).cuda().eval()
+        gpu.load_state_dict(state)
+        g = torch.Generator().manual_seed(8)
+        V2 = cfg.stage2.vocab_size_img
+        ct = torch.randint(0, V2, (8, 16), generator=g)
+        cb = torch.randint(0, V2, (8, 64), generator=g)
+        labels = (torch.randint(0, 32, (8, 8), generator=g) if cond == 'text'
+                  else torch.zeros(8, dtype=torch.long))
+        with torch.inference_mode():
+            ref = cpu(ct, cb, labels)
+            out = gpu(ct.cuda(), cb.cuda(), labels.cuda())
+        require(len(out) == (3 if cond == 'text' else 2),
+                f'tiny {cond} forward gave {len(out)} outputs')
+        err = max((o.cpu() - r).abs().max().item() for o, r in zip(out, ref))
+        require(err <= 1e-4, f'tiny {cond} {embedding} logits differ by '
+                f'{err}')
+        print(f'tiny {cond} {embedding} teacher-forced logits: max|card - '
+              f'cpu| = {err:.2e} over {[tuple(o.shape) for o in out]}')
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(
         description='Smoke test of the PyTorch/CUDA port on one GPU; with '
@@ -2040,11 +2368,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     run_top4x4(da, st, q8)
     torch.cuda.empty_cache()
+    run_conditioned(da, st, q8)
     run_level3(vq, da, st)
     k3f_launches, f32_images_per_s = run_encode_f32(vq, da, st)
     check_small_reference(vq)
     check_level3_reference(st)
     check_top2mid2bot_reference()
+    check_conditioned_reference()
 
     kernels = []
     source = 'hqtransformer_tpu_torch/csrc/'

@@ -3,10 +3,25 @@ embeddings plus a small depth transformer that emits each position's top
 code and its bottom codes.
 
 Counterpart of `hqtransformer_tpu/models/stage2/hierarchical.py::
-HierarchicalGPT` for the configuration the slice serves: class-conditional,
-`parallel` depth mode, `transformer1` cell embedding (zero embedding blocks:
-a cell is the mean of its top and bottom embeddings), 1-d spatial position
-embedding. Other configurations raise `NotImplementedError`.
+HierarchicalGPT` in the `parallel` depth mode (any bottom window), with
+every conditioning and cell embedding of the JAX module:
+- the conditioning prefix (`Conditioning`, shared with the 3-level
+  model): class labels (`sos`, an embedding), text (`tok_emb_txt` +
+  `pos_emb_txt` over the caption's ctx_len_txt tokens, 64 in the released
+  config; the teacher-forced forward also returns the text logits
+  `head_txt(ln_txt(.))`) or none (`sos`, one learned [1, 1, D] token);
+- the cell embeddings `reduce` (the r bottom embeddings of width D / r
+  packed K-major into one D-wide vector and added to the top's),
+  `multiple` (the bottoms weighted per channel by `pos_emb_bot` and
+  summed), `transformerN` and `bidirectionalN` (N - 1 unmasked
+  `emb_blocks` over the r + 1 cell tokens, then their mean; the
+  bidirectional kind adds the position after the mean);
+- 1-d or 2-d (`pos_emb_top_h`, `pos_emb_top_w`) spatial positions, and
+  `use_random_order`, whose `pred_emb_top` is added in `embed_cell_step`
+  only: the reference's sampler-only quirk, which the training forward
+  ignores.
+The other depth modes ('top2bot', 'bidirectional') raise
+`NotImplementedError`.
 
 Reproduced reference quirk: the parallel depth sampler embeds the codes of
 the previous depth step with `tok_emb_top_depth`, whether they are the top
@@ -16,7 +31,8 @@ int8max serving: `serving(int8, scales)` prepares one sampler call (see
 `layers.py`); inside it `spatial_prefill`/`spatial_step` run their gemms
 A8W8 when passed `int8=True` and `depth_second_logits` likewise, head_bot
 included, as the JAX package's `int8_stage2_scope` does around them.
-`depth_first_logits` and `embed_cell_step` stay float, as in JAX.
+`depth_first_logits`, `embed_cell_step` (its `emb_blocks` too) and
+`head_txt` stay float, as in JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +52,7 @@ from .layers import (Block, LayerNorm, Linear, QuantizableLinear, act_scale,
                      merge_heads, split_heads, tiny_attention)
 
 DepthKV = Tuple[List[torch.Tensor], List[torch.Tensor]]
+EMBEDDINGS = ('reduce', 'multiple', 'transformer', 'bidirectional')
 
 
 def raster_to_cells(bot: torch.Tensor, h_top: int, win: int) -> torch.Tensor:
@@ -53,11 +70,83 @@ def cells_to_raster(bot_cells: torch.Tensor, h_top: int,
     return x.reshape(B, h_top * win * h_top * win)
 
 
+class Conditioning:
+    """The conditioning prefix and the spatial position embedding of a
+    stage-2 model with `hparams` and `dtype`; the 2-level and the 3-level
+    models share them, as the JAX modules' `_sos_embedding` and
+    `_spatial_pos_emb` are alike. Labels are class ids [B] (class
+    conditioning), caption token ids [B, ctx_len_txt] (text) or any [B]
+    tensor (none: only B is read)."""
+
+    def _build_conditioning(self, use_cls_cond: bool, use_txt_cond: bool,
+                            vocab_size_txt: int) -> None:
+        hp = self.hparams
+        D = hp.embed_dim
+        self.use_cls_cond = use_cls_cond
+        self.use_txt_cond = use_txt_cond and not use_cls_cond
+        if use_cls_cond:
+            self.sos = nn.Embedding(hp.n_classes, D)
+        elif self.use_txt_cond:
+            self.tok_emb_txt = nn.Embedding(vocab_size_txt, D)
+            self.pos_emb_txt = nn.Embedding(hp.ctx_len_txt, D)
+            self.ln_txt = LayerNorm(D)
+            self.head_txt = Linear(D, vocab_size_txt, bias=False)
+        else:
+            self.sos = nn.Parameter(torch.zeros(1, 1, D))
+        if hp.position_embedding == '1d':
+            self.pos_emb_top = nn.Embedding(hp.ctx_len_img, D)
+        elif hp.position_embedding == '2d':
+            H = math.isqrt(hp.ctx_len_img)
+            self.pos_emb_top_h = nn.Embedding(H, D)
+            self.pos_emb_top_w = nn.Embedding(H, D)
+        else:
+            raise ValueError(hp.position_embedding)
+
+    def _emb(self, table: nn.Embedding, idx: torch.Tensor) -> torch.Tensor:
+        return F.embedding(idx, table.weight).to(self.dtype)
+
+    @property
+    def sos_len(self) -> int:
+        """The prefix's length: the caption's ctx_len_txt tokens, else 1."""
+        return self.hparams.ctx_len_txt if self.use_txt_cond else 1
+
+    def sos_tokens(self, B: int, labels: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+        """[B, sos_len, D] conditioning prefix."""
+        if self.use_cls_cond:
+            return self._emb(self.sos, labels)[:, None, :]
+        if self.use_txt_cond:
+            pos = torch.arange(self.sos_len, device=labels.device)
+            return self._emb(self.tok_emb_txt, labels) + \
+                self._emb(self.pos_emb_txt, pos)[None]
+        return self.sos.to(self.dtype).expand(B, -1, -1)
+
+    def spatial_pos_emb(self, positions: torch.Tensor) -> torch.Tensor:
+        """positions [B, L] -> [B, L, D]: `pos_emb_top`, or with 2-d
+        positions `pos_emb_top_h(p // H) + pos_emb_top_w(p % H)`, H the
+        side of ctx_len_img."""
+        if self.hparams.position_embedding == '1d':
+            return self._emb(self.pos_emb_top, positions)
+        H = self.pos_emb_top_h.num_embeddings
+        return self._emb(self.pos_emb_top_h, positions // H) + \
+            self._emb(self.pos_emb_top_w, positions % H)
+
+    def split_text(self, h: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The spatial output h [B, sos_len + N - 1, D] of the teacher-
+        forced forward -> (its image part [B, N, D], the text logits
+        [B, ctx_len_txt - 1, V_txt] or None)."""
+        if not self.use_txt_cond:
+            return h, None
+        n = self.sos_len
+        return h[:, n - 1:], self.head_txt(self.ln_txt(h[:, :n - 1]))
+
+
 class SpatialDecoding:
     """The serving state and the spatial transformer's serving steps on
     the packed [L, T, B, D] KV caches, for a model with `blocks`, `depths`,
-    `ln_f`, `dtype` and `int8_heads()`: the 2-level and the 3-level models
-    share them."""
+    `ln_f`, `dtype`, `int8_heads()` and `int8_embedding()`: the 2-level
+    and the 3-level models share them."""
 
     @contextlib.contextmanager
     def serving(self, int8: Int8Serving = Int8Serving(),
@@ -68,7 +157,8 @@ class SpatialDecoding:
         the activation dtype; with `int8.spatial_gemms` / `depth_gemms`
         the spatial / depth blocks' gemms (and the `int8_heads()`)
         quantized, with the static activation scales of
-        `scales['stage2/act_scales']`; with `int8.kv_cache` the spatial
+        `scales['stage2/act_scales']`, and with `spatial_gemms` the
+        `int8_embedding()` gemms too; with `int8.kv_cache` the spatial
         layers' cache scales from `scales['stage2/kv_scales']`. Raises on a
         missing scale before any module changes, and on int8 gemms for
         activations that are not bf16."""
@@ -93,6 +183,8 @@ class SpatialDecoding:
                     quantized += [(f'{name}.attn.proj', blk.attn.proj),
                                   (f'{name}.mlp.0', blk.mlp[0]),
                                   (f'{name}.mlp.2', blk.mlp[2])]
+        if int8.spatial_gemms:
+            quantized += self.int8_embedding()
         if int8.depth_gemms:
             quantized += self.int8_heads()
         q8 = [Int8Weight.from_float(lin.weight, lin.bias, act_scale(act, name))
@@ -114,8 +206,9 @@ class SpatialDecoding:
                         v_caches: torch.Tensor,
                         int8: bool = False) -> torch.Tensor:
         """Run the spatial transformer on the conditioning prefix x
-        [B, S, D], writing cache rows [0, S) of every layer of the packed
-        [L, T, B, D] caches in place. Returns h after ln_f [B, S, D]."""
+        [B, S, D], causal among its S tokens, writing cache rows [0, S) of
+        every layer of the packed [L, T, B, D] caches in place. Returns h
+        after ln_f [B, S, D]."""
         for i, blk in enumerate(self.blocks):
             x = blk.prefill(x, k_caches, v_caches, i, int8=int8)
         return self.ln_f(x)
@@ -131,27 +224,22 @@ class SpatialDecoding:
         return self.ln_f(x)
 
 
-class HierarchicalGPT(SpatialDecoding, nn.Module):
+class HierarchicalGPT(Conditioning, SpatialDecoding, nn.Module):
     """Two-level hierarchical AR transformer (iHQGPT)."""
 
     def __init__(self, vocab_size_top: int, vocab_size_bot: int,
                  ratio_bot2top: int, use_cls_cond: bool,
                  model_type: ModelTypeSpec, hparams: Stage2Hparams,
                  hparams_dec: Optional[Stage2Hparams] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 use_txt_cond: bool = False, vocab_size_txt: int = 16384):
         super().__init__()
-        emb = parse_embedding_type(hparams.embedding_type)
-        if not use_cls_cond:
-            raise NotImplementedError('only class conditioning is ported')
+        self.emb = parse_embedding_type(hparams.embedding_type)
         if model_type.depth_mode != 'parallel':
             raise NotImplementedError(
                 f'depth mode {model_type.depth_mode!r} is not ported')
-        if emb.kind != 'transformer' or emb.n_layers_emb != 0:
-            raise NotImplementedError(
-                f'embedding type {hparams.embedding_type!r} is not ported')
-        if hparams.position_embedding != '1d' or hparams.use_random_order:
-            raise NotImplementedError('only 1-d, raster-order positions are '
-                                      'ported')
+        if self.emb.kind not in EMBEDDINGS:
+            raise ValueError(hparams.embedding_type)
         self.hparams = hparams
         self.hpd = hparams_dec or Stage2Hparams(
             **{**hparams.__dict__, 'n_layers': 4})
@@ -163,24 +251,32 @@ class HierarchicalGPT(SpatialDecoding, nn.Module):
         self.dtype = dtype
         hp, hpd = hparams, self.hpd
         D, Dd = hp.embed_dim, hpd.embed_dim
+        r = ratio_bot2top
 
         def blocks(h, n):
             return nn.ModuleList(
                 Block(h.embed_dim, h.n_heads, h.mlp_bias, h.attn_bias,
                       h.gelu_use_approx) for _ in range(n))
 
-        self.sos = nn.Embedding(hp.n_classes, D)
+        self._build_conditioning(use_cls_cond, use_txt_cond, vocab_size_txt)
         self.tok_emb_top = nn.Embedding(vocab_size_top, D)
-        self.tok_emb_bot = nn.Embedding(vocab_size_bot, D)
-        self.pos_emb_emb = nn.Embedding(ratio_bot2top + 1, D)
-        self.pos_emb_top = nn.Embedding(hp.ctx_len_img, D)
+        self.tok_emb_bot = nn.Embedding(
+            vocab_size_bot, D // r if self.emb.kind == 'reduce' else D)
+        if self.emb.kind == 'multiple':
+            self.pos_emb_bot = nn.Parameter(
+                torch.zeros(1, 1, D, self.num_bottom_pred))
+        if self.emb.kind in ('transformer', 'bidirectional'):
+            self.pos_emb_emb = nn.Embedding(r + 1, D)
+            self.emb_blocks = blocks(hp, self.emb.n_layers_emb)
+        if hp.use_random_order:
+            self.pred_emb_top = nn.Embedding(hp.ctx_len_img, D)
         self.blocks = blocks(hp, hp.n_layers)
         self.ln_f = LayerNorm(D)
 
         self.sos_depth = nn.Parameter(torch.zeros(1, 1, Dd))
         self.tok_emb_top_depth = nn.Embedding(vocab_size_top, Dd)
         self.tok_emb_bot_depth = nn.Embedding(vocab_size_bot, Dd)
-        n_pos_depth = 16 if ratio_bot2top == 16 else max(self.len_seq_depth, 5)
+        n_pos_depth = 16 if r == 16 else max(self.len_seq_depth, 5)
         self.pos_emb_depth = nn.Embedding(n_pos_depth, Dd)
         self.depths = blocks(hpd, hpd.n_layers)
         self.ln_top = LayerNorm(Dd)
@@ -189,34 +285,48 @@ class HierarchicalGPT(SpatialDecoding, nn.Module):
         self.head_bot = QuantizableLinear(Dd, vocab_size_bot, bias=False)
 
     # ------------------------------------------------------------ embedding
-    def _emb(self, table: nn.Embedding, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx, table.weight).to(self.dtype)
-
     def embed_cells(self, codes_t: torch.Tensor, bot_cells: torch.Tensor,
                     positions: torch.Tensor) -> torch.Tensor:
-        """Fuse each top code with its bottom codes into one spatial token:
-        the mean of [top + pos, bot_0..bot_{r-1}] after adding pos_emb_emb.
-        codes_t: [B, L], bot_cells: [B, L, r], positions: [B, L] -> [B, L, D].
-        """
-        emb_top = self._emb(self.tok_emb_top, codes_t) + \
-            self._emb(self.pos_emb_top, positions)
-        emb_bot = self._emb(self.tok_emb_bot, bot_cells)           # [B,L,r,D]
+        """Fuse each top code with its bottom codes into one spatial token,
+        by the model's cell embedding (see the module docstring).
+        codes_t: [B, L], bot_cells: [B, L, r] (local raster order),
+        positions: [B, L] -> [B, L, D]."""
+        B, L = codes_t.shape
+        pos = self.spatial_pos_emb(positions)
+        emb_top = self._emb(self.tok_emb_top, codes_t)
+        emb_bot = self._emb(self.tok_emb_bot, bot_cells)
+        kind = self.emb.kind
+        if kind == 'reduce':       # channel c: element c // r of bottom c % r
+            return emb_top + pos + emb_bot.transpose(2, 3).reshape(B, L, -1)
+        if kind == 'multiple':
+            w = self.pos_emb_bot.to(self.dtype)
+            return emb_top + pos + (emb_bot.transpose(2, 3) * w).sum(-1)
+        if kind == 'transformer':
+            emb_top = emb_top + pos
+        n = self.ratio_bot2top + 1
         h = torch.cat([emb_top[:, :, None, :], emb_bot], dim=2)
-        h = h + self.pos_emb_emb.weight[:self.ratio_bot2top + 1].to(self.dtype)
-        return h.mean(dim=2)
-
-    def sos_tokens(self, B: int, labels: torch.Tensor) -> torch.Tensor:
-        """[B, 1, D] class-conditioning prefix."""
-        return self._emb(self.sos, labels)[:, None, :]
+        h = h + self.pos_emb_emb.weight[:n].to(self.dtype)
+        if len(self.emb_blocks):
+            x = h.reshape(B * L, n, -1)
+            for blk in self.emb_blocks:
+                x = blk(x)
+            h = x.reshape(B, L, n, -1)
+        h = h.mean(dim=2)
+        return h + pos if kind == 'bidirectional' else h
 
     # -------------------------------------------------------------- forward
     def forward(self, codes_t: torch.Tensor, codes_b: torch.Tensor,
-                labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                labels: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, ...]:
         """Teacher-forced forward. codes_t: [B, Ttop], codes_b:
-        [B, Ttop*ratio] raster order. Returns (logits_top [B, Ttop, Vt],
-        logits_bot [B, Tbot, Vb])."""
+        [B, Ttop*ratio] raster order, labels as `Conditioning` says.
+        Returns (logits_top [B, Ttop, Vt], logits_bot [B, Tbot, Vb]), and
+        with text conditioning the text logits [B, ctx_len_txt - 1, V_txt]
+        third."""
         h = self.forward_main(codes_t, codes_b, labels)
-        return self.forward_depth(h, codes_t)
+        h, logits_txt = self.split_text(h)
+        logits = self.forward_depth(h, codes_t)
+        return logits if logits_txt is None else (*logits, logits_txt)
 
     def forward_main(self, codes_t, codes_b, labels):
         B, Ttop = codes_t.shape
@@ -255,12 +365,23 @@ class HierarchicalGPT(SpatialDecoding, nn.Module):
         depth-second chain's; head_top stays float, as in JAX)."""
         return [('head_bot', self.head_bot)]
 
+    def int8_embedding(self) -> List[Tuple[str, nn.Module]]:
+        """None: the JAX sampler embeds the 2-level cell outside its
+        spatial int8 scope, so the `emb_blocks` stay float."""
+        return []
+
     def embed_cell_step(self, code_t: torch.Tensor, bot_cell: torch.Tensor,
-                        position: torch.Tensor) -> torch.Tensor:
+                        position: torch.Tensor,
+                        int8: bool = False) -> torch.Tensor:
         """Embed one generated cell for the next spatial step. code_t: [B],
-        bot_cell: [B, ratio], position: [B] -> [B, 1, D]."""
-        return self.embed_cells(code_t[:, None], bot_cell[:, None, :],
-                                position[:, None])
+        bot_cell: [B, ratio], position: [B] -> [B, 1, D]; with random
+        order, plus `pred_emb_top(position + 1)`. Float whatever `int8`
+        (see `int8_embedding`)."""
+        x = self.embed_cells(code_t[:, None], bot_cell[:, None, :],
+                             position[:, None])
+        if self.hparams.use_random_order:
+            x = x + self._emb(self.pred_emb_top, position[:, None] + 1)
+        return x
 
     def depth_first_logits(self, h: torch.Tensor
                            ) -> Tuple[torch.Tensor, DepthKV]:

@@ -205,12 +205,15 @@ class SelfAttention(nn.Module):
         self.value = QuantizableLinear(embed_dim, embed_dim, bias=attn_bias)
         self.proj = QuantizableLinear(embed_dim, embed_dim, bias=attn_bias)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        q = split_heads(self.query(x), self.n_heads)
-        k = split_heads(self.key(x), self.n_heads)
-        v = split_heads(self.value(x), self.n_heads)
-        return self.proj(merge_heads(masked_attention(q, k, v, mask)))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                int8: bool = False) -> torch.Tensor:
+        """Full-sequence attention; with `int8` the query, key, value and
+        output projections each run A8W8 with their own scales, as the JAX
+        `SelfAttention.__call__` does in its int8 scope."""
+        q = split_heads(self.query(x, int8), self.n_heads)
+        k = split_heads(self.key(x, int8), self.n_heads)
+        v = split_heads(self.value(x, int8), self.n_heads)
+        return self.proj(merge_heads(masked_attention(q, k, v, mask)), int8)
 
     def _concat(self, linears, dtype: torch.dtype):
         w = torch.cat([m.weight for m in linears]).to(dtype)
@@ -332,10 +335,10 @@ class Block(nn.Module):
         fc1, act, fc2 = self.mlp
         return fc2(act(fc1(x, int8)), int8)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), mask)
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                int8: bool = False) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), mask, int8)
+        return x + self.mlp_forward(self.ln2(x), int8)
 
     def prefill(self, x: torch.Tensor, k_caches: torch.Tensor,
                 v_caches: torch.Tensor, layer: int,

@@ -4,16 +4,23 @@ depth transformer that decodes a cell's 21 codes in three phases (1 top,
 then 4 mids, then 16 bottoms), or fully causally ('top2mid2bot').
 
 Counterpart of `hqtransformer_tpu/models/stage2/multilevel.py::
-MultiLevelHQTransformer` for what the slice serves: class conditioning,
-1-d spatial positions, the `transformer1` cell embedding (no embedding
-blocks: a cell is the mean of its 21 token embeddings plus `pos_emb_emb`)
-and the decoding types 'parallel', 'parallel-add' and 'top2mid2bot'. The
-constructor raises `NotImplementedError` for the rest: text or no
-conditioning, the `reduce` and `transformerN` (N > 1) embeddings, 2-d
-positions and 'tree'. The JAX module's 'tree' reads its 4-row
-`pos_emb_depths_1` at 16 positions, which `jnp.take` fills with NaN, so its
-forward and its bottom phase give NaN logits there. 'top2mid2bot-add'
-raises `ValueError`, as the JAX forward does.
+MultiLevelHQTransformer` for the decoding types 'parallel', 'parallel-add'
+and 'top2mid2bot', with class, text or no conditioning (`Conditioning`,
+shared with the 2-level model; the teacher-forced forward returns the text
+logits fourth), 1-d or 2-d spatial positions, and the `transformerN` cell
+embedding: N - 1 unmasked `emb_blocks` over a cell's 21 token embeddings
+plus `pos_emb_emb`, then their mean. `use_random_order` is accepted and
+ignored, as the JAX module ignores it (it creates no `pred_emb_top`). The
+constructor raises `NotImplementedError` for the rest:
+- the `reduce` embedding, which the JAX module cannot run: its
+  `embed_cells` concatenates level embeddings of widths D, D/4 and D/16
+  along the cell axis (a `TypeError`) and reads a `pos_emb_emb` that
+  `reduce` never creates;
+- 'tree', whose JAX module reads its 4-row `pos_emb_depths_1` at 16
+  positions, which `jnp.take` fills with NaN, so its forward and its
+  bottom phase give NaN logits there;
+- the 'reduce' depth inputs and other than 3 levels.
+'top2mid2bot-add' raises `ValueError`, as the JAX forward does.
 
 'top2mid2bot' has the teacher-forced forward (`forward_causal`) and no
 serving path: the JAX package has no sampler for it (its depth phases take
@@ -40,14 +47,15 @@ recompute path `depth_phase` is the JAX module's reference behaviour; the
 tests hold the two equal.
 
 int8max serving: `serving(int8, scales)` (shared with the 2-level model)
-quantizes the spatial blocks' gemms under `spatial_gemms`, and every depth
+quantizes the spatial blocks' gemms and the `emb_blocks`' under
+`spatial_gemms` (the JAX sampler embeds each cell inside its spatial int8
+scope; `embed_cell_step(..., int8=True)` runs them A8W8), and every depth
 block's gemms and `head_levels.<i>` under `depth_gemms`. The JAX sampler
 wraps all three depth phases in `int8_stage2_scope`, so with
 `depth_phase_cached(..., int8=True)` every phase runs A8W8 but for phase
 0's K/V, which JAX computes with a float `jnp.dot` on the concatenated
 key and value kernels (not a `QuantizableDense`); `tiny_attention` holds no
-gemm and stays in the activation dtype. `embed_cell_step` has no gemm
-under `transformer1`.
+gemm and stays in the activation dtype. `head_txt` stays float.
 """
 
 from __future__ import annotations
@@ -56,13 +64,13 @@ import math
 from typing import List, Mapping, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ...config import Stage2Hparams, parse_embedding_type
 from ...ops import masks as M
 from ...ops.int8 import Int8Serving
-from .hierarchical import SpatialDecoding, cells_to_raster, raster_to_cells
+from .hierarchical import (Conditioning, SpatialDecoding, cells_to_raster,
+                           raster_to_cells)
 from .layers import Block, LayerNorm, QuantizableLinear, tiny_attention
 
 DepthKV = Tuple[List[torch.Tensor], List[torch.Tensor]]
@@ -106,33 +114,32 @@ def _pyramid(x: torch.Tensor) -> torch.Tensor:
         N, 16, D)
 
 
-class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
+class MultiLevelHQTransformer(Conditioning, SpatialDecoding, nn.Module):
     """Three-level hierarchical AR transformer."""
 
     def __init__(self, vocab_sizes: Sequence[int], decoding_type: str,
                  use_cls_cond: bool, hparams: Stage2Hparams,
                  hparams_dec: Optional[Stage2Hparams] = None,
                  use_txt_cond: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 vocab_size_txt: int = 16384):
         super().__init__()
         emb = parse_embedding_type(hparams.embedding_type)
         if len(vocab_sizes) != CODE_LEVELS:
             raise NotImplementedError(
                 f'{len(vocab_sizes)} code levels: only 3 are ported')
-        if use_txt_cond or not use_cls_cond:
-            raise NotImplementedError('only class conditioning is ported')
         if decoding_type == 'top2mid2bot-add':
             raise ValueError("decoding_type 'top2mid2bot' does not support "
                              "'-add' (broken in the reference as well)")
         if decoding_type not in DECODING_TYPES:
             raise NotImplementedError(
                 f'decoding type {decoding_type!r} is not ported')
-        if emb.kind != 'transformer' or emb.n_layers_emb != 0:
+        if emb.kind == 'reduce':
             raise NotImplementedError(
-                f'embedding type {hparams.embedding_type!r} is not ported')
-        if hparams.position_embedding != '1d' or hparams.use_random_order:
-            raise NotImplementedError('only 1-d, raster-order positions are '
-                                      'ported')
+                "the 3-level 'reduce' embedding: the JAX module cannot run "
+                "it (its embed_cells concatenates widths D, D/4 and D/16)")
+        if emb.kind != 'transformer':
+            raise ValueError(hparams.embedding_type)
         self.hparams = hparams
         self.hpd = hparams_dec or Stage2Hparams(
             **{**hparams.__dict__, 'n_layers': 4})
@@ -151,8 +158,8 @@ class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
         self.tok_emb_levels = nn.ModuleList(
             nn.Embedding(v, D) for v in vocab_sizes)
         self.pos_emb_emb = nn.Embedding(CODE_LEN, D)
-        self.sos = nn.Embedding(hp.n_classes, D)
-        self.pos_emb_top = nn.Embedding(hp.ctx_len_img, D)
+        self.emb_blocks = blocks(hp, emb.n_layers_emb)
+        self._build_conditioning(use_cls_cond, use_txt_cond, vocab_size_txt)
         self.blocks = blocks(hp, hp.n_layers)
         self.ln_f = LayerNorm(D)
 
@@ -169,44 +176,48 @@ class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
             QuantizableLinear(Dd, v, bias=False) for v in vocab_sizes)
 
     # ------------------------------------------------------------ embedding
-    def _emb(self, table: nn.Embedding, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx, table.weight).to(self.dtype)
-
     def _rows(self, table: nn.Embedding, n: int) -> torch.Tensor:
         return table.weight[:n].to(self.dtype)
 
     def embed_cells(self, cells: Sequence[torch.Tensor],
-                    positions: torch.Tensor) -> torch.Tensor:
+                    positions: torch.Tensor,
+                    int8: bool = False) -> torch.Tensor:
         """Fuse each cell's top code [B, L, 1], mids [B, L, 4] and bottoms
-        [B, L, 16] (local raster) into one spatial token: the mean of
-        [top + pos, mids, bottoms] after adding pos_emb_emb. positions:
-        [B, L] -> [B, L, D]."""
+        [B, L, 16] (local raster) into one spatial token: [top + pos, mids,
+        bottoms] plus pos_emb_emb, through the `emb_blocks` (A8W8 with
+        `int8`), then their mean. positions: [B, L] -> [B, L, D]."""
         B, L = cells[0].shape[:2]
         e0 = self._emb(self.tok_emb_levels[0], cells[0].reshape(B, L)) + \
-            self._emb(self.pos_emb_top, positions)
+            self.spatial_pos_emb(positions)
         hs = [e0[:, :, None, :]] + [self._emb(self.tok_emb_levels[li], c)
                                     for li, c in enumerate(cells) if li]
         h = torch.cat(hs, dim=2) + self._rows(self.pos_emb_emb, CODE_LEN)
+        if len(self.emb_blocks):
+            x = h.reshape(B * L, CODE_LEN, -1)
+            for blk in self.emb_blocks:
+                x = blk(x, None, int8)
+            h = x.reshape(B, L, CODE_LEN, -1)
         return h.mean(dim=2)
-
-    def sos_tokens(self, B: int, labels: torch.Tensor) -> torch.Tensor:
-        """[B, 1, D] class-conditioning prefix."""
-        return self._emb(self.sos, labels)[:, None, :]
 
     # -------------------------------------------------------------- forward
     def forward(self, codes: Sequence[torch.Tensor],
-                labels: torch.Tensor) -> List[torch.Tensor]:
+                labels: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         """Teacher-forced forward. codes: raster maps top [B, L], mid
-        [B, 4L], bottom [B, 16L]. Returns per-level logits [B, L, V0],
-        [B, 4L, V1], [B, 16L, V2] in raster order."""
+        [B, 4L], bottom [B, 16L]; labels as `Conditioning` says. Returns
+        per-level logits [B, L, V0], [B, 4L, V1], [B, 16L, V2] in raster
+        order, and with text conditioning the text logits
+        [B, ctx_len_txt - 1, V_txt] fourth."""
         h_top = math.isqrt(codes[0].shape[1])
         cells = [codes[0][:, :, None]] + [
             level_cells(c, h_top, 2 ** li) for li, c in enumerate(codes)
             if li]
-        h = self.forward_embeddings(cells, labels)
+        h, logits_txt = self.split_text(self.forward_embeddings(cells,
+                                                                labels))
         if self.is_causal_depth:
-            return self.forward_causal(h, codes, h_top)
-        return self.forward_hierarchy(h, cells, h_top)
+            logits = self.forward_causal(h, codes, h_top)
+        else:
+            logits = self.forward_hierarchy(h, cells, h_top)
+        return logits if logits_txt is None else logits + [logits_txt]
 
     def forward_embeddings(self, cells, labels):
         B, L = cells[0].shape[:2]
@@ -277,13 +288,27 @@ class MultiLevelHQTransformer(SpatialDecoding, nn.Module):
         return [(f'head_levels.{i}', head)
                 for i, head in enumerate(self.head_levels)]
 
+    def int8_embedding(self) -> List[Tuple[str, nn.Module]]:
+        """The gemms that run A8W8 with the spatial ones: every
+        `emb_blocks` projection (the JAX sampler embeds each cell inside
+        its spatial int8 scope)."""
+        return [(f'emb_blocks.{i}.{name}', lin)
+                for i, blk in enumerate(self.emb_blocks)
+                for name, lin in (('attn.query', blk.attn.query),
+                                  ('attn.key', blk.attn.key),
+                                  ('attn.value', blk.attn.value),
+                                  ('attn.proj', blk.attn.proj),
+                                  ('mlp.0', blk.mlp[0]),
+                                  ('mlp.2', blk.mlp[2]))]
+
     def embed_cell_step(self, top: torch.Tensor, mid: torch.Tensor,
-                        bot: torch.Tensor,
-                        position: torch.Tensor) -> torch.Tensor:
+                        bot: torch.Tensor, position: torch.Tensor,
+                        int8: bool = False) -> torch.Tensor:
         """Embed one generated cell for the next spatial step: top [B], mid
-        [B, 4], bot [B, 16] (local raster), position [B] -> [B, 1, D]."""
+        [B, 4], bot [B, 16] (local raster), position [B] -> [B, 1, D]; the
+        `emb_blocks` A8W8 with `int8` (in an int8 serving call)."""
         return self.embed_cells([top[:, None, None], mid[:, None, :],
-                                 bot[:, None, :]], position[:, None])
+                                 bot[:, None, :]], position[:, None], int8)
 
     def _phase_inputs(self, h: Optional[torch.Tensor],
                       top: Optional[torch.Tensor],

@@ -9,6 +9,14 @@ Counterpart of `hqtransformer_tpu/models/twostage.py` for the ported paths:
   [-1, 1] to raster codes, and `forward(weights, images, labels)` runs the
   teacher-forced stage-2 forward on them, giving its logits.
 
+Labels, the conditioning of every entry point, are per the config's
+`stage2`: class ids [B] under `use_cls_cond`; caption token ids
+[B, ctx_len_txt] under `use_txt_cond` (`data/tokenizers.py`,
+`encode_padded(caption, ctx_len_txt)` per caption); with neither, any [B]
+tensor, of which only B is read (the JAX package's dummy labels,
+`zeros(B)`). A text model's teacher-forced `forward` returns the text
+logits after the image ones.
+
 Weights are state dicts in the PyTorch reference's key layout,
 {'stage1': {...}, 'stage2': {...}}: from `TwoStageModel.init_weights` (a
 seeded random init; the repo holds no trained weights) or converted from
@@ -70,7 +78,7 @@ def build_stage2(config: TwoStageConfig, dtype: torch.dtype = torch.float32
             decoding_type=s2.decoding_type or 'tree',
             use_cls_cond=bool(s2.use_cls_cond), hparams=s2.hparams,
             hparams_dec=s2.hparams_dec, use_txt_cond=bool(s2.use_txt_cond),
-            dtype=dtype)
+            dtype=dtype, vocab_size_txt=s2.vocab_size_txt)
     if spec.family != 'hq-transformer':
         raise NotImplementedError(f'stage-2 type {s2.type!r} is not ported')
     return HierarchicalGPT(vocab_size_top=s2.vocab_size_img,
@@ -78,7 +86,9 @@ def build_stage2(config: TwoStageConfig, dtype: torch.dtype = torch.float32
                            ratio_bot2top=s2.ratio_bot2top,
                            use_cls_cond=bool(s2.use_cls_cond),
                            model_type=spec, hparams=s2.hparams,
-                           hparams_dec=s2.hparams_dec, dtype=dtype)
+                           hparams_dec=s2.hparams_dec, dtype=dtype,
+                           use_txt_cond=bool(s2.use_txt_cond),
+                           vocab_size_txt=s2.vocab_size_txt)
 
 
 def serving_bf16_params(state: Dict[str, torch.Tensor]
@@ -220,8 +230,8 @@ class TwoStageModel:
     def forward(self, weights: Weights, images: torch.Tensor,
                 labels: torch.Tensor):
         """Teacher-forced forward: the stage-2 logits on the images' codes.
-        Returns ((logits_top [B, Ttop, V], logits_bot [B, Tbot, V]),
-        (codes_t, codes_b), (None, None))."""
+        Returns ((logits_top [B, Ttop, V], logits_bot [B, Tbot, V][,
+        logits_txt]), (codes_t, codes_b), (None, None))."""
         codes, softs = self.extract_codes(weights, images)
         logits = self.stage2(*codes, labels.to(self.device))
         return logits, codes, softs
@@ -237,8 +247,9 @@ class TwoStageModel:
         """Per-channel scales of the int8 KV cache: one float sampling run
         on `labels` (`params`: the family's sampling knobs, by default
         the JAX function's, no top-k at temperature 1), whose final caches
-        are reduced to each layer's per-channel absmax over (T, B):
-        max(m, 1e-6) / 127 (the JAX function's default margin of 1).
+        are reduced to each layer's per-channel absmax over (T, B), a
+        caption's prefix rows included, as in JAX: max(m, 1e-6) / 127 (the
+        JAX function's default margin of 1).
         Returns {'stage2/kv_scales': {'blocks.<l>.attn.k' | '.v': [D]}}."""
         self.load_weights(weights)
         n_top = max_seq_len or self.top_res * self.top_res
@@ -268,7 +279,9 @@ class TwoStageModel:
         [B, Ttop], codes_b [B, Tbot] raster, labels) for 2 levels, ([top,
         mid, bottom] raster maps [B, T_l], labels) for 3. The 3-level
         logits are [B, 21 Ttop, V]: the JAX package calibrates on 32
-        samples. Returns {'stage2/act_scales': {name: scale}}."""
+        samples (64 for 2 levels). A text model's forward also runs
+        `head_txt`, which is not quantizable, so no scale is recorded for
+        it. Returns {'stage2/act_scales': {name: scale}}."""
         self.load_weights(weights)
         args = _on_device(forward_args, self.device)
         with recording_absmax(self.stage2, QuantizableLinear) as found:
@@ -331,7 +344,7 @@ class TwoStageModel:
                            decode_chunk: int = 128,
                            int8: Int8Serving = Int8Serving(),
                            scales: Optional[Scales] = None) -> Callable:
-        """End-to-end sampler: fn(weights, generator, labels [B]) ->
+        """End-to-end sampler: fn(weights, generator, labels) ->
         (pixels [B, H, W, 3] in [0, 1], (codes_t [B, N], codes_b
         [B, N, ratio])). `generator` lives on the model's device. The
         stage-1 decode runs in `decode_chunk`-sample chunks. `int8` and
@@ -357,7 +370,7 @@ class TwoStageModel:
                                int8: Int8Serving = Int8Serving(),
                                scales: Optional[Scales] = None) -> Callable:
         """Software-pipelined sampler for steady-state throughput:
-        fn(weights, generator, labels [B], prev_codes=None) -> (codes,
+        fn(weights, generator, labels, prev_codes=None) -> (codes,
         pixels), codes = (codes_t, codes_b) of this call's AR loop and
         pixels the decode of `prev_codes` (the previous call's codes), or
         of this call's codes when prev_codes is None (the pipeline's fill).
@@ -409,7 +422,7 @@ class TwoStageModel:
             int8: Int8Serving = Int8Serving(),
             scales: Optional[Scales] = None) -> Callable:
         """End-to-end sampler of the 3-level family: fn(weights, generator,
-        labels [B]) -> (pixels [B, H, W, 3] in [0, 1], (tops [B, N], mids
+        labels) -> (pixels [B, H, W, 3] in [0, 1], (tops [B, N], mids
         [B, N, 4], bots [B, N, 16])), with per-level (top, mid, bottom)
         `top_k` and `temperature`, and `bisect3` for every draw (see
         `engine.LevelSampling`). The codes go to the stage-1 decode as

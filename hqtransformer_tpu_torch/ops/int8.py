@@ -48,9 +48,11 @@ class Int8Serving:
       every head_levels.<i>, except phase 0's K/V, which JAX computes with
       a float product (the JAX sampler wraps all three phases in its
       int8 scope);
-    - spatial_gemms: A8W8 gemms in the spatial prefill and steps (the
-      blocks.* gemms; JAX's switch also covers the cell-embedding blocks,
-      which the `transformer1` embedding of both families does not have);
+    - spatial_gemms: A8W8 gemms in the spatial prefill (a caption's
+      too) and steps (the blocks.* gemms), and the 3-level cell
+      embedding's `emb_blocks` (`transformerN`, N > 1), which the JAX
+      sampler runs in the same scope; the 2-level `emb_blocks` stay float,
+      as JAX embeds the 2-level cell outside that scope;
     - decode_convs: A8W8 convolutions in the stage-1 decoder.
     The gemm and conv switches need bf16 activations and raise otherwise,
     where JAX stays float silently. Spatial gemms come only with the depth

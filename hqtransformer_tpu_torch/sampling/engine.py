@@ -9,14 +9,15 @@ spatial step per position (12 launches of the decode attention kernel at
 the flagship depth), then the depth draws (2 launches of the sampling
 kernel).
 
-Loop order, as in the JAX sampler: prefill the conditioning prefix at cache
-row 0; then for each spatial step i in 1..N-1 embed the previous cell at
-position i-1, run the spatial step at cache row sos_len + i - 1, and draw the
-top code and its bottom group (2 levels), or the top code, its 4 mids and
-its 16 bottoms in three depth phases (3 levels). The three share this loop
-(`_serving_loop`); the 2-level sampler and scorer share the depth chain
-(`_depth_chain`) and differ only in where each step's codes come from
-(drawn or given).
+Loop order, as in the JAX sampler: prefill the conditioning prefix (its
+sos_len tokens: 1, or a caption's ctx_len_txt) at cache rows [0, sos_len),
+causal among them; then for each spatial step i in 1..N-1 embed the
+previous cell at position i-1, run the spatial step at cache row
+sos_len + i - 1, and draw the top code and its bottom group (2 levels), or
+the top code, its 4 mids and its 16 bottoms in three depth phases (3
+levels). The three share this loop (`_serving_loop`); the 2-level sampler
+and scorer share the depth chain (`_depth_chain`) and differ only in where
+each step's codes come from (drawn or given).
 
 Random numbers: every draw takes one uniform per row from the caller's
 `torch.Generator`, in depth order: the top codes' first, then the bottom
@@ -30,7 +31,8 @@ int8 serving: `int8` (an `Int8Serving`) and `scales` (the calibrated
 collections, see `models/twostage.py`) choose the int8 KV cache and the
 A8W8 gemms of the spatial steps and of the depth chain (the 2-level
 depth-second chain; every 3-level depth phase), as the JAX samplers'
-cache_dtype and HQT_INT8_* switches do.
+cache_dtype and HQT_INT8_* switches do; the spatial gemms include the
+text prefix's prefill and the 3-level cell embedding's `emb_blocks`.
 """
 
 from __future__ import annotations
@@ -117,8 +119,8 @@ Model = Union[HierarchicalGPT, MultiLevelHQTransformer]
 
 def _caches(model: Model, sos: torch.Tensor, max_seq_len: int,
             int8: Int8Serving) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The packed [L, T, B, D] caches (T = sos_len + N - 1), int8 or in
-    the activation dtype."""
+    """The packed [L, T, B, D] caches (T = sos_len + N - 1, sos_len the
+    prefix's length), int8 or in the activation dtype."""
     hp = model.hparams
     shape = (hp.n_layers, sos.shape[1] + max_seq_len - 1, sos.shape[0],
              hp.embed_dim)
@@ -132,16 +134,17 @@ def _serving_loop(model: Model, labels: torch.Tensor, max_seq_len: int,
                   depth: Callable
                   ) -> Tuple[list, Tuple[torch.Tensor, torch.Tensor]]:
     """The AR loop of the samplers and the scorer, in one serving call:
-    prefill the conditioning prefix, then for each spatial position i run
+    prefill the conditioning prefix (labels: class ids [B], caption ids
+    [B, ctx_len_txt] or a dummy [B]), then for each spatial position i run
     `depth(i, h [B, D]) -> (codes, out)`, where `codes` is the tuple of the
     position's codes that `model.embed_cell_step` takes ((top [B],
     bottoms [B, ratio]) for 2 levels, (top, mids [B, 4], bottoms
     [B, 16]) for 3), and embed them for the next spatial step. Returns
     ([out of every position], (k_caches, v_caches))."""
-    sos_len = 1
     B = labels.shape[0]
     with model.serving(int8, scales):
         sos = model.sos_tokens(B, labels)
+        sos_len = sos.shape[1]
         kc, vc = _caches(model, sos, max_seq_len, int8)
         h = model.spatial_prefill(sos, kc, vc, int8.spatial_gemms)
         outs = []
@@ -149,7 +152,8 @@ def _serving_loop(model: Model, labels: torch.Tensor, max_seq_len: int,
             if i:
                 position = torch.full((B,), i - 1, dtype=torch.long,
                                       device=sos.device)
-                x = model.embed_cell_step(*codes, position)
+                x = model.embed_cell_step(*codes, position,
+                                          int8=int8.spatial_gemms)
                 h = model.spatial_step(x, kc, vc, sos_len + i - 1,
                                        int8.spatial_gemms)
             codes, out = depth(i, h[:, -1])
@@ -163,8 +167,9 @@ def make_hierarchical_sampler(model: HierarchicalGPT, max_seq_len: int = 64,
                               scales: Optional[Scales] = None,
                               return_caches: bool = False) -> Callable:
     """Build the sampler for the 2-level model. Returns
-    fn(generator, labels [B]) -> (codes_t [B, N], codes_b [B, N, ratio]),
-    int32, with N = max_seq_len spatial positions; with `return_caches`,
+    fn(generator, labels) -> (codes_t [B, N], codes_b [B, N, ratio]),
+    int32, with N = max_seq_len spatial positions (labels: see
+    `_serving_loop`); with `return_caches`,
     ((codes_t, codes_b), (k_caches, v_caches)), the calibration hook of
     `TwoStageModel.calibrate_kv_scales`.
 
@@ -197,7 +202,7 @@ def make_hierarchical_scorer(model: HierarchicalGPT, max_seq_len: int = 64,
                              int8: Int8Serving = Int8Serving(),
                              scales: Optional[Scales] = None) -> Callable:
     """Teacher-forced per-step logits through the serving decode path.
-    Returns fn(labels [B], codes_t [B, N], codes_b_cells [B, N, ratio]) ->
+    Returns fn(labels, codes_t [B, N], codes_b_cells [B, N, ratio]) ->
     (logits_top [B, N, Vt], logits_bot [B, N, ratio, Vb]).
 
     The sampler's loop (prefill, the packed-cache spatial steps, the
@@ -234,7 +239,7 @@ def make_multilevel_sampler(model: MultiLevelHQTransformer,
                             scales: Optional[Scales] = None,
                             return_caches: bool = False) -> Callable:
     """Build the sampler for the 3-level model, one `LevelSampling` a
-    level (top, mid, bottom). Returns fn(generator, labels [B]) -> (tops
+    level (top, mid, bottom). Returns fn(generator, labels) -> (tops
     [B, N], mids [B, N, 4], bots [B, N, 16]), int32, mids and bottoms in
     each top cell's local raster order, N = max_seq_len; with
     `return_caches`, (codes, (k_caches, v_caches)), the calibration hook of

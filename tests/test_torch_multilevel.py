@@ -430,13 +430,7 @@ def _hp(**over):
 
 
 REJECTED = {
-    'text conditioning': dict(use_txt_cond=True, use_cls_cond=False),
-    'no conditioning': dict(use_cls_cond=False),
     'reduce embedding': dict(hparams=_hp(embedding_type='reduce')),
-    'transformer2 embedding': dict(hparams=_hp(
-        embedding_type='transformer2')),
-    '2-d positions': dict(hparams=_hp(position_embedding='2d')),
-    'random order': dict(hparams=_hp(use_random_order=True)),
     'tree': dict(decoding_type='tree'),
     'reduce depth inputs': dict(decoding_type='parallel-reduce'),
     'four levels': dict(vocab_sizes=VOCABS + (64,)),
