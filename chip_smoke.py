@@ -193,6 +193,37 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
      build/int8max_txt_scales.pkl and loaded back bit for bit, and one
      int8max call at batch 128 (756 K1 launches, all int8) on the first
      bf16 call's generator seed, with the per-level code agreement.
+11. The other samplers at full width, seeded random bf16 weights, batch
+   128 (after phase 10's models are freed):
+   - K1 against its plain version on Transformer1d's cache (T 319: a
+     64-token prefix and 256 codes; d 1536, 24 heads) at pos 64, 191 and
+     318 (five 64-row rounds), batch 128 and 1024: caches bit-equal, y
+     within 2e-2; then K1 timed beside its plain version, SDPA and its
+     bound at T 319 (pos 64, 191, 318), at phase 10's T 127 (pos 95, 126)
+     and at d 1024 (pos 33); K2 at the bidirectional joint draw, bf16
+     [640, 8192], k 2048, T 0.95, against its plain version (kept set,
+     codes) and timed beside its plain version, the library call and its
+     bound;
+   - `hqtransformer-l12-top8x8-bidirectional.yaml` and `-causal.yaml`
+     (top2bot) through make_pixel_sampler (top-k 2048, T 0.95) twice
+     each: 756 K1 and 64 K2 (bidirectional) or 320 K2 (top2bot) a call,
+     with each AR loop profiled;
+   - the flagship with use_given_top (seeded random top codes: codes_t
+     equal to them, 128 K2) and with top-k 2048 then top-p 0.95 at both
+     levels (756 K1 and no K2 launch; every draw inside the plain
+     filter's kept set, checked on the card), twice each, the top-p AR
+     loop profiled;
+   - `vqvae2-l12-top8x8.yaml` (IGPT) through make_pixel_sampler_igpt
+     (top-k 256, T 1.0), twice (756 K1, 64 K2); then
+     `vqvae2-l4-cond-top8x8-pred-bot16x16.yaml` (Transformer1d) through
+     make_txt2img_sampler (top-k 256, T 1.0) with the IGPT call's top
+     codes as its 64-token prefix, twice (1,020 K1 at pos 64..318, 256
+     K2), its bottom codes decoded with the top codes by stage 1; both AR
+     loops profiled.
+   Every call goes through `checked_call` (samples/s, peak memory).
+   At the end, the tiny f32 bidirectional, top2bot, IGPT and
+   Transformer1d models sample greedily on the card and on the CPU:
+   equal codes.
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
@@ -769,36 +800,40 @@ def compare_draws(x, kept, u, c1, c2, k, case):
 def time_sample_topk(st):
     """bf16 at the main path's two shapes at batch 128, k 2048, T 0.95: the
     bottom-group draw [512, 8192] (the JSON entry) and the top draw
-    [128, 8192]. The library yardstick draws from the same top-k softmax
-    with the same uniforms and no host wait: topk, softmax, cumsum,
-    searchsorted. Returns the bottom-group shape's (kernel, plain, library,
+    [128, 8192]. Returns the bottom-group shape's (kernel, plain, library,
     bound)."""
-    k, temp = 2048, 0.95
-    out = None
-    for n in (4 * B, B):
-        g = torch.Generator(device='cuda').manual_seed(3)
-        logits = (torch.randn((n, V), generator=g, device='cuda') * 3).to(
-            torch.bfloat16)
-        u = torch.rand(n, generator=g, device='cuda')
-        kernel = time_ms(lambda i: st.sample_topk(logits, u, k, temp), 200)
-        plain = time_ms(lambda i: st.sample_topk_plain(logits, u, k, temp), 5)
-
-        def library(i):
-            vals, idx = torch.topk(st.scaled_logits(logits, temp), k, dim=-1)
-            cdf = torch.softmax(vals, dim=-1).cumsum(dim=-1)
-            j = torch.searchsorted(cdf, u[:, None]).clamp_max_(k - 1)
-            return idx.gather(1, j)
-
-        lib = time_ms(library, 50)
-        # bytes: the logits and u read once, the codes written once
-        n_bytes = n * V * 2 + n * 8
-        bnd = bound(n_bytes, K2_OPS_PER_LOGIT * n * V)
-        print(f'K2 bf16 [{n}, {V}] k {k}: kernel {kernel:.5f} ms, plain '
-              f'{plain:.4f} ms, topk+softmax+cumsum+searchsorted {lib:.5f} '
-              f'ms, bound {bnd[0]:.5f} ms ({bnd[1]}); the kernel takes '
-              f'{kernel / bnd[0]:.2f}x its bound')
-        out = out or (kernel, plain, lib, bnd)
+    out = time_k2_shape(st, 4 * B)
+    time_k2_shape(st, B)
     return out
+
+
+def time_k2_shape(st, n, k=2048, temp=0.95):
+    """K2 on seeded bf16 rows [n, 8192] beside its plain version, the
+    library yardstick (a draw from the same top-k softmax with the same
+    uniforms and no host wait: topk, softmax, cumsum, searchsorted) and
+    its bound. Returns (kernel, plain, library, bound)."""
+    g = torch.Generator(device='cuda').manual_seed(3)
+    logits = (torch.randn((n, V), generator=g, device='cuda') * 3).to(
+        torch.bfloat16)
+    u = torch.rand(n, generator=g, device='cuda')
+    kernel = time_ms(lambda i: st.sample_topk(logits, u, k, temp), 200)
+    plain = time_ms(lambda i: st.sample_topk_plain(logits, u, k, temp), 5)
+
+    def library(i):
+        vals, idx = torch.topk(st.scaled_logits(logits, temp), k, dim=-1)
+        cdf = torch.softmax(vals, dim=-1).cumsum(dim=-1)
+        j = torch.searchsorted(cdf, u[:, None]).clamp_max_(k - 1)
+        return idx.gather(1, j)
+
+    lib = time_ms(library, 50)
+    # bytes: the logits and u read once, the codes written once
+    n_bytes = n * V * 2 + n * 8
+    bnd = bound(n_bytes, K2_OPS_PER_LOGIT * n * V)
+    print(f'K2 bf16 [{n}, {V}] k {k}: kernel {kernel:.5f} ms, plain '
+          f'{plain:.4f} ms, topk+softmax+cumsum+searchsorted {lib:.5f} '
+          f'ms, bound {bnd[0]:.5f} ms ({bnd[1]}); the kernel takes '
+          f'{kernel / bnd[0]:.2f}x its bound')
+    return kernel, plain, lib, bnd
 
 
 # The 3-level sampler's draws at batch 128: the top [B, V], the mids
@@ -1084,18 +1119,43 @@ def k1_positions():
         layers.decode_attention_step = real
 
 
+def sampling_shape(model):
+    """(N spatial positions, K2 draws a position, the code shapes of one
+    sample) of a sampling call of `model`'s stage 2 at its full length: the
+    flat baselines one code a position (Transformer1d over ctx_len_img
+    bottom codes); the 2-level family a top and its ratio bottoms, drawn
+    in len_seq_depth draws (`parallel`: 2; `top2bot`: 1 + ratio) or one
+    joint draw (`bidirectional`); the 3-level family three draws."""
+    from hqtransformer_tpu_torch.models.stage2.transformer import (
+        IGPT, Transformer1d)
+
+    s2 = model.stage2
+    if isinstance(s2, Transformer1d):
+        n = model.config.stage2.hparams.ctx_len_img
+        return n, 1, [(n,)]
+    n = model.top_res * model.top_res
+    if model.code_levels == 3:
+        return n, 3, [(n,), (n, 4), (n, 16)]
+    if isinstance(s2, IGPT):
+        return n, 1, [(n,)]
+    draws = 1 if s2.depth_mode == 'bidirectional' else s2.len_seq_depth
+    return n, draws, [(n,), (n, s2.ratio_bot2top)]
+
+
 def checked_call(model, call, labels, name, da, st, q8, int8=False,
-                 bisect3=False):
-    """One call of a pixel sampler, checked: `call()` gives (pixels,
-    codes) for `labels`' batch n. Codes in [0, 8192) at [n, N], [n, N, 4]
-    (and [n, N, 16] with 3 levels), N = top_res^2; pixels [n, res, res, 3]
-    finite in [0, 1]; n_layers x (N - 1) K1 launches at pos sos_len ..
-    sos_len + N - 2 (all on the int8 variant with `int8`); levels x N K2
-    launches (all with the quartile search with `bisect3`); int8 gemms and
-    convolutions counted with `int8`, none without. Prints samples/s and
-    peak memory; returns (codes, samples/s)."""
+                 bisect3=False, top_p=False):
+    """One call of a sampler, checked: `call()` gives (pixels, codes) for
+    `labels`' batch n, codes one tensor or a tuple of the levels' (see
+    `sampling_shape`: N positions, each of the shapes there with a leading
+    n) in [0, 8192); pixels [n, res, res, 3] finite in [0, 1];
+    n_layers x (N - 1) K1 launches at pos sos_len .. sos_len + N - 2 (all
+    on the int8 variant with `int8`); draws x N K2 launches (all with the
+    quartile search with `bisect3`; none with `top_p`, whose draws leave
+    the kernel as in JAX); int8 gemms and convolutions counted with
+    `int8`, none without. Prints samples/s and peak memory; returns
+    (codes, samples/s)."""
     n = labels.shape[0]
-    n_top = model.top_res * model.top_res
+    n_top, draws, sample_shapes = sampling_shape(model)
     res = model.config.dataset.image_resolution
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1109,7 +1169,7 @@ def checked_call(model, call, labels, name, da, st, q8, int8=False,
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     k1 = model.config.stage2.hparams.n_layers * (n_top - 1)
-    k2 = model.code_levels * n_top
+    k2 = 0 if top_p else draws * n_top
     launches = (da.decode_attention_step.launches,
                 da.decode_attention_step.int8_launches,
                 st.sample_topk.launches, st.sample_topk.bisect3_launches)
@@ -1124,11 +1184,11 @@ def checked_call(model, call, labels, name, da, st, q8, int8=False,
     gemms, convs = q8.int8_matmul.launches, q8.int8_conv2d.launches
     require((gemms > 0 and convs > 0) if int8 else (gemms, convs) == (0, 0),
             f'{name} int8 gemms, convs {(gemms, convs)}')
-    shapes = [(n, n_top)] + [(n, n_top, 4 ** i)
-                             for i in range(1, model.code_levels)]
-    require([tuple(c.shape) for c in codes] == shapes,
-            f'{name} code shapes {[tuple(c.shape) for c in codes]}')
-    for c in codes:
+    levels = codes if isinstance(codes, tuple) else (codes,)
+    shapes = [(n,) + s for s in sample_shapes]
+    require([tuple(c.shape) for c in levels] == shapes,
+            f'{name} code shapes {[tuple(c.shape) for c in levels]}')
+    for c in levels:
         require(int(c.min()) >= 0 and int(c.max()) < N_CODES,
                 f'{name} codes outside [0, {N_CODES})')
     require(pixels.shape == (n, res, res, 3),
@@ -2246,6 +2306,310 @@ def run_conditioned(da, st, q8):
           f'{time.perf_counter() - t0:.1f} s')
 
 
+# ------------------------------------------ phase 11: the other samplers
+
+IMAGENET_S2 = ROOT / 'configs/imagenet/stage2'
+BIDIR_S2 = IMAGENET_S2 / 'hqtransformer-l12-top8x8-bidirectional.yaml'
+CAUSAL_S2 = IMAGENET_S2 / 'hqtransformer-l12-top8x8-causal.yaml'
+IGPT_S2 = IMAGENET_S2 / 'vqvae2-l12-top8x8.yaml'
+TXT2IMG_S2 = IMAGENET_S2 / 'vqvae2-l4-cond-top8x8-pred-bot16x16.yaml'
+# Transformer1d's cache: a 64-token prefix (the top codes) and 256 bottom
+# codes, T = 64 + 256 - 1 rows, the steps at pos 64..318 (five of K1's
+# 64-row rounds at pos 318).
+N_FLAT_TXT, N_FLAT_IMG = 64, 256
+T_FLAT = N_FLAT_TXT + N_FLAT_IMG - 1
+FLAT_POSITIONS = (64, 191, 318)
+# The bidirectional depth mode draws the top and its 4 bottoms at once.
+K2_JOINT_ROWS = 5 * B
+# The top-p cell: the flagship at its top-k and temperature, p 0.95.
+SAMPLING_TOP_P = dict(SAMPLING_2048, top_p_top=0.95, top_p_bot=0.95)
+# Bytes of cache the K1 timings rotate over, so that no timed call finds
+# its rows in L2 (50 MB) from an earlier one.
+K1_ROTATE_BYTES = 400 * 2**20
+
+
+def check_k1_flat(da):
+    """K1 against its plain version on Transformer1d's cache (T 319, d 1536,
+    24 heads, bf16) at pos 64, 191 and 318, at batch 128 and 1024: caches
+    bit-equal, y within 2e-2 (`k1_case`). Returns the largest |y - plain|."""
+    err = 0.0
+    for batch in (B, B_LARGE):
+        for pos in FLAT_POSITIONS:
+            e = k1_case(da, 'bf16', 2, T_FLAT, batch, D, NH, pos, pos % 2,
+                        seed=pos + batch)
+            err = max(err, e)
+            print(f'K1 bf16 cache, L=2 T={T_FLAT} B={batch} d={D} '
+                  f'layer={pos % 2} pos={pos:3d}: caches bit-equal, '
+                  f'max|y - plain| = {e:.3e} (tol 2e-2)')
+        torch.cuda.empty_cache()
+    return err
+
+
+def time_k1_shape(da, n_rows, d, n_heads, pos, label):
+    """K1 at one cache shape and position (bf16, batch 128) beside its
+    plain version, SDPA over the valid rows (pre-permuted to
+    [B, heads, pos + 1, hd] outside the timed region) and its bound; the
+    calls rotate over enough layers to hold K1_ROTATE_BYTES. Returns
+    (kernel, plain, library, bound)."""
+    hd = d // n_heads
+    layer_bytes = 2 * (pos + 1) * B * d * 2
+    n_layers = max(4, -(-K1_ROTATE_BYTES // layer_bytes))
+    g = torch.Generator(device='cuda').manual_seed(pos + d)
+    kc, vc = (torch.randn((n_layers, n_rows, B, d), generator=g,
+                          device='cuda').bfloat16() for _ in range(2))
+    q, kn, vn = (torch.randn((B, d), generator=g, device='cuda').bfloat16()
+                 for _ in range(3))
+    kernel = time_ms(lambda i: da.decode_attention_step(
+        q, kn, vn, kc, vc, i % n_layers, pos, n_heads), 240)
+    plain = time_ms(lambda i: da.decode_attention_step_plain(
+        q, kn, vn, kc, vc, i % n_layers, pos, n_heads), 24)
+
+    def heads(c, layer):
+        return c[layer, :pos + 1].reshape(pos + 1, B, n_heads, hd).permute(
+            1, 2, 0, 3).contiguous()
+    ks = [heads(kc, layer) for layer in range(n_layers)]
+    vs = [heads(vc, layer) for layer in range(n_layers)]
+    qh = q.reshape(B, n_heads, 1, hd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = time_ms(lambda i: sdpa(qh, ks[i % n_layers],
+                                     vs[i % n_layers]), 240)
+    bnd = bound(k1_bytes(pos, B, False, d), k1_flops(pos, B, d))
+    print(f'K1 {label}, bf16, pos {pos} B {B} d {d} heads {n_heads}: kernel '
+          f'{kernel:.5f} ms, plain {plain:.5f} ms, SDPA {library:.5f} ms, '
+          f'bound {bnd[0]:.5f} ms ({bnd[1]}; kernel {kernel / bnd[0]:.2f}x)')
+    del kc, vc, ks, vs
+    torch.cuda.empty_cache()
+    return kernel, plain, library, bnd
+
+
+def time_k1_other_shapes(da):
+    """K1 beside its plain version, SDPA and its bound at Transformer1d's
+    T 319 (pos 64, 191, 318), the text path's T 127 (pos 95, 126) and
+    FFHQ's d 1024 (pos 33). Returns Transformer1d's times at pos 191, the
+    mean row count of its positions 64..318."""
+    out = {pos: time_k1_shape(da, T_FLAT, D, NH, pos, f'T {T_FLAT}')
+           for pos in FLAT_POSITIONS}
+    for pos in (95, 126):
+        time_k1_shape(da, T_TXT, D, NH, pos, f'T {T_TXT}')
+    time_k1_shape(da, T, D_FFHQ, NH_FFHQ, 33, f'T {T}')
+    return out[191]
+
+
+def time_k2_joint(st):
+    """K2 at the bidirectional mode's joint draw, bf16 [640, 8192] at
+    top-k 2048, T 0.95: its codes against the plain version's on shared
+    uniforms (`compare_draws`), then its times. Returns (max |code -
+    plain|, (kernel, plain, library, bound))."""
+    g = torch.Generator(device='cuda').manual_seed(17)
+    logits = (torch.randn((K2_JOINT_ROWS, V), generator=g, device='cuda') *
+              3).bfloat16()
+    u = torch.rand(K2_JOINT_ROWS, generator=g, device='cuda')
+    k, temp = 2048, 0.95
+    thr = torch.empty(K2_JOINT_ROWS, device='cuda')
+    c1 = st.sample_topk(logits, u, k, temp, threshold=thr).long()
+    c2 = st.sample_topk_plain(logits, u, k, temp).long()
+    x = st.scaled_logits(logits, temp)
+    torch.cuda.synchronize()
+    kept = x >= st.topk_threshold(x, k)
+    require(torch.equal(kept, x >= thr[:, None]),
+            'K2 joint draw kept set differs from the plain threshold\'s')
+    require(kept[torch.arange(K2_JOINT_ROWS, device='cuda'), c1].all(),
+            'K2 joint draw code outside the kept set')
+    n_differ, err = compare_draws(x, kept, u, c1, c2, k, 'joint draw')
+    print(f'K2 bf16 [{K2_JOINT_ROWS}, {V}] k {k} (bidirectional joint '
+          f'draw): codes in the kept set, {n_differ} rows differ from plain '
+          f'at a CDF boundary')
+    return err, time_k2_shape(st, K2_JOINT_ROWS, k, temp)
+
+
+@contextlib.contextmanager
+def nucleus_draws():
+    """Every top-p draw while the context is open, checked on the card:
+    the code has a weight above zero in the plain filter's renormalised
+    probabilities (`nucleus_probs`, the kept set). Yields a list that
+    receives the count of draws and of codes outside the kept set."""
+    from hqtransformer_tpu_torch.ops import topk_topp
+    real = topk_topp.inverse_cdf_draw
+    outside = torch.zeros((), dtype=torch.long, device='cuda')
+    draws = [0]
+
+    def spy(probs, u):
+        codes = real(probs, u)
+        outside.add_((probs.gather(1, codes[:, None].long()) <= 0).sum())
+        draws[0] += 1
+        return codes
+    topk_topp.inverse_cdf_draw = spy
+    result = []
+    try:
+        yield result
+    finally:
+        topk_topp.inverse_cdf_draw = real
+        result += [draws[0], int(outside)]
+
+
+@torch.inference_mode()
+def decode_pair(model, top, bottom, cell_win):
+    """Pixels in [0, 1] of top codes [n, N] and bottom codes, cells
+    [n, N, r] (cell_win given) or a raster [n, 4 N] (cell_win None),
+    through `model`'s stage-1 decode (its loaded weights)."""
+    from hqtransformer_tpu_torch.models.stage2.hierarchical import \
+        cells_to_raster
+
+    tr = model.top_res
+    if cell_win is not None:
+        bottom = cells_to_raster(bottom, tr, cell_win)
+    px = model.stage1.decode_code(top.reshape(-1, tr, tr),
+                                  bottom.reshape(-1, 2 * tr, 2 * tr))
+    return torch.clamp(px * 0.5 + 0.5, 0.0, 1.0)
+
+
+def run_depth_modes(da, st, q8):
+    """The released `-bidirectional` and `-causal` (top2bot) configs through
+    make_pixel_sampler at top-k 2048, T 0.95, twice each, and their AR
+    loops profiled. Returns the bidirectional call's K2 launches."""
+    from hqtransformer_tpu_torch.sampling.engine import SamplingParams
+
+    params = SamplingParams(**SAMPLING_2048)
+    joint = None
+    for path, mode in ((BIDIR_S2, 'bidirectional'), (CAUSAL_S2, 'top2bot')):
+        model, weights, labels = bf16_model(
+            path, lambda cfg: torch.arange(B) % cfg.stage2.hparams.n_classes)
+        require(model.stage2.depth_mode == mode, f'{path.name} is not the '
+                f'{mode} depth mode')
+        sampler = model.make_pixel_sampler(params=params)
+        gen = torch.Generator(device='cuda').manual_seed(1)
+        for call in (1, 2):
+            sampler_call(model, weights, sampler, gen, labels,
+                         f'{mode} bf16 call {call}', da, st, q8)
+        joint = joint or st.sample_topk.launches
+        ar_loop_profile(model, weights, params, labels, gen, mode)
+        del model, weights
+        torch.cuda.empty_cache()
+    return joint
+
+
+def ar_loop_profile(model, weights, params, labels, gen, name):
+    """The AR loop alone, timed and profiled (`profile_phases`)."""
+    from hqtransformer_tpu_torch.sampling.engine import \
+        make_hierarchical_sampler
+
+    model.load_weights(weights)
+    sampler = make_hierarchical_sampler(
+        model.stage2, model.top_res * model.top_res, params)
+    profile_phases(((f'{name} AR loop', lambda: sampler(gen, labels)),))
+
+
+def run_given_top_and_top_p(da, st, q8):
+    """The flagship with use_given_top (seeded random top codes; codes_t
+    must equal them, the bottoms drawn under them: 128 K2) and with top-k
+    2048 then top-p 0.95 at both levels (no K2 launch; every draw inside
+    the plain filter's kept set), twice each; the top-p AR loop
+    profiled."""
+    from hqtransformer_tpu_torch.sampling.engine import (
+        SamplingParams, make_hierarchical_sampler)
+
+    model, weights, labels = bf16_model(
+        FLAGSHIP, lambda cfg: torch.arange(B) % cfg.stage2.hparams.n_classes)
+    n_top = model.top_res * model.top_res
+    given = torch.randint(0, V, (B, n_top), device='cuda',
+                          generator=torch.Generator(device='cuda')
+                          .manual_seed(5))
+    forced = make_hierarchical_sampler(
+        model.stage2, n_top, SamplingParams(**SAMPLING_2048),
+        use_given_top=True)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+
+    def given_call():
+        model.load_weights(weights)
+        codes = forced(gen, labels, given)
+        return decode_pair(model, *codes, model.cell_win), codes
+    for call in (1, 2):
+        codes, _ = checked_call(model, given_call, labels,
+                                f'flagship use_given_top call {call}', da,
+                                st, q8)
+        require(torch.equal(codes[0], given.int()),
+                'use_given_top codes_t differ from the given codes')
+    print('use_given_top: codes_t equal the given codes')
+    sampler = model.make_pixel_sampler(
+        params=SamplingParams(**SAMPLING_TOP_P))
+    for call in (1, 2):
+        with nucleus_draws() as seen:
+            sampler_call(model, weights, sampler, gen, labels,
+                         f'flagship top-k 2048 top-p 0.95 call {call}', da,
+                         st, q8, top_p=True)
+        require(seen == [2 * n_top, 0], f'top-p draws, codes outside the '
+                f'kept set: {seen}')
+        print(f'top-p call {call}: {seen[0]} draws, every code inside the '
+              f'plain filter\'s kept set')
+    ar_loop_profile(model, weights, SamplingParams(**SAMPLING_TOP_P), labels,
+                    gen, 'top-p')
+    del model, weights
+    torch.cuda.empty_cache()
+
+
+def run_flat_baselines(da, st, q8):
+    """`vqvae2-l12-top8x8.yaml` (IGPT) through make_pixel_sampler_igpt
+    (top-k 256, T 1.0), twice; then `vqvae2-l4-cond-top8x8-pred-bot16x16`
+    (Transformer1d) through make_txt2img_sampler (top-k 256, T 1.0) with
+    the IGPT call's top codes as its 64-token prefix, twice, its bottom
+    codes and the top codes decoded together by the IGPT model's stage 1;
+    both AR loops profiled. Returns Transformer1d's K1 launches of a call."""
+    from hqtransformer_tpu_torch.sampling.engine import (make_igpt_sampler,
+                                                         make_txt2img_sampler)
+
+    top_model, top_weights, labels = bf16_model(
+        IGPT_S2, lambda cfg: torch.arange(B) % cfg.stage2.hparams.n_classes)
+    sampler = top_model.make_pixel_sampler_igpt()
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    for call in (1, 2):
+        top_codes, _ = sampler_call(top_model, top_weights, sampler, gen,
+                                    labels, f'IGPT bf16 call {call}', da, st,
+                                    q8)
+    igpt = make_igpt_sampler(top_model.stage2, 64, top_k=256)
+    profile_phases((('IGPT AR loop', lambda: igpt(gen, labels)),))
+    bot_model, bot_weights, _ = bf16_model(TXT2IMG_S2, lambda cfg: labels)
+    require(bot_model.stage2.sos_len == N_FLAT_TXT and
+            bot_model.config.stage2.hparams.ctx_len_img == N_FLAT_IMG,
+            'the bottom model is not a 64-token prefix to 256 codes')
+    txt2img = make_txt2img_sampler(bot_model.stage2, N_FLAT_IMG, top_k=256)
+    prefix = top_codes.long()
+
+    def pair_call():
+        bot_model.load_weights(bot_weights)
+        bottom = txt2img(gen, prefix)
+        top_model.load_weights(top_weights)
+        return decode_pair(top_model, top_codes, bottom, None), bottom
+    for call in (1, 2):
+        checked_call(bot_model, pair_call, prefix,
+                     f'Transformer1d bf16 call {call} (+ stage-1 decode of '
+                     f'top and bottom)', da, st, q8)
+    k1 = da.decode_attention_step.launches
+    bot_model.load_weights(bot_weights)
+    profile_phases((('Transformer1d AR loop',
+                     lambda: txt2img(gen, prefix)),))
+    del top_model, top_weights, bot_model, bot_weights
+    torch.cuda.empty_cache()
+    return k1
+
+
+def run_other_samplers(da, st, q8):
+    """Phase 11: K1 at Transformer1d's cache and K2 at the joint draw
+    against their plain versions and timed (K1 also at phase 10's shapes,
+    beside its plain version and SDPA); the depth modes, use_given_top,
+    top-p and the flat baselines at full width. Returns the JSON rows'
+    numbers: ((K1 launches, err, times), (K2 launches, err, times))."""
+    t0 = time.perf_counter()
+    k1_err = check_k1_flat(da)
+    k1_times = time_k1_other_shapes(da)
+    k2_err, k2_times = time_k2_joint(st)
+    k2_launches = run_depth_modes(da, st, q8)
+    run_given_top_and_top_p(da, st, q8)
+    k1_launches = run_flat_baselines(da, st, q8)
+    print(f'phase 11 (the other samplers): {time.perf_counter() - t0:.1f} s')
+    return ((k1_launches, k1_err, k1_times),
+            (k2_launches, k2_err, k2_times))
+
+
 def tiny_conditioned_config(cond, embedding):
     """The tiny 2-level config (d 128, 4 heads) with `cond` ('text', an
     8-token caption of a 32-token vocabulary, or 'none') and `embedding`."""
@@ -2289,6 +2653,54 @@ def check_conditioned_reference():
                 f'{err}')
         print(f'tiny {cond} {embedding} teacher-forced logits: max|card - '
               f'cpu| = {err:.2e} over {[tuple(o.shape) for o in out]}')
+
+
+def check_other_samplers_reference():
+    """Tiny f32 models of phase 11's paths (d 128, 4 heads; the
+    bidirectional and top2bot depth modes, IGPT over 16 codes,
+    Transformer1d over 64 after a 16-token prefix) with the same seeded
+    weights, greedy (top-k 1), sampled through the CUDA kernels and through
+    the CPU plain versions: the codes equal."""
+    from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.models.twostage import (build_stage2,
+                                                         random_state)
+    from hqtransformer_tpu_torch.sampling.engine import (
+        SamplingParams, make_hierarchical_sampler, make_igpt_sampler,
+        make_txt2img_sampler)
+
+    g = torch.Generator().manual_seed(10)
+    labels = torch.arange(8) % 10
+    prefix = torch.randint(0, 256, (8, 16), generator=g)
+    for kind in ('hq-transformer/bidirectional4', 'hq-transformer', 'top',
+                 'bottom'):
+        cfg = build_twostage_config(str(TINY))
+        cfg.stage2.type = kind
+        if kind == 'bottom':
+            cfg.stage2.hparams.ctx_len_img = 64
+            cfg.stage2.hparams.ctx_len_txt = 16
+        cpu = build_stage2(cfg).eval()
+        state = random_state(cpu, torch.Generator().manual_seed(9))
+        cpu.load_state_dict(state)
+        gpu = build_stage2(cfg).cuda().eval()
+        gpu.load_state_dict(state)
+        codes = []
+        for m, dev in ((cpu, 'cpu'), (gpu, 'cuda')):
+            gen = torch.Generator(device=dev)
+            if kind == 'top':
+                out = make_igpt_sampler(m, 16, top_k=1)(gen, labels.to(dev))
+            elif kind == 'bottom':
+                out = make_txt2img_sampler(m, 64, top_k=1)(gen,
+                                                           prefix.to(dev))
+            else:
+                out = make_hierarchical_sampler(
+                    m, 16, SamplingParams(top_k_top=1, top_k_bot=1))(
+                        gen, labels.to(dev))
+            codes.append([c.cpu() for c in
+                          (out if isinstance(out, tuple) else (out,))])
+        require(all(torch.equal(a, b) for a, b in zip(*codes)),
+                f'tiny {kind} greedy codes differ between card and CPU')
+        print(f'tiny {kind} greedy codes: card equal to CPU '
+              f'({[tuple(c.shape) for c in codes[0]]})')
 
 
 def parse_args(argv):
@@ -2369,12 +2781,16 @@ def main(argv=None) -> int:
     run_top4x4(da, st, q8)
     torch.cuda.empty_cache()
     run_conditioned(da, st, q8)
+    (k1f_launches, k1f_err, k1f_times), (k2j_launches, k2j_err,
+                                         k2j_times) = run_other_samplers(
+        da, st, q8)
     run_level3(vq, da, st)
     k3f_launches, f32_images_per_s = run_encode_f32(vq, da, st)
     check_small_reference(vq)
     check_level3_reference(st)
     check_top2mid2bot_reference()
     check_conditioned_reference()
+    check_other_samplers_reference()
 
     kernels = []
     source = 'hqtransformer_tpu_torch/csrc/'
@@ -2385,9 +2801,15 @@ def main(argv=None) -> int:
             ('decode_attention_int8', source + 'decode_attention.cu',
              'hqtransformer_tpu/ops/pallas_attention.py:200', k1i_launches,
              k1i_err, k1i_times),
+            ('decode_attention_t320', source + 'decode_attention.cu',
+             'hqtransformer_tpu/ops/pallas_attention.py:200', k1f_launches,
+             k1f_err, k1f_times),
             ('sample_topk', source + 'sample_topk.cu',
              'hqtransformer_tpu/ops/pallas_sample.py:236', launches[1],
              k2_err, k2_times),
+            ('sample_topk_640', source + 'sample_topk.cu',
+             'hqtransformer_tpu/ops/pallas_sample.py:236', k2j_launches,
+             k2j_err, k2j_times),
             ('sample_topk_bisect3', source + 'sample_topk.cu',
              'hqtransformer_tpu/ops/pallas_sample.py:236 (bisect3)',
              k2b_launches, k2b_err, k2b_times),

@@ -160,12 +160,26 @@ class SimRQGAN2Generator(_Stage1Base):
         codes = self.encode(x)[4]
         return codes[0], codes[1]
 
-    def decode_code(self, code_t: torch.Tensor,
-                    code_b: torch.Tensor) -> torch.Tensor:
+    def decode_code(self, code_t: Optional[torch.Tensor],
+                    code_b: Optional[torch.Tensor]) -> torch.Tensor:
         """Pixels [B, H, W, 3] from code maps code_t [B, Ht, Wt] and
-        code_b [B, Hb, Wb]."""
-        return self.decode(self.quantize_t.get_codebook_entry(code_t),
-                           self._bottom_quantizer.get_codebook_entry(code_b))
+        code_b [B, Hb, Wb]; a level given as None decodes as zeros in
+        place of its code vectors."""
+        if code_t is None and code_b is None:
+            raise ValueError('decode_code needs the codes of a level')
+        w = self.window
+        quant_t = quant_b = None
+        if code_t is not None:
+            quant_t = self.quantize_t.get_codebook_entry(code_t)
+        if code_b is not None:
+            quant_b = self._bottom_quantizer.get_codebook_entry(code_b)
+        if quant_t is None:
+            B, Hb, Wb, C = quant_b.shape
+            quant_t = quant_b.new_zeros(B, Hb // w, Wb // w, C * w * w)
+        if quant_b is None:
+            B, Ht, Wt, C = quant_t.shape
+            quant_b = quant_t.new_zeros(B, Ht * w, Wt * w, C // (w * w))
+        return self.decode(quant_t, quant_b)
 
 
 class HQVAEGenerator(_Stage1Base):

@@ -3,8 +3,16 @@ embeddings plus a small depth transformer that emits each position's top
 code and its bottom codes.
 
 Counterpart of `hqtransformer_tpu/models/stage2/hierarchical.py::
-HierarchicalGPT` in the `parallel` depth mode (any bottom window), with
-every conditioning and cell embedding of the JAX module:
+HierarchicalGPT` in its three depth modes, with every conditioning and cell
+embedding of the JAX module. The depth modes:
+- `parallel` (any bottom window): step 0 gives the top code's logits,
+  each later step those of a group of bot_win^2 bottom codes at once;
+- `bidirectional`: one pass over [sos + h, Pos_0..r-1], unmasked, gives
+  the logits of the top and of every bottom (`depth_bidirectional`);
+- `top2bot` (the released `-causal` config; bot_win 1): a causal chain of
+  1 + r single-token steps over per-head depth caches
+  (`depth_causal_step`), the top code first.
+The conditionings and cell embeddings:
 - the conditioning prefix (`Conditioning`, shared with the 3-level
   model): class labels (`sos`, an embedding), text (`tok_emb_txt` +
   `pos_emb_txt` over the caption's ctx_len_txt tokens, 64 in the released
@@ -20,8 +28,6 @@ every conditioning and cell embedding of the JAX module:
   `use_random_order`, whose `pred_emb_top` is added in `embed_cell_step`
   only: the reference's sampler-only quirk, which the training forward
   ignores.
-The other depth modes ('top2bot', 'bidirectional') raise
-`NotImplementedError`.
 
 Reproduced reference quirk: the parallel depth sampler embeds the codes of
 the previous depth step with `tok_emb_top_depth`, whether they are the top
@@ -32,7 +38,8 @@ int8max serving: `serving(int8, scales)` prepares one sampler call (see
 A8W8 when passed `int8=True` and `depth_second_logits` likewise, head_bot
 included, as the JAX package's `int8_stage2_scope` does around them.
 `depth_first_logits`, `embed_cell_step` (its `emb_blocks` too) and
-`head_txt` stay float, as in JAX.
+`head_txt` stay float, as in JAX. The other depth modes have no int8
+serving in the port (the sampler refuses it).
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from .layers import (Block, LayerNorm, Linear, QuantizableLinear, act_scale,
 
 DepthKV = Tuple[List[torch.Tensor], List[torch.Tensor]]
 EMBEDDINGS = ('reduce', 'multiple', 'transformer', 'bidirectional')
+DEPTH_MODES = ('parallel', 'bidirectional', 'top2bot')
 
 
 def raster_to_cells(bot: torch.Tensor, h_top: int, win: int) -> torch.Tensor:
@@ -74,12 +82,15 @@ class Conditioning:
     """The conditioning prefix and the spatial position embedding of a
     stage-2 model with `hparams` and `dtype`; the 2-level and the 3-level
     models share them, as the JAX modules' `_sos_embedding` and
-    `_spatial_pos_emb` are alike. Labels are class ids [B] (class
-    conditioning), caption token ids [B, ctx_len_txt] (text) or any [B]
-    tensor (none: only B is read)."""
+    `_spatial_pos_emb` are alike, and the flat baselines share the prefix
+    (`transformer.py`). Labels are class ids [B] (class conditioning),
+    caption token ids [B, N] (text; N = ctx_len_txt, or for `Transformer1d`
+    any N up to it) or any [B] tensor (none: only B is read)."""
 
-    def _build_conditioning(self, use_cls_cond: bool, use_txt_cond: bool,
-                            vocab_size_txt: int) -> None:
+    def _build_prefix(self, use_cls_cond: bool, use_txt_cond: bool,
+                      vocab_size_txt: int) -> None:
+        """The prefix's embeddings: `sos` (class ids, or one learned
+        [1, 1, D] token) or `tok_emb_txt` and `pos_emb_txt`."""
         hp = self.hparams
         D = hp.embed_dim
         self.use_cls_cond = use_cls_cond
@@ -89,10 +100,19 @@ class Conditioning:
         elif self.use_txt_cond:
             self.tok_emb_txt = nn.Embedding(vocab_size_txt, D)
             self.pos_emb_txt = nn.Embedding(hp.ctx_len_txt, D)
-            self.ln_txt = LayerNorm(D)
-            self.head_txt = Linear(D, vocab_size_txt, bias=False)
         else:
             self.sos = nn.Parameter(torch.zeros(1, 1, D))
+
+    def _build_conditioning(self, use_cls_cond: bool, use_txt_cond: bool,
+                            vocab_size_txt: int) -> None:
+        """The prefix, the text head of a text model (`ln_txt`,
+        `head_txt`) and the spatial positions."""
+        hp = self.hparams
+        D = hp.embed_dim
+        self._build_prefix(use_cls_cond, use_txt_cond, vocab_size_txt)
+        if self.use_txt_cond:
+            self.ln_txt = LayerNorm(D)
+            self.head_txt = Linear(D, vocab_size_txt, bias=False)
         if hp.position_embedding == '1d':
             self.pos_emb_top = nn.Embedding(hp.ctx_len_img, D)
         elif hp.position_embedding == '2d':
@@ -112,11 +132,11 @@ class Conditioning:
 
     def sos_tokens(self, B: int, labels: Optional[torch.Tensor]
                    ) -> torch.Tensor:
-        """[B, sos_len, D] conditioning prefix."""
+        """[B, S, D] conditioning prefix: S = 1, or a caption's N tokens."""
         if self.use_cls_cond:
             return self._emb(self.sos, labels)[:, None, :]
         if self.use_txt_cond:
-            pos = torch.arange(self.sos_len, device=labels.device)
+            pos = torch.arange(labels.shape[1], device=labels.device)
             return self._emb(self.tok_emb_txt, labels) + \
                 self._emb(self.pos_emb_txt, pos)[None]
         return self.sos.to(self.dtype).expand(B, -1, -1)
@@ -235,16 +255,17 @@ class HierarchicalGPT(Conditioning, SpatialDecoding, nn.Module):
                  use_txt_cond: bool = False, vocab_size_txt: int = 16384):
         super().__init__()
         self.emb = parse_embedding_type(hparams.embedding_type)
-        if model_type.depth_mode != 'parallel':
-            raise NotImplementedError(
-                f'depth mode {model_type.depth_mode!r} is not ported')
+        if model_type.depth_mode not in DEPTH_MODES:
+            raise ValueError(f'depth mode {model_type.depth_mode!r}')
         if self.emb.kind not in EMBEDDINGS:
             raise ValueError(hparams.embedding_type)
         self.hparams = hparams
         self.hpd = hparams_dec or Stage2Hparams(
             **{**hparams.__dict__, 'n_layers': 4})
+        self.depth_mode = model_type.depth_mode
         self.ratio_bot2top = ratio_bot2top
-        self.bot_win = model_type.bot_win
+        self.bot_win = 1 if self.depth_mode == 'top2bot' else \
+            model_type.bot_win
         self.num_bottom_pred = self.bot_win * self.bot_win
         self.len_seq_depth = 1 + ratio_bot2top // self.num_bottom_pred
         self.cell_win = int(math.isqrt(ratio_bot2top))
@@ -276,7 +297,8 @@ class HierarchicalGPT(Conditioning, SpatialDecoding, nn.Module):
         self.sos_depth = nn.Parameter(torch.zeros(1, 1, Dd))
         self.tok_emb_top_depth = nn.Embedding(vocab_size_top, Dd)
         self.tok_emb_bot_depth = nn.Embedding(vocab_size_bot, Dd)
-        n_pos_depth = 16 if r == 16 else max(self.len_seq_depth, 5)
+        n_pos_depth = 16 if self.depth_mode == 'parallel' and r == 16 else \
+            max(self.len_seq_depth, 5)
         self.pos_emb_depth = nn.Embedding(n_pos_depth, Dd)
         self.depths = blocks(hpd, hpd.n_layers)
         self.ln_top = LayerNorm(Dd)
@@ -325,7 +347,7 @@ class HierarchicalGPT(Conditioning, SpatialDecoding, nn.Module):
         third."""
         h = self.forward_main(codes_t, codes_b, labels)
         h, logits_txt = self.split_text(h)
-        logits = self.forward_depth(h, codes_t)
+        logits = self.forward_depth(h, codes_t, codes_b)
         return logits if logits_txt is None else (*logits, logits_txt)
 
     def forward_main(self, codes_t, codes_b, labels):
@@ -340,7 +362,11 @@ class HierarchicalGPT(Conditioning, SpatialDecoding, nn.Module):
             h = blk(h, mask)
         return self.ln_f(h)
 
-    def forward_depth(self, h, codes_t):
+    def forward_depth(self, h, codes_t, codes_b):
+        """The depth transformer over every position at once, by the depth
+        mode: `parallel` [sos + h, Top + Pos_0..r-1] under the parallel
+        mask; `bidirectional` [sos + h, Pos_0..r-1], unmasked; `top2bot`
+        [sos + h, Top + Pos_0, Bot_j + Pos_j+1 (j < r - 1)], causal."""
         B, Ttop = codes_t.shape
         h_top = int(math.isqrt(Ttop))
         r = self.ratio_bot2top
@@ -348,8 +374,20 @@ class HierarchicalGPT(Conditioning, SpatialDecoding, nn.Module):
         emb_top = self._emb(self.tok_emb_top_depth, codes_t).reshape(
             B * Ttop, 1, -1)
         pos = self.pos_emb_depth.weight[:r].to(self.dtype)[None]
-        x = torch.cat([hs, emb_top + pos], dim=1)
-        mask = M.parallel_2level(1 + r, self.num_bottom_pred, h.device)
+        if self.depth_mode == 'parallel':
+            x = torch.cat([hs, emb_top + pos], dim=1)
+            mask = M.parallel_2level(1 + r, self.num_bottom_pred, h.device)
+        elif self.depth_mode == 'bidirectional':
+            x = torch.cat([hs, pos.expand(B * Ttop, -1, -1)], dim=1)
+            mask = None
+        else:
+            cells = raster_to_cells(codes_b, h_top, self.cell_win)
+            emb_bot = self._emb(self.tok_emb_bot_depth,
+                                cells[:, :, :r - 1]).reshape(B * Ttop, r - 1,
+                                                             -1)
+            x = torch.cat([hs, emb_top + pos[:, :1], emb_bot + pos[:, 1:]],
+                          dim=1)
+            mask = M.causal(1 + r, h.device)
         for blk in self.depths:
             x = blk(x, mask)
         logits_top = self.head_top(self.ln_top(x[:, 0])).reshape(B, Ttop, -1)
@@ -428,3 +466,37 @@ class HierarchicalGPT(Conditioning, SpatialDecoding, nn.Module):
             new_ks.append(split_heads(k, a.n_heads))
             new_vs.append(split_heads(v, a.n_heads))
         return self.head_bot(self.ln_bot(x), int8), (new_ks, new_vs)
+
+    def depth_bidirectional(self, h: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The bidirectional depth pass: [sos_depth + h, Pos_0..r-1] (h
+        [B, D]) through the depth blocks unmasked. Returns (logits_top
+        [B, 1, Vt], logits_bot [B, r, Vb])."""
+        x0 = h[:, None, :] + self.sos_depth.to(self.dtype)
+        pos = self.pos_emb_depth.weight[:self.ratio_bot2top].to(self.dtype)
+        x = torch.cat([x0, pos.expand(x0.shape[0], -1, -1)], dim=1)
+        for blk in self.depths:
+            x = blk(x)
+        return (self.head_top(self.ln_top(x[:, :1])),
+                self.head_bot(self.ln_bot(x[:, 1:])))
+
+    def depth_caches(self, batch: int, device: torch.device
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Zeroed per-head K and V caches of the causal depth chain,
+        [Ld, B, nh, len_seq_depth, hd] in the activation dtype."""
+        hpd = self.hpd
+        shape = (hpd.n_layers, batch, hpd.n_heads, self.len_seq_depth,
+                 hpd.embed_dim // hpd.n_heads)
+        kc = torch.zeros(shape, dtype=self.dtype, device=device)
+        return kc, torch.zeros_like(kc)
+
+    def depth_causal_step(self, x: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, cache_len: int
+                          ) -> torch.Tensor:
+        """One token x [B, 1, Dd] of the causal (`top2bot`) depth chain at
+        row `cache_len` of the per-head caches [Ld, B, nh, len_seq_depth,
+        hd] (`depth_caches`, updated in place), attending over rows
+        0..cache_len. Returns the depth stack's output [B, 1, Dd]."""
+        for i, blk in enumerate(self.depths):
+            x = blk.step_heads(x, k_cache[i], v_cache[i], cache_len)
+        return x

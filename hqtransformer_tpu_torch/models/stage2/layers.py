@@ -16,7 +16,9 @@ arithmetic for them.
 
 The JAX `Block.step_stacked` tells prefill from decode by whether the cache
 length is a static Python int. Here the position is always an int, so
-`prefill` and `step` are separate methods.
+`prefill` and `step` are separate methods. `step_heads` is the JAX
+`Block.step` (its einsum path on per-head [B, nh, T, hd] caches), which the
+causal depth chain of the `top2bot` mode runs.
 
 int8max serving (the JAX package's `QuantizableDense`, the A8W8 branch of
 `_fused_qkv_flat` and the int8 KV cache of `_PackedStepMixin`):
@@ -316,6 +318,24 @@ class SelfAttention(nn.Module):
             y = y * v_scale.to(y.dtype)
         return self.proj(y[:, None, :], int8)
 
+    def step_heads(self, x: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+        """One token x [B, 1, C] at row `pos` of the per-head caches
+        [B, nh, T, hd] (the new K/V row written in place), attending over
+        rows 0..pos: the fused QKV, then scores and softmax in f32 as
+        `masked_attention` (rows past pos, which the JAX function masks to
+        a -1e10 score, have weight 0 and are not read)."""
+        C = x.shape[-1]
+        q, k, v = self.fused_qkv(x).split(C, dim=-1)
+        k_cache[:, :, pos:pos + 1] = split_heads(k, self.n_heads).to(
+            k_cache.dtype)
+        v_cache[:, :, pos:pos + 1] = split_heads(v, self.n_heads).to(
+            v_cache.dtype)
+        y = masked_attention(split_heads(q, self.n_heads),
+                             k_cache[:, :, :pos + 1].to(x.dtype),
+                             v_cache[:, :, :pos + 1].to(x.dtype), None)
+        return self.proj(merge_heads(y))
+
 
 class Block(nn.Module):
     """Pre-LN transformer block: x + attn(ln1 x); x + mlp(ln2 x)."""
@@ -354,3 +374,8 @@ class Block(nn.Module):
         x = x + self.attn.step(self.ln1(x), k_caches, v_caches, layer, pos,
                                int8)
         return x + self.mlp_forward(self.ln2(x), int8)
+
+    def step_heads(self, x: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+        x = x + self.attn.step_heads(self.ln1(x), k_cache, v_cache, pos)
+        return x + self.mlp_forward(self.ln2(x))

@@ -2,9 +2,13 @@
 
 Counterpart of `hqtransformer_tpu/models/twostage.py` for the ported paths:
 - `TwoStageModel(cfg).make_pixel_sampler(...)(weights, generator, labels)`
-  gives pixels [B, 256, 256, 3] in [0, 1] at the flagship config, and
-  `make_pixel_sampler_multilevel(...)` the same for the 3-level family
-  (stage-2 type 'multilevel-hq', the 3-level HQ-VAE);
+  gives pixels [B, 256, 256, 3] in [0, 1] at the flagship config (every
+  depth mode of the 2-level family), `make_pixel_sampler_multilevel(...)`
+  the same for the 3-level family (stage-2 type 'multilevel-hq', the
+  3-level HQ-VAE) and `make_pixel_sampler_igpt(...)` for the flat iGPT
+  baseline (stage-2 type 'top'), whose top codes are decoded alone;
+- stage-2 type 'bottom' builds the text-to-image `Transformer1d`, which
+  `sampling/engine.py::make_txt2img_sampler` samples;
 - `extract_codes(weights, images)` encodes images [B, 256, 256, 3] in
   [-1, 1] to raster codes, and `forward(weights, images, labels)` runs the
   teacher-forced stage-2 forward on them, giving its logits.
@@ -35,7 +39,8 @@ stream while the current batch's AR loop runs. The 3-level family serves
 through `make_pixel_sampler_multilevel`, in bf16, f32 and int8max, and
 calibrates with the same three functions (their arguments per family as in
 the JAX package); `extract_codes`, `forward` and the two 2-level samplers
-are the 2-level family's only, as in the JAX package, and raise for it.
+are the 2-level HQ family's only, as in the JAX package, and raise for the
+other families.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from ..convert import convert_scales, export_scales
 from ..device import resolve_device
 from ..ops.int8 import Int8Serving, recording_absmax, scale_from_absmax
 from ..sampling.engine import (LevelSampling, SamplingParams, Scales,
-                               make_hierarchical_sampler,
+                               make_hierarchical_sampler, make_igpt_sampler,
                                make_multilevel_sampler)
 from .stage1.generator import build_generator
 from .stage1.layers import QuantizableConv2d
@@ -61,6 +66,7 @@ from .stage1.quantizer import EMAVectorQuantizer
 from .stage2.hierarchical import HierarchicalGPT, cells_to_raster
 from .stage2.layers import QuantizableLinear
 from .stage2.multilevel import MultiLevelHQTransformer
+from .stage2.transformer import IGPT, Transformer1d
 
 Weights = Dict[str, Dict[str, torch.Tensor]]
 Codes = Tuple[torch.Tensor, torch.Tensor]
@@ -68,10 +74,19 @@ Codes = Tuple[torch.Tensor, torch.Tensor]
 
 def build_stage2(config: TwoStageConfig, dtype: torch.dtype = torch.float32
                  ) -> nn.Module:
-    """Stage-2 model for `stage2.type`; the port has the hq-transformer
-    (2-level) and multilevel-hq (3-level) families."""
+    """Stage-2 model for `stage2.type`: 'top' (IGPT), 'bottom'
+    (Transformer1d over a "text" of the image vocabulary, as in JAX),
+    hq-transformer (2-level) and multilevel-hq (3-level)."""
     s2 = config.stage2
     spec = parse_model_type(s2.type)
+    if spec.family == 'top':
+        return IGPT(vocab_size_img=s2.vocab_size_img,
+                    use_cls_cond=bool(s2.use_cls_cond), hparams=s2.hparams,
+                    dtype=dtype)
+    if spec.family == 'bottom':
+        return Transformer1d(vocab_size_txt=s2.vocab_size_img,
+                             vocab_size_img=s2.vocab_size_img,
+                             hparams=s2.hparams, dtype=dtype)
     if spec.family == 'multilevel-hq':
         return MultiLevelHQTransformer(
             vocab_sizes=tuple(s2.vocab_sizes_img),
@@ -79,8 +94,6 @@ def build_stage2(config: TwoStageConfig, dtype: torch.dtype = torch.float32
             use_cls_cond=bool(s2.use_cls_cond), hparams=s2.hparams,
             hparams_dec=s2.hparams_dec, use_txt_cond=bool(s2.use_txt_cond),
             dtype=dtype, vocab_size_txt=s2.vocab_size_txt)
-    if spec.family != 'hq-transformer':
-        raise NotImplementedError(f'stage-2 type {s2.type!r} is not ported')
     return HierarchicalGPT(vocab_size_top=s2.vocab_size_img,
                            vocab_size_bot=s2.vocab_size_img,
                            ratio_bot2top=s2.ratio_bot2top,
@@ -197,9 +210,11 @@ class TwoStageModel:
             self.top_res = latent // self.cell_win
 
     def _two_levels(self, entry: str) -> None:
-        if self.code_levels != 2:
-            raise NotImplementedError(f'{entry} is not ported for the '
-                                      f'{self.code_levels}-level family')
+        """Raise unless the stage-2 model is the 2-level HQ-Transformer."""
+        if not isinstance(self.stage2, HierarchicalGPT):
+            raise NotImplementedError(
+                f'{entry} takes the 2-level HQ-Transformer, not '
+                f'{type(self.stage2).__name__}')
 
     def init_weights(self, seed: int) -> Weights:
         """Seeded random f32 weights on the model's device."""
@@ -251,6 +266,8 @@ class TwoStageModel:
         caption's prefix rows included, as in JAX: max(m, 1e-6) / 127 (the
         JAX function's default margin of 1).
         Returns {'stage2/kv_scales': {'blocks.<l>.attn.k' | '.v': [D]}}."""
+        if not isinstance(self.stage2, MultiLevelHQTransformer):
+            self._two_levels('calibrate_kv_scales')
         self.load_weights(weights)
         n_top = max_seq_len or self.top_res * self.top_res
         if self.code_levels == 2:
@@ -444,5 +461,37 @@ class TwoStageModel:
             self.load_weights(weights)
             codes = sampler(generator, labels)
             return decode(*codes), codes
+
+        return sample_pixels
+
+    def make_pixel_sampler_igpt(self, max_seq_len: Optional[int] = None,
+                                top_k: Optional[int] = 256,
+                                top_p: Optional[float] = None,
+                                temperature: float = 1.0,
+                                decode_chunk: int = 128) -> Callable:
+        """End-to-end sampler of the flat iGPT baseline (stage-2 type
+        'top'): fn(weights, generator, labels) -> (pixels [B, H, W, 3] in
+        [0, 1], codes [B, N]), the top codes decoded alone (the bottom
+        level zeros), in `decode_chunk`-sample chunks."""
+        if not isinstance(self.stage2, IGPT):
+            raise NotImplementedError(
+                f'make_pixel_sampler_igpt takes the IGPT baseline, not '
+                f'{type(self.stage2).__name__}')
+        n_top = max_seq_len or self.top_res * self.top_res
+        res = int(math.isqrt(n_top))
+        sampler = make_igpt_sampler(self.stage2, n_top, top_k=top_k,
+                                    top_p=top_p, temperature=temperature)
+
+        def dec1(codes):
+            pixels = self.stage1.decode_code(codes.reshape(-1, res, res),
+                                             None)
+            return torch.clamp(pixels * 0.5 + 0.5, 0.0, 1.0)
+
+        @torch.inference_mode()
+        def sample_pixels(weights: Weights, generator: torch.Generator,
+                          labels: torch.Tensor):
+            self.load_weights(weights)
+            codes = sampler(generator, labels)
+            return _decode_chunked(dec1, [codes], decode_chunk), codes
 
         return sample_pixels

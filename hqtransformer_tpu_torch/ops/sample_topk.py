@@ -214,11 +214,20 @@ def sample_topk_plain(logits: torch.Tensor, u: torch.Tensor, k: int,
     x = scaled_logits(logits, temperature)
     thr = select_threshold(x, k, bisect3)
     row_max = x.amax(dim=-1, keepdim=True)
-    p = torch.where(x >= thr, torch.exp(x - row_max), 0.0)
+    return inverse_cdf_draw(
+        torch.where(x >= thr, torch.exp(x - row_max), 0.0), u)
+
+
+def inverse_cdf_draw(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """One categorical draw per row of the non-negative weights p [N, V]
+    (not necessarily normalised) from the uniforms u [N], in vocabulary
+    order: u * total, clamped to >= 1e-30, against the running sum
+    (`torch.cumsum`), snapped down to the nearest index with p > 0.
+    Returns int32 codes [N]."""
     cdf = torch.cumsum(p, dim=-1)
     draw = torch.clamp_min(u.float()[:, None] * cdf[:, -1:], 1e-30)
     idx0 = (cdf < draw).sum(dim=-1, keepdim=True)
-    iota = torch.arange(x.shape[-1], device=x.device)
+    iota = torch.arange(p.shape[-1], device=p.device)
     valid = (p > 0) & (iota <= idx0)
     return torch.where(valid, iota, 0).amax(dim=-1).int()
 

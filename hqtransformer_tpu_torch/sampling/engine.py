@@ -1,13 +1,14 @@
-"""Sampling engine for the two-level HQ-Transformer (parallel depth mode)
-and the three-level one.
+"""Sampling engine for the two-level HQ-Transformer (every depth mode),
+the three-level one and the flat baselines.
 
-Counterpart of `hqtransformer_tpu/sampling/engine.py::
-make_hierarchical_sampler`, `make_hierarchical_scorer` and
-`make_multilevel_sampler` on their packed-cache path. Where the JAX package
-compiles the whole loop into one `lax.scan`, the port runs it eagerly: one
-spatial step per position (12 launches of the decode attention kernel at
-the flagship depth), then the depth draws (2 launches of the sampling
-kernel).
+Counterpart of every sampler of `hqtransformer_tpu/sampling/engine.py`
+(`make_hierarchical_sampler`, `make_hierarchical_scorer`,
+`make_multilevel_sampler`, `make_igpt_sampler`, `make_txt2img_sampler`)
+on their packed-cache path. Where the JAX package compiles the whole loop
+into one `lax.scan`, the port runs it eagerly: one spatial step per
+position (12 launches of the decode attention kernel at the flagship
+depth), then the depth draws (2 launches of the sampling kernel in the
+`parallel` depth mode).
 
 Loop order, as in the JAX sampler: prefill the conditioning prefix (its
 sos_len tokens: 1, or a caption's ctx_len_txt) at cache rows [0, sos_len),
@@ -15,9 +16,21 @@ causal among them; then for each spatial step i in 1..N-1 embed the
 previous cell at position i-1, run the spatial step at cache row
 sos_len + i - 1, and draw the top code and its bottom group (2 levels), or
 the top code, its 4 mids and its 16 bottoms in three depth phases (3
-levels). The three share this loop (`_serving_loop`); the 2-level sampler
-and scorer share the depth chain (`_depth_chain`) and differ only in where
-each step's codes come from (drawn or given).
+levels); the flat baselines draw one code a position, from the spatial
+step's logits. All share this loop (`_serving_loop`); the 2-level sampler
+and scorer share the parallel depth chain (`_depth_chain`) and differ only
+in where each step's codes come from (drawn or given).
+
+The 2-level depth modes (`_DEPTH_SAMPLERS`, as in JAX): `parallel`, two
+draws a position (the top, then its bottom group); `bidirectional`, one
+joint draw of the top and its r bottoms, every position with `top_k_bot`,
+`top_p_bot` and `temperature_top` (the reference's quirk); `top2bot`,
+1 + r draws in a causal chain of single-token depth steps, the first
+step's code embedded by `tok_emb_top_depth`, later ones by
+`tok_emb_bot_depth`. With `use_given_top` the sampler takes the top codes:
+it still draws each top code (so the generator's stream and the kernel's
+launches are those of the unforced sampler), then puts the given one in
+its place, as JAX does.
 
 Random numbers: every draw takes one uniform per row from the caller's
 `torch.Generator`, in depth order: the top codes' first, then the bottom
@@ -32,7 +45,9 @@ collections, see `models/twostage.py`) choose the int8 KV cache and the
 A8W8 gemms of the spatial steps and of the depth chain (the 2-level
 depth-second chain; every 3-level depth phase), as the JAX samplers'
 cache_dtype and HQT_INT8_* switches do; the spatial gemms include the
-text prefix's prefill and the 3-level cell embedding's `emb_blocks`.
+text prefix's prefill and the 3-level cell embedding's `emb_blocks`. The
+2-level `bidirectional` and `top2bot` modes and the flat baselines serve
+in float only.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ import torch
 
 from ..models.stage2.hierarchical import HierarchicalGPT
 from ..models.stage2.multilevel import NO_PHASES, MultiLevelHQTransformer
+from ..models.stage2.transformer import IGPT, Transformer1d
 from ..ops.int8 import Int8Serving
 from ..ops.topk_topp import sample_from_logits
 
@@ -99,22 +115,88 @@ def _depth_chain(model: HierarchicalGPT, h: torch.Tensor,
     return top, torch.cat(bots, dim=1), logits
 
 
-def _draws(generator: torch.Generator, sp: SamplingParams) -> Callable:
-    """The sampler's `pick`: one draw per depth step from `generator`."""
-    def pick(step: int, logits: torch.Tensor) -> torch.Tensor:
-        if step == 0:
-            return sample_from_logits(generator, logits,
-                                      temperature=sp.temperature_top,
-                                      top_k=sp.top_k_top, top_p=sp.top_p_top,
-                                      bisect3=sp.bisect3)
+def _draw(generator: torch.Generator, sp: SamplingParams, level: str,
+          logits: torch.Tensor) -> torch.Tensor:
+    """One draw with the knobs of `level` ('top' or 'bot')."""
+    if level == 'top':
         return sample_from_logits(generator, logits,
-                                  temperature=sp.temperature_bot,
-                                  top_k=sp.top_k_bot, top_p=sp.top_p_bot,
+                                  temperature=sp.temperature_top,
+                                  top_k=sp.top_k_top, top_p=sp.top_p_top,
                                   bisect3=sp.bisect3)
+    return sample_from_logits(generator, logits,
+                              temperature=sp.temperature_bot,
+                              top_k=sp.top_k_bot, top_p=sp.top_p_bot,
+                              bisect3=sp.bisect3)
+
+
+def _draws(generator: torch.Generator, sp: SamplingParams,
+           given_top: Optional[torch.Tensor] = None) -> Callable:
+    """The sampler's `pick` for `_depth_chain`: one draw per depth step
+    from `generator`; step 0's with the top's knobs, then replaced by
+    `given_top` where given."""
+    def pick(step: int, logits: torch.Tensor) -> torch.Tensor:
+        codes = _draw(generator, sp, 'bot' if step else 'top', logits)
+        return given_top if step == 0 and given_top is not None else codes
     return pick
 
 
-Model = Union[HierarchicalGPT, MultiLevelHQTransformer]
+def _depth_sample_parallel(model: HierarchicalGPT, h: torch.Tensor,
+                           generator: torch.Generator, sp: SamplingParams,
+                           given_top: Optional[torch.Tensor], int8: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The `parallel` depth draws: (top [B], bottoms [B, ratio])."""
+    top, bot, _ = _depth_chain(model, h, _draws(generator, sp, given_top),
+                               int8)
+    return top, bot
+
+
+def _depth_sample_bidirectional(model: HierarchicalGPT, h: torch.Tensor,
+                                generator: torch.Generator,
+                                sp: SamplingParams,
+                                given_top: Optional[torch.Tensor], int8: bool
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The `bidirectional` depth pass and its one joint draw of the top
+    and the r bottoms ([B (1 + r), V] rows), all with `top_k_bot`,
+    `top_p_bot` and `temperature_top`."""
+    logits = torch.cat(model.depth_bidirectional(h), dim=1)
+    outs = sample_from_logits(generator, logits,
+                              temperature=sp.temperature_top,
+                              top_k=sp.top_k_bot, top_p=sp.top_p_bot,
+                              bisect3=sp.bisect3)
+    return (outs[:, 0] if given_top is None else given_top), outs[:, 1:]
+
+
+def _depth_sample_top2bot(model: HierarchicalGPT, h: torch.Tensor,
+                          generator: torch.Generator, sp: SamplingParams,
+                          given_top: Optional[torch.Tensor], int8: bool
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The `top2bot` causal depth chain: sos_depth + h, then the previous
+    code's embedding (the top's by `tok_emb_top_depth`, a bottom's by
+    `tok_emb_bot_depth`) plus `pos_emb_depth(step - 1)`, one token a step
+    over the per-head depth caches; the top's draw, then r bottoms'."""
+    kc, vc = model.depth_caches(h.shape[0], h.device)
+    x = model.depth_causal_step(h[:, None] + model.sos_depth.to(h.dtype),
+                                kc, vc, 0)
+    top = _draw(generator, sp, 'top', model.head_top(model.ln_top(x[:, 0])))
+    codes = [top if given_top is None else given_top]
+    pos = model.pos_emb_depth.weight
+    for step in range(1, model.len_seq_depth):
+        table = model.tok_emb_top_depth if step == 1 else \
+            model.tok_emb_bot_depth
+        x = model._emb(table, codes[-1]) + pos[step - 1].to(h.dtype)
+        x = model.depth_causal_step(x[:, None], kc, vc, step)
+        codes.append(_draw(generator, sp, 'bot',
+                           model.head_bot(model.ln_bot(x[:, 0]))))
+    return codes[0], torch.stack(codes[1:], dim=1)
+
+
+_DEPTH_SAMPLERS = {
+    'parallel': _depth_sample_parallel,
+    'bidirectional': _depth_sample_bidirectional,
+    'top2bot': _depth_sample_top2bot,
+}
+
+Model = Union[HierarchicalGPT, MultiLevelHQTransformer, IGPT, Transformer1d]
 
 
 def _caches(model: Model, sos: torch.Tensor, max_seq_len: int,
@@ -135,12 +217,13 @@ def _serving_loop(model: Model, labels: torch.Tensor, max_seq_len: int,
                   ) -> Tuple[list, Tuple[torch.Tensor, torch.Tensor]]:
     """The AR loop of the samplers and the scorer, in one serving call:
     prefill the conditioning prefix (labels: class ids [B], caption ids
-    [B, ctx_len_txt] or a dummy [B]), then for each spatial position i run
+    [B, N] or a dummy [B]), then for each spatial position i run
     `depth(i, h [B, D]) -> (codes, out)`, where `codes` is the tuple of the
     position's codes that `model.embed_cell_step` takes ((top [B],
     bottoms [B, ratio]) for 2 levels, (top, mids [B, 4], bottoms
-    [B, 16]) for 3), and embed them for the next spatial step. Returns
-    ([out of every position], (k_caches, v_caches))."""
+    [B, 16]) for 3, (code [B],) for the flat baselines), and embed them
+    for the next spatial step. Returns ([out of every position],
+    (k_caches, v_caches))."""
     B = labels.shape[0]
     with model.serving(int8, scales):
         sos = model.sos_tokens(B, labels)
@@ -165,13 +248,18 @@ def make_hierarchical_sampler(model: HierarchicalGPT, max_seq_len: int = 64,
                               params: SamplingParams = SamplingParams(),
                               int8: Int8Serving = Int8Serving(),
                               scales: Optional[Scales] = None,
-                              return_caches: bool = False) -> Callable:
-    """Build the sampler for the 2-level model. Returns
+                              return_caches: bool = False,
+                              use_given_top: bool = False) -> Callable:
+    """Build the sampler for the 2-level model, in its depth mode. Returns
     fn(generator, labels) -> (codes_t [B, N], codes_b [B, N, ratio]),
     int32, with N = max_seq_len spatial positions (labels: see
     `_serving_loop`); with `return_caches`,
     ((codes_t, codes_b), (k_caches, v_caches)), the calibration hook of
-    `TwoStageModel.calibrate_kv_scales`.
+    `TwoStageModel.calibrate_kv_scales`. With `use_given_top`,
+    fn(generator, labels, given_top_codes [B, N]): codes_t are the given
+    codes and the bottoms are drawn under them (see the module docstring).
+    int8 serving is the `parallel` mode's only: another mode with any
+    `int8` switch on raises ValueError.
 
     The packed [L, T, B, D] KV cache (T = sos_len + N - 1), int8 with
     `int8.kv_cache` and else in the activation dtype, is allocated once
@@ -180,13 +268,24 @@ def make_hierarchical_sampler(model: HierarchicalGPT, max_seq_len: int = 64,
     `n_segments` and `t_compute` are not needed: they bound the
     static-shape compute of the TPU kernel, while the CUDA kernel's loop
     already stops at the current position."""
+    if model.depth_mode != 'parallel' and int8 != Int8Serving():
+        raise ValueError(f'int8 serving of the {model.depth_mode!r} depth '
+                         f'mode is not ported')
+    depth_fn = _DEPTH_SAMPLERS[model.depth_mode]
 
     @torch.inference_mode()
-    def sample(generator: torch.Generator, labels: torch.Tensor):
-        pick = _draws(generator, params)
+    def sample(generator: torch.Generator, labels: torch.Tensor,
+               given_top_codes: Optional[torch.Tensor] = None):
+        if use_given_top != (given_top_codes is not None):
+            raise ValueError('given_top_codes go with use_given_top, and '
+                             'only with it')
+        if use_given_top:
+            given_top_codes = given_top_codes.to(labels.device, torch.int32)
 
         def depth(i, h):
-            top, bot, _ = _depth_chain(model, h, pick, int8.depth_gemms)
+            given = given_top_codes[:, i] if use_given_top else None
+            top, bot = depth_fn(model, h, generator, params, given,
+                                int8.depth_gemms)
             return (top, bot), (top, bot)
 
         outs, caches = _serving_loop(model, labels, max_seq_len, int8,
@@ -209,7 +308,11 @@ def make_hierarchical_scorer(model: HierarchicalGPT, max_seq_len: int = 64,
     depth-first and depth-second chain, and with `int8` the int8 KV cache
     and A8W8 gemms), with the given codes in place of draws: the logits of
     two serving modes on the same codes measure what the serving path's
-    numerics do (per-step agreement and KL), as the JAX scorer does."""
+    numerics do (per-step agreement and KL), as the JAX scorer does. The
+    `parallel` depth mode only, as in JAX: others raise ValueError."""
+    if model.depth_mode != 'parallel':
+        raise ValueError(f'the scorer takes the parallel depth mode, not '
+                         f'{model.depth_mode!r}')
     n = model.num_bottom_pred
 
     @torch.inference_mode()
@@ -280,3 +383,46 @@ def make_multilevel_sampler(model: MultiLevelHQTransformer,
         return (codes, caches) if return_caches else codes
 
     return sample
+
+
+def _flat_sampler(model: Union[IGPT, Transformer1d], max_seq_len: int,
+                  top_k: Optional[int], top_p: Optional[float],
+                  temperature: float) -> Callable:
+    """fn(generator, labels) -> codes [B, max_seq_len], int32: one draw a
+    position from the spatial step's image logits."""
+
+    @torch.inference_mode()
+    def sample(generator: torch.Generator, labels: torch.Tensor):
+        def depth(i, h):
+            code = sample_from_logits(generator, model.image_logits(h),
+                                      temperature=temperature, top_k=top_k,
+                                      top_p=top_p)
+            return (code,), code
+
+        outs, _ = _serving_loop(model, labels, max_seq_len, Int8Serving(),
+                                None, depth)
+        return torch.stack(outs, dim=1)
+
+    return sample
+
+
+def make_igpt_sampler(model: IGPT, max_seq_len: int = 256,
+                      top_k: Optional[int] = None,
+                      top_p: Optional[float] = None,
+                      temperature: float = 1.0) -> Callable:
+    """The sampler of the flat iGPT baseline: fn(generator, labels) ->
+    codes [B, N], int32, N = max_seq_len (labels: class ids [B], or a dummy
+    [B] without class conditioning). One sos token, then N - 1 spatial
+    steps (decode attention at pos 1..N-1), a draw after each."""
+    return _flat_sampler(model, max_seq_len, top_k, top_p, temperature)
+
+
+def make_txt2img_sampler(model: Transformer1d, max_seq_len: int = 256,
+                         top_k: Optional[int] = None,
+                         top_p: Optional[float] = None,
+                         temperature: float = 1.0) -> Callable:
+    """The sampler of the text-to-image Transformer1d: fn(generator,
+    texts [B, N_txt]) -> codes [B, N], int32, N = max_seq_len. The N_txt
+    prefix tokens are prefilled, then N - 1 spatial steps (decode
+    attention at pos N_txt..N_txt + N - 2), a draw after each."""
+    return _flat_sampler(model, max_seq_len, top_k, top_p, temperature)

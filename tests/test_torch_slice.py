@@ -181,9 +181,19 @@ def test_entry_point_needs_a_card_unless_cpu_asked(monkeypatch):
 
 
 def test_nucleus_filtering_not_ported():
-    with pytest.raises(NotImplementedError):
-        sample_from_logits(torch.Generator(), torch.zeros(2, 8), top_k=4,
-                           top_p=0.9)
+    """The call that once raised for want of a top-p port now draws: every
+    code of 50 draws a row inside the kept set of the plain filter (top-k
+    4, then the smallest prefix of mass 0.9)."""
+    logits = torch.tensor([[4.0, 3.0, 2.0, 1.0, 0.0, -1.0, -2.0, -3.0],
+                           [2.0, 2.0, 2.0, 2.0, 0.0, 0.0, 0.0, 0.0]])
+    kept = [{0, 1, 2}, {0, 1, 2, 3}]   # 0.644 + 0.237 + 0.087 >= 0.9
+    gen = torch.Generator().manual_seed(0)
+    seen = [set(), set()]
+    for _ in range(50):
+        codes = sample_from_logits(gen, logits, top_k=4, top_p=0.9)
+        for r, c in enumerate(codes.tolist()):
+            seen[r].add(c)
+    assert all(1 < len(s) and s <= k for s, k in zip(seen, kept)), seen
 
 
 @pytest.mark.parametrize('bisect3', [False, True])
