@@ -67,8 +67,9 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    take the lowest index of each exact tie, in f32 and bf16. Each case
    names the pair list it ran. Then, in bf16 and in f32 at every shape the
    encode paths launch it at (the flagship top and bottom levels, which
-   the 3-level middle and bottom share at batch 32, and the 3-level top at
-   batch 32), compares it with its plain version by the same rule and
+   the 3-level middle and bottom share at batch 32, the 3-level top at
+   batch 32, and the avgpool / conv2 top, N 8192 D 256, where no row may
+   differ), compares it with its plain version by the same rule and
    times the kernel, its plain version and cuBLAS addmm + argmin in f32
    (extra peak memory of each beside); the bound is the function's
    2 N K D operations (one pass) at the bf16 tensor-core rate, in either
@@ -225,6 +226,28 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    Transformer1d models sample greedily on the card and on the CPU:
    equal codes.
 
+12. The rest of stage 1 (after phase 5's f32 reconstruction), seeded
+   random weights, batch 128:
+   - `make_reconstructor` on `hqvae-avgpool-top8x8.yaml` (average pooling
+     down, nearest up) and `hqvae-conv2-pixelrecon-top8x8.yaml` (a stride-2
+     conv down, a conv-transpose up; the three conv2 configs share the
+     generator), twice in bf16 and once in f32: 2 K3 and no K1, K2 launches
+     a call, codes in [0, 8192), pixels finite in [-1, 1]; images/s, peak
+     memory and the bf16 call broken down as in phase 5; then the conv2
+     generator's forward with `bottom_bypass` (its `bottom_start` is 0);
+   - `TwoStageModel.extract_codes(temp_soft_labels=1.0)` on
+     `hqtransformer-l12-top8x8-soft.yaml`, bf16 weights, twice: no K3
+     launch, soft maps [128, 64 | 256, 8192] whose rows sum to 1 within
+     1e-4, hard codes the argmin of the f32 distances (recomputed); their
+     agreement with the K3 codes of a plain `extract_codes`; one stochastic
+     call with a CUDA generator (codes in range); wall ms, peak memory.
+   At the end, tiny f32 VQGAN (learned codebook), VQGAN2 (deconv2d with
+   concat, nearest with sum), 2-level HQ-VAEs (nearest, conv2) and a
+   3-level conv2 HQ-VAE reconstruct on the card and on the CPU from the same
+   weights and images: codes equal (or, at rows tied within f32 rounding,
+   as phase 4 allows), pixels within 1e-3. The JSON line gains
+   `vq_argmin_d256`, K3 at the avgpool / conv2 top in bf16.
+
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
 non-zero without that line; so it does without a CUDA device or outside a
@@ -259,13 +282,17 @@ V = 8192
 TIMED_POS = 33
 # K3: one launch per code level; N = batch x level area, K = 8192 codes.
 # The 3-level middle and bottom levels at batch 32 have the flagship top's
-# and bottom's (N, D), so these three shapes are every K3 launch of the
-# encode paths, and every codebook split they take (2, 1, 8 on 132 SMs).
+# and bottom's (N, D), and the avgpool / conv2 bottom the flagship
+# bottom's, so these four shapes are every K3 launch of the encode paths.
 LEVEL3 = ROOT / 'configs/imagenet/stage1/hqvae-pixelshuffle-top8x8-level3.yaml'
 N_CODES = 8192
 K3_SHAPES = (('flagship top = 3-level middle', 8192, 1024),
              ('flagship bottom = 3-level bottom', 32768, 256),
-             ('3-level top, batch 32', 2048, 4096))
+             ('3-level top, batch 32', 2048, 4096),
+             ('avgpool/conv2 top, batch 128', 8192, 256))
+# The avgpool and conv2 stage-1 configs keep the top level at the bottom's
+# dim: their top search is this K3_SHAPES entry.
+K3_D256 = 3
 B_LEVEL3 = 32
 NEAR_TIE = 1e-5
 # Names of the port's kernels as the profiler reports them.
@@ -934,10 +961,11 @@ def time_sample_topk_level3(st):
 
 # ----------------------------------------------------- K3 nearest-code search
 
-def compare_codes(z, e, c1, c2):
+def compare_codes(z, e, c1, c2, max_share=1e-3):
     """Rows where codes c1 and c2 differ must be near-ties: their two
     squared distances, recomputed in f64, within NEAR_TIE (|z|^2 + |e|^2);
-    at most 0.1% of rows. Returns (rows differing, max f64 distance gap)."""
+    at most `max_share` of rows. Returns (rows differing, max f64 distance
+    gap)."""
     rows = torch.nonzero(c1 != c2).flatten()
     if rows.numel() == 0:
         return 0, 0.0
@@ -947,7 +975,7 @@ def compare_codes(z, e, c1, c2):
                                                 e2.square().sum(1))
     require(bool((gap <= NEAR_TIE * scale).all()),
             f'K3 codes differ away from a near-tie: gap {gap.max().item()}')
-    require(rows.numel() <= 1e-3 * z.shape[0],
+    require(rows.numel() <= max_share * z.shape[0],
             f'K3 {rows.numel()} of {z.shape[0]} rows differ')
     return rows.numel(), gap.max().item()
 
@@ -1032,8 +1060,8 @@ def time_vq_argmin(vq, dtype):
     summation order; f32 scores need no more than one argmin over them
     either, whatever passes a design spends). The design's own floor, its
     passes at that rate (six in f32), is printed on a line of its own.
-    Returns (one (ms, plain, lib, bound, memory) per shape, max f64
-    gap)."""
+    Returns (one (ms, plain, lib, bound, memory, rows differing) per
+    shape, max f64 gap)."""
     out, max_err = [], 0.0
     name_dt = str(dtype)[6:]
     passes = len(vq.piece_pairs(vq.kernel_variant(dtype, dtype)))
@@ -1067,7 +1095,7 @@ def time_vq_argmin(vq, dtype):
         n_bytes = (N + N_CODES) * D * z.element_size() + N * 8
         flops = 2 * N * N_CODES * D
         bnd = bound(n_bytes, flops, BF16_FLOPS_PER_S)
-        out.append((ms, plain, lib, bnd, mem))
+        out.append((ms, plain, lib, bnd, mem, n_diff))
         print(f'K3 {name} N={N} K={N_CODES} D={D} {name_dt}: kernel '
               f'{ms:.4f} ms ({passes * flops / ms / 1e9:.1f} TFLOP/s over '
               f'{passes} bf16 pass{"es" if passes > 1 else ""}), plain '
@@ -1565,20 +1593,19 @@ def run_encode_slice(vq, da, st, stage1_weights):
     return launches[0], B / seconds
 
 
-def encode_breakdown(cfg, stage1_weights, images):
-    """The flagship reconstruction split into its three phases, each run
-    alone, with the K3 kernels' share of the quantize phase."""
+def encode_breakdown(cfg, stage1_weights, images, name=''):
+    """A bf16 reconstruction split into its three phases, each run alone,
+    with the K3 kernels' share of the quantize phase (the resamplers' own
+    work, a product each way for 'conv2', falls in that phase too); `name`
+    prefixes the phases' lines."""
     from hqtransformer_tpu_torch.models.stage1.generator import \
         build_generator
-    from hqtransformer_tpu_torch.ops.resample import (pixel_shuffle,
-                                                      pixel_unshuffle)
 
     with torch.device('meta'):
         gen = build_generator(cfg, torch.bfloat16)
     gen = gen.to_empty(device='cuda').eval()
     gen.load_state_dict(stage1_weights, strict=True, assign=True)
     x = images.permute(0, 3, 1, 2).bfloat16()
-    w = gen.window
 
     @torch.inference_mode()
     def encoder():
@@ -1588,8 +1615,8 @@ def encode_breakdown(cfg, stage1_weights, images):
 
     @torch.inference_mode()
     def quantize():
-        quant_t, _, _ = gen.quantize_t(pixel_unshuffle(h_b, w))
-        quant_b, _, _ = gen.quantize_b(h_b - pixel_shuffle(quant_t, w))
+        quant_t, _, _ = gen.quantize_t(gen.down_t(h_b))
+        quant_b, _, _ = gen._bottom_quantizer(h_b - gen.upsample_t(quant_t))
         return quant_t, quant_b
 
     quant = quantize()
@@ -1598,12 +1625,12 @@ def encode_breakdown(cfg, stage1_weights, images):
     def decoder():
         return gen.decode(*quant)
 
-    per_phase = profile_phases((('encoder', encoder),
-                                ('quantize (2 K3)', quantize),
-                                ('decoder', decoder)))
-    k3 = [(n, ms) for kname, (n, ms) in per_phase['quantize (2 K3)'].items()
-          if 'vq_' in kname]
-    print(f'breakdown K3 kernels in the quantize phase: '
+    per_phase = profile_phases(((f'{name}encoder', encoder),
+                                (f'{name}quantize (2 K3)', quantize),
+                                (f'{name}decoder', decoder)))
+    k3 = [(n, ms) for kname, (n, ms)
+          in per_phase[f'{name}quantize (2 K3)'].items() if 'vq_' in kname]
+    print(f'breakdown {name}K3 kernels in the quantize phase: '
           f'{sum(ms for _, ms in k3):.2f} ms in {sum(n for n, _ in k3)} runs')
 
 
@@ -2703,6 +2730,284 @@ def check_other_samplers_reference():
               f'({[tuple(c.shape) for c in codes[0]]})')
 
 
+# ------------------------------------------ phase 12: the rest of stage 1
+
+AVGPOOL = ROOT / 'configs/imagenet/stage1/hqvae-avgpool-top8x8.yaml'
+CONV2 = ROOT / 'configs/imagenet/stage1/hqvae-conv2-pixelrecon-top8x8.yaml'
+SOFT_S2 = ROOT / 'configs/imagenet/stage2/hqtransformer-l12-top8x8-soft.yaml'
+SOFT_ROW_TOL = 1e-4
+
+
+def launch_counts(vq, da, st):
+    return (vq.vq_argmin.launches, da.decode_attention_step.launches,
+            st.sample_topk.launches)
+
+
+def run_resampler_reconstruction(vq, da, st, path, seed):
+    """make_reconstructor on a released stage-1 config at batch 128 with
+    seeded random weights: twice in bf16 (bf16 serving weights) and once in
+    f32 (TF32 off), each with 2 K3 and no K1, K2 launches, codes in range
+    and pixels finite in [-1, 1]; then the bf16 call broken down. Returns
+    ({dtype: images/s of the last call}, K3 launches of a bf16 call, the
+    config, its bf16 weights, the images)."""
+    from hqtransformer_tpu_torch.config import build_stage1_config
+    from hqtransformer_tpu_torch.evaluation.stage1 import (
+        init_stage1_weights, make_reconstructor)
+    from hqtransformer_tpu_torch.models.twostage import serving_bf16_params
+
+    cfg = build_stage1_config(str(path)).stage1
+    res = cfg.hparams.resolution
+    w32 = init_stage1_weights(cfg, seed=seed)
+    w16 = serving_bf16_params(w32)
+    images = seeded_images(B, res, seed=seed)
+    rates, k3 = {}, None
+    for dtype, weights, calls in ((torch.bfloat16, w16, (1, 2)),
+                                  (torch.float32, w32, (1,))):
+        recon = make_reconstructor(cfg, dtype)
+        for call in calls:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(vq.vq_argmin, da.decode_attention_step,
+                         st.sample_topk)
+            t0 = time.perf_counter()
+            pixels, levels = recon(weights, images)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = launch_counts(vq, da, st)
+            require(launches == (2, 0, 0), f'{path.stem} launches K3, K1, '
+                    f'K2 {launches}, expected (2, 0, 0)')
+            check_reconstruction(pixels, levels, B, res, (8, 16))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f'{path.stem} {str(dtype)[6:]} reconstruction call {call}: '
+                  f'{seconds:.3f} s, {B / seconds:.2f} images/s at batch '
+                  f'{B}, peak {peak:.2f} GiB, launches K3={launches[0]} '
+                  f'({pair_list(vq, dtype, dtype)})')
+            if dtype == torch.bfloat16:
+                k3 = launches[0]
+        rates[dtype] = B / seconds
+    del w32
+    encode_breakdown(cfg, w16, images, f'{path.stem} ')
+    return rates, k3, cfg, w16, images
+
+
+def run_bottom_bypass(vq, da, st, cfg, weights, images):
+    """The generator's forward with bottom_bypass (the `bottom_start`
+    curriculum, 0 in the conv2 config), bf16: the pixels of the top codes
+    alone and of both, finite, with 2 K3 launches."""
+    from hqtransformer_tpu_torch.models.stage1.generator import \
+        build_generator
+
+    with torch.device('meta'):
+        gen = build_generator(cfg, torch.bfloat16)
+    gen = gen.to_empty(device='cuda').eval()
+    gen.load_state_dict(weights, strict=True, assign=True)
+    torch.cuda.synchronize()
+    reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        (dec_t, dec), _, codes = gen(images, bottom_bypass=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(vq, da, st)
+    require(launches == (2, 0, 0), f'bottom_bypass launches K3, K1, K2 '
+            f'{launches}, expected (2, 0, 0)')
+    for d in (dec_t, dec):
+        require(tuple(d.shape) == tuple(images.shape) and
+                bool(torch.isfinite(d).all()), 'bottom_bypass pixels')
+    require(not torch.equal(dec_t, dec), 'bottom_bypass top-only pixels '
+            'equal the full decode')
+    print(f'{cfg.hparams_aux.upsample} forward(bottom_bypass=True) at batch '
+          f'{B}: {seconds * 1e3:.1f} ms, launches K3={launches[0]}, pixels '
+          f'{tuple(dec_t.shape)} and {tuple(dec.shape)} finite')
+
+
+def soft_argmin_check(model, images, codes):
+    """The soft path's hard codes are the argmin of the f32 distances that
+    its soft maps are the softmax of, recomputed here level by level."""
+    from hqtransformer_tpu_torch.ops import quantize as q
+    from hqtransformer_tpu_torch.ops.vq_argmin import codebook_distances
+
+    gen, (ct, cb) = model.stage1, codes
+    with torch.inference_mode():
+        h_b = gen._encode_map(images)
+        z_t = gen.down_t(h_b)
+        d_t = codebook_distances(z_t.reshape(-1, z_t.shape[-1]),
+                                 gen.quantize_t.codebook)
+        require(torch.equal(d_t.argmin(1).reshape(ct.shape), ct),
+                'soft top codes are not the argmin of their distances')
+        quant_t = q.straight_through(
+            z_t, gen.quantize_t.get_codebook_entry(ct.reshape(
+                z_t.shape[:-1])))
+        r = h_b - gen.upsample_t(quant_t)
+        d_b = codebook_distances(r.reshape(-1, r.shape[-1]),
+                                 gen._bottom_quantizer.codebook)
+        require(torch.equal(d_b.argmin(1).reshape(cb.shape), cb),
+                'soft bottom codes are not the argmin of their distances')
+
+
+def run_soft_codes(vq, da, st):
+    """TwoStageModel.extract_codes(temp_soft_labels) on the soft-label
+    config at batch 128, bf16 weights, twice: no K3 launch (the soft path
+    takes argmin of its f32 distances, as JAX routes it), soft maps
+    [128, T, 8192] whose rows sum to 1 within SOFT_ROW_TOL, hard codes the
+    argmin of those distances; their agreement with the K3 codes of a
+    plain extract_codes; one stochastic call."""
+    model, weights, _ = bf16_model(
+        SOFT_S2, lambda cfg: torch.zeros(B, dtype=torch.long))
+    temp = model.config.stage2.temp_soft_labels
+    res = model.config.dataset.image_resolution
+    images = seeded_images(B, res, seed=10)
+    for call in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+        t0 = time.perf_counter()
+        codes, softs = model.extract_codes(weights, images,
+                                           temp_soft_labels=temp)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts(vq, da, st)
+        require(launches == (0, 0, 0), f'soft extract_codes launches K3, '
+                f'K1, K2 {launches}, expected none')
+        require([tuple(c.shape) for c in codes] == [(B, 64), (B, 256)] and
+                [tuple(t.shape) for t in softs] ==
+                [(B, 64, N_CODES), (B, 256, N_CODES)],
+                f'soft shapes {[tuple(t.shape) for t in softs]}')
+        row_err = max(float((t.sum(-1) - 1).abs().max()) for t in softs)
+        require(row_err <= SOFT_ROW_TOL, f'soft rows sum to 1 +- {row_err}')
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f'soft extract_codes (temp {temp}) call {call} at batch {B}: '
+              f'{seconds * 1e3:.1f} ms, peak {peak:.2f} GiB, launches '
+              f'K3={launches[0]}, rows sum to 1 within {row_err:.2e}')
+    soft_argmin_check(model, images, codes)
+    reset_counts(vq.vq_argmin)
+    hard, _ = model.extract_codes(weights, images)
+    require(vq.vq_argmin.launches == 2, 'plain extract_codes did not run K3')
+    agree = [float((a == b).float().mean()) for a, b in zip(codes, hard)]
+    print(f'soft hard codes: the argmin of their distances; equal to the K3 '
+          f'codes of a plain extract_codes in {agree[0]:.4%} (top), '
+          f'{agree[1]:.4%} (bottom) of positions')
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    reset_counts(vq.vq_argmin)
+    drawn, _ = model.extract_codes(weights, images, temp_soft_labels=temp,
+                                   generator=gen)
+    require(vq.vq_argmin.launches == 0, 'stochastic soft codes ran K3')
+    for c in drawn:
+        require(int(c.min()) >= 0 and int(c.max()) < N_CODES,
+                'stochastic soft codes out of range')
+    same = [float((a == b).float().mean()) for a, b in zip(drawn, codes)]
+    print(f'stochastic soft codes: in range; equal to the argmin in '
+          f'{same[0]:.4%} (top), {same[1]:.4%} (bottom) of positions')
+
+
+def stage1_tiny_config(name):
+    """The tiny config's stage 1 (32^2 images, 256 codes of dim 64) as a
+    generator no released config builds or as a released resampler."""
+    import dataclasses
+
+    from hqtransformer_tpu_torch.config import build_twostage_config
+
+    cfg = build_twostage_config(str(TINY)).stage1
+    kind, *rest = name.split('-')
+    aux = dataclasses.replace(cfg.hparams_aux, upsample=rest[0] if rest
+                              else None, decoding_type=rest[1] if
+                              len(rest) > 1 else 'concat')
+    hp = cfg.hparams
+    if name == 'vqgan2-nearest-sum':
+        # its encoder's 16^2 map and decoder_top's add: equal widths
+        hp = dataclasses.replace(hp, ch_mult=[2, 2])
+    if kind == 'hqvae3':
+        kind, aux.code_levels = 'hqvae', 3
+    return dataclasses.replace(cfg, type=kind, hparams=hp, hparams_aux=aux,
+                               ema_update=kind != 'vqgan',
+                               n_embed_levels=[64, 128, 256])
+
+
+STAGE1_TINY = ('vqgan', 'vqgan2-deconv2d-concat', 'vqgan2-nearest-sum',
+               'simrqgan2-nearest', 'simrqgan2-conv2', 'hqvae3-conv2')
+
+
+@contextlib.contextmanager
+def k3_inputs():
+    """The (z, codebook) of every nearest-code search while the context is
+    open (a spy on the name `ops/quantize.py::vq_lookup` calls)."""
+    from hqtransformer_tpu_torch.ops import quantize as q
+    real, seen = q.vq_argmin, []
+
+    def spy(z, e):
+        seen.append((z, e))
+        return real(z, e)
+
+    q.vq_argmin = spy
+    try:
+        yield seen
+    finally:
+        q.vq_argmin = real
+
+
+def check_stage1_variants_reference(vq):
+    """Tiny f32 versions of the generators only this slice runs (VQGAN
+    with its learned codebook, VQGAN2 in both upsample modes and decoding
+    types, the 2-level HQ-VAE with nearest and conv2, the 3-level one with
+    conv2), seeded weights: make_reconstructor through K3 on the card and
+    through the CPU plain path on the same images, codes equal, pixels
+    within 1e-3. A level's codes may differ only as phase 4 allows K3 to,
+    at rows whose two distances tie within f32 rounding (`compare_codes`
+    on the CPU's search inputs, at most 1% of rows; these seeds put rows
+    1.3 f32 steps of |z|^2 + |e|^2 from a tie); the levels below such a
+    level and the pixels then follow different codes and are not
+    compared."""
+    from hqtransformer_tpu_torch.evaluation.stage1 import (
+        init_stage1_weights, make_reconstructor)
+
+    images = seeded_images(8, 32, seed=12, device='cpu')
+    for i, name in enumerate(STAGE1_TINY):
+        cfg = stage1_tiny_config(name)
+        weights = init_stage1_weights(cfg, seed=20 + i, device='cpu')
+        with k3_inputs() as searched:
+            ref_px, ref_levels = make_reconstructor(cfg, device='cpu')(
+                weights, images)
+        reset_counts(vq.vq_argmin)
+        px, levels = make_reconstructor(cfg, device='cuda')(
+            {k: v.cuda() for k, v in weights.items()}, images.cuda())
+        torch.cuda.synchronize()
+        require(vq.vq_argmin.launches == len(ref_levels),
+                f'tiny {name} launched K3 {vq.vq_argmin.launches} times')
+        shapes = [tuple(c.shape) for c in levels]
+        for li, (c, ref, (z, e)) in enumerate(zip(levels, ref_levels,
+                                                  searched)):
+            if not torch.equal(c.cpu(), ref):
+                n_diff, gap = compare_codes(z, e, c.cpu().flatten(),
+                                            ref.flatten(), max_share=0.01)
+                print(f'tiny {name} reconstruction: level {li} of {shapes} '
+                      f'takes the other code of a near-tie in {n_diff} '
+                      f'rows (f64 gap {gap:.2e}); the levels above equal '
+                      f'the CPU plain path')
+                break
+        else:
+            err = (px.cpu() - ref_px).abs().max().item()
+            require(err <= 1e-3, f'tiny {name} pixels differ by {err}')
+            print(f'tiny {name} reconstruction: codes of {shapes} equal to '
+                  f'the CPU plain path, max|pixels - cpu| = {err:.2e}')
+
+
+def run_stage1_rest(vq, da, st):
+    """Phase 12. Returns ({config stem: {dtype: images/s}}, K3 launches of
+    an avgpool / conv2 bf16 reconstruction)."""
+    t0 = time.perf_counter()
+    rates, k3 = {}, None
+    for path, seed in ((AVGPOOL, 13), (CONV2, 14)):
+        rates[path.stem], k3, cfg, w16, images = \
+            run_resampler_reconstruction(vq, da, st, path, seed)
+    run_bottom_bypass(vq, da, st, cfg, w16, images)
+    del w16, images
+    torch.cuda.empty_cache()
+    run_soft_codes(vq, da, st)
+    torch.cuda.empty_cache()
+    print(f'phase 12 (the rest of stage 1): {time.perf_counter() - t0:.1f} s')
+    return rates, k3
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(
         description='Smoke test of the PyTorch/CUDA port on one GPU; with '
@@ -2786,11 +3091,15 @@ def main(argv=None) -> int:
         da, st, q8)
     run_level3(vq, da, st)
     k3f_launches, f32_images_per_s = run_encode_f32(vq, da, st)
+    stage1_rates, k3d_launches = run_stage1_rest(vq, da, st)
+    require(k3_shapes[K3_D256][5] == 0 and k3f_shapes[K3_D256][5] == 0,
+            'K3 at the avgpool / conv2 top differs from plain')
     check_small_reference(vq)
     check_level3_reference(st)
     check_top2mid2bot_reference()
     check_conditioned_reference()
     check_other_samplers_reference()
+    check_stage1_variants_reference(vq)
 
     kernels = []
     source = 'hqtransformer_tpu_torch/csrc/'
@@ -2818,7 +3127,10 @@ def main(argv=None) -> int:
              max(k3_err, k3_served_err), flagship_entry(k3_shapes)),
             ('vq_argmin_f32', source + 'vq_argmin.cu',
              'hqtransformer_tpu/ops/pallas_vq.py:63', k3f_launches,
-             max(k3_err, k3f_served_err), flagship_entry(k3f_shapes))):
+             max(k3_err, k3f_served_err), flagship_entry(k3f_shapes)),
+            ('vq_argmin_d256', source + 'vq_argmin.cu',
+             'hqtransformer_tpu/ops/pallas_vq.py:63', k3d_launches,
+             max(k3_err, k3_served_err), k3_shapes[K3_D256][:4])):
         kernels.append({'name': name, 'route': 'cuda', 'source': src,
                         'replaces': replaces, 'launches': n,
                         'max_abs_err': err, 'ms': ms, 'kernel_ms': ms,
@@ -2828,7 +3140,10 @@ def main(argv=None) -> int:
           f'{samples_per_s:.2f} samples/s at batch {B}; 3-level sampling '
           f'{level3_samples_per_s:.2f} samples/s at batch {B}; encode slice '
           f'{images_per_s:.2f} images/s at batch {B} in bf16, '
-          f'{f32_images_per_s:.2f} in f32')
+          f'{f32_images_per_s:.2f} in f32; ' + '; '.join(
+              f'{stem} {r[torch.bfloat16]:.2f} in bf16, '
+              f'{r[torch.float32]:.2f} in f32'
+              for stem, r in stage1_rates.items()))
     print(json.dumps({'kernels': kernels}))
     print(f'nvidia-smi: {nvidia_smi()}')
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

@@ -13,8 +13,11 @@ the port's own copy of the mapping that the JAX package's
 * a Dense kernel [I, O] becomes a weight [O, I]; a conv kernel HWIO becomes
   OIHW (`transpose(3, 2, 0, 1)`), except the conv-transpose upsamplers,
   which already keep the torch layout;
-* `scale` (norms) and `embedding` (nn.Embed) become `weight`;
-* `ema` leaves (the quantizer codebooks) keep their names.
+* `scale` (norms) and `embedding` (nn.Embed) become `weight`, but a
+  learned codebook becomes its quantizer's `embedding.weight`; the JAX
+  export names that of an N-level HQ-VAE level `quantizers.<n>.weight`,
+  which is not the reference's layout;
+* `ema` leaves (the EMA codebooks) keep their names.
 
 `convert_scales` carries the int8 serving collections (`act_scales`,
 `kv_scales`) to the port's module names by the same segment mapping, and
@@ -128,7 +131,9 @@ def convert_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             elif name == 'scale':
                 out[key('weight')] = arr
             elif name == 'embedding':
-                if segs and segs[-1].split('.')[-1].startswith('quantize'):
+                # a learned codebook is its quantizer's nn.Embedding, in
+                # quantize, quantize_t / _b and quantizers.<n> alike
+                if segs and segs[-1].startswith('quantize'):
                     out[key('embedding.weight')] = arr
                 else:
                     out[key('weight')] = arr

@@ -46,12 +46,13 @@ def make_reconstructor(stage1_cfg: Stage1Config,
     clipped to [-1, 1], per-level code maps [B, h, w], top first).
     `weights` is a stage-1 state dict; `dtype` the activation dtype. The
     device is CUDA unless asked, and there every level's nearest-code
-    search is one K3 launch. top_only (2-level generators) decodes the top
-    codes alone, with zeros for the bottom quantization."""
+    search is one K3 launch. Every stage-1 type is taken. top_only
+    (the 2-level HQ-VAE) decodes the top codes alone, with zeros for the
+    bottom quantization."""
     device = resolve_device(device)
     gen = _generator(stage1_cfg, dtype, device)
     if top_only and not hasattr(gen, 'forward_topbottom'):
-        raise ValueError(f'top_only needs a 2-level generator, not '
+        raise ValueError(f'top_only needs the 2-level HQ-VAE, not '
                          f'{stage1_cfg.type!r}')
 
     @torch.inference_mode()
@@ -63,12 +64,18 @@ def make_reconstructor(stage1_cfg: Stage1Config,
             (dec, _, _), _, codes = gen.forward_topbottom(images)
         else:
             dec, _, codes = gen(images)
-        # a 2-level generator returns (code_t, code_b, resid); an N-level
-        # one its codes and then the residual loss
-        levels = codes[:2] if isinstance(codes, tuple) else codes[:-1]
-        return torch.clamp(dec, -1.0, 1.0), list(levels)
+        return torch.clamp(dec, -1.0, 1.0), code_levels(codes)
 
     return reconstruct
+
+
+def code_levels(codes) -> List[torch.Tensor]:
+    """The per-level code maps, top first, in a generator's forward output:
+    a VQGAN's one map; a 2-level generator's (code_t, code_b[, resid]); an
+    N-level one's codes and then the residual loss."""
+    if isinstance(codes, torch.Tensor):
+        return [codes]
+    return list(codes[:2] if isinstance(codes, tuple) else codes[:-1])
 
 
 def reconstruction_mse(images: torch.Tensor,

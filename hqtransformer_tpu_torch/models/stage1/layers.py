@@ -60,6 +60,18 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d that computes in its input's dtype: the JAX
+    package's `TorchConvTranspose` (VQGAN2's 'deconv2d' upsample, k 4,
+    stride 2, padding 1), whose kernel is already in torch's layout
+    [Cin, Cout, k, k]."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(x.dtype),
+                                  self.bias.to(x.dtype), self.stride,
+                                  self.padding)
+
+
 class QuantizableConv2d(Conv2d):
     """Conv2d with the A8W8 path of int8max serving: with `q8` set, the
     input is quantized per tensor (static scale, else max|x| / 127) and

@@ -10,8 +10,9 @@ Counterpart of `hqtransformer_tpu/models/twostage.py` for the ported paths:
 - stage-2 type 'bottom' builds the text-to-image `Transformer1d`, which
   `sampling/engine.py::make_txt2img_sampler` samples;
 - `extract_codes(weights, images)` encodes images [B, 256, 256, 3] in
-  [-1, 1] to raster codes, and `forward(weights, images, labels)` runs the
-  teacher-forced stage-2 forward on them, giving its logits.
+  [-1, 1] to raster codes (with `temp_soft_labels`, also the soft code
+  maps of soft-label training), and `forward(weights, images, labels)`
+  runs the teacher-forced stage-2 forward on them, giving its logits.
 
 Labels, the conditioning of every entry point, are per the config's
 `stage2`: class ids [B] under `use_cls_cond`; caption token ids
@@ -62,7 +63,7 @@ from ..sampling.engine import (LevelSampling, SamplingParams, Scales,
                                make_multilevel_sampler)
 from .stage1.generator import build_generator
 from .stage1.layers import QuantizableConv2d
-from .stage1.quantizer import EMAVectorQuantizer
+from .stage1.quantizer import EMAVectorQuantizer, VectorQuantizer
 from .stage2.hierarchical import HierarchicalGPT, cells_to_raster
 from .stage2.layers import QuantizableLinear
 from .stage2.multilevel import MultiLevelHQTransformer
@@ -151,8 +152,10 @@ def load_serving_scales(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
 def random_state(module: nn.Module, generator: torch.Generator
                  ) -> Dict[str, torch.Tensor]:
     """Seeded random weights for every entry of module's state dict, f32 on
-    the generator's device: lecun-normal projections and convolutions, zero
-    biases, unit norm scales, N(0, 0.02) embeddings and N(0, 1) codebooks."""
+    the generator's device, at the JAX initialisers' scales: lecun-normal
+    projections and convolutions, zero biases, unit norm scales, N(0, 0.02)
+    embeddings, N(0, 1) EMA codebooks and uniform(-1/K, 1/K) learned
+    ones."""
     dev = generator.device
 
     def normal(shape, std):
@@ -161,9 +164,14 @@ def random_state(module: nn.Module, generator: torch.Generator
     state = {}
     for prefix, m in module.named_modules():
         p = f'{prefix}.' if prefix else ''
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            state[p + 'weight'] = normal(m.weight.shape,
-                                         m.weight[0].numel() ** -0.5)
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            # lecun-normal over the fan-in flax reads from its kernel: all
+            # axes but the output's. A conv-transpose kernel keeps torch's
+            # layout [Cin, Cout, k, k] there, so its fan-in is Cin Cout k.
+            w = m.weight.shape
+            fan_in = (w[0] * w[1] * w[2] if isinstance(m, nn.ConvTranspose2d)
+                      else m.weight[0].numel())
+            state[p + 'weight'] = normal(w, fan_in ** -0.5)
             if m.bias is not None:
                 state[p + 'bias'] = torch.zeros(m.bias.shape, device=dev)
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
@@ -174,6 +182,10 @@ def random_state(module: nn.Module, generator: torch.Generator
             state[p + 'embedding'] = emb
             state[p + 'embedding_avg'] = emb.clone()
             state[p + 'cluster_size'] = torch.zeros(m.n_embed, device=dev)
+        elif isinstance(m, VectorQuantizer):
+            u = torch.rand((m.n_embed, m.dim), generator=generator,
+                           device=dev)
+            state[p + 'embedding.weight'] = (2 * u - 1) / m.n_embed
     for name, t in module.state_dict().items():
         if name not in state:   # embeddings and sos_depth
             state[name] = normal(t.shape, 0.02)
@@ -231,15 +243,27 @@ class TwoStageModel:
             module.load_state_dict(state, strict=True, assign=True)
 
     @torch.inference_mode()
-    def extract_codes(self, weights: Weights, images: torch.Tensor):
+    def extract_codes(self, weights: Weights, images: torch.Tensor,
+                      temp_soft_labels: Optional[float] = None,
+                      generator: Optional[torch.Generator] = None):
         """Stage-1 codes of images [B, H, W, 3] in [-1, 1]: ((codes_t
-        [B, Ttop], codes_b [B, Tbot]) in raster order, (None, None)); the
-        second pair stands for the soft codes, which are not ported."""
+        [B, Ttop], codes_b [B, Tbot]) in raster order, (soft_t, soft_b)).
+        The soft codes are None unless `temp_soft_labels` is given; then
+        they are [B, T, K], each level's softmax(-d / temp_soft_labels) over
+        its codebook, and the codes are the nearest (the JAX package's
+        extract_codes) or, given a `generator`, drawn from them."""
         self._two_levels('extract_codes')
         self.load_weights(weights)
         B = images.shape[0]
-        code_t, code_b = self.stage1.get_codes(images.to(self.device))
-        return (code_t.reshape(B, -1), code_b.reshape(B, -1)), (None, None)
+        images = images.to(self.device)
+        if temp_soft_labels is None:
+            code_t, code_b = self.stage1.get_codes(images)
+            return (code_t.reshape(B, -1), code_b.reshape(B, -1)), \
+                (None, None)
+        codes, softs = self.stage1.get_soft_codes(
+            images, temp_soft_labels, generator is not None, generator)
+        return (tuple(c.reshape(B, -1) for c in codes),
+                tuple(s.reshape(B, -1, s.shape[-1]) for s in softs))
 
     @torch.inference_mode()
     def forward(self, weights: Weights, images: torch.Tensor,

@@ -220,14 +220,6 @@ def test_encode_shared_codebook():
     _equal(ours[4][1], ref[4][1])
 
 
-@pytest.mark.parametrize('upsample', ['conv2', 'nearest', None])
-def test_other_resamplers_not_ported(upsample):
-    cfg = torch_config(CFG).stage1
-    cfg.hparams_aux.upsample = upsample
-    with pytest.raises(NotImplementedError):
-        build_generator(cfg)
-
-
 def test_forward(generators):
     cfg, jg, variables, tg = generators
     x = _images(6, cfg.hparams.resolution, B=3)
