@@ -248,6 +248,39 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    as phase 4 allows), pixels within 1e-3. The JSON line gains
    `vq_argmin_d256`, K3 at the avgpool / conv2 top in bf16.
 
+13. int8 serving of every sampler and the serving entry points (after
+   phase 12), seeded random bf16 weights, batch 128:
+   - K1's int8 kernel against its plain version on Transformer1d's cache
+     (L 4, T 319, d 1536, 24 heads) at pos 64, 191, 255 and 318, batch
+     128 and 1024: caches bit-equal, y within phase 7's bound; then timed
+     at each position beside its plain version and its bound (the int8
+     bytes read once). The JSON line gains `decode_attention_int8_t320`
+     (pos 191; its launches are Transformer1d's int8 call's);
+   - `-bidirectional` and `-causal` (top2bot): two bf16 calls, the three
+     calibrations (measure_throughput's), two int8max calls of
+     make_pixel_sampler (756 K1, all int8; 64 or 320 K2; exactly the
+     3,072 spatial A8W8 gemms, the depth passes and head_bot float),
+     samples/s and peak memory beside bf16's, the code agreement on one
+     seed, the int8max AR loop profiled;
+   - IGPT with an int8 cache and the int8 decode (756 int8 K1, 64 K2,
+     int8 convolutions and no int8 gemm) and Transformer1d with an int8
+     cache (1,020 int8 K1 at pos 64..318, 256 K2), scales from a float
+     run (`_flat_kv_scales`), each twice beside two bf16 calls, AR loops
+     profiled;
+   - the CLIs, each in a subprocess, with their wall seconds:
+     `cli.sampling_hqmodel` from an fp16 Lightning `.ckpt` of the
+     flagship's random weights (two pickles [128, 3, 256, 256] f32 in
+     [0, 1]); `cli.measure_throughput` in int8max, `scales_out=` and then
+     `scales_in=` at batch 128 (its ms/sample lines);
+     `cli.sampling_hqmodel_txt2img` on CC15M with four captions and
+     `--clip-rerank 4` by a random ViT-B/32 state dict (the ranked pickle,
+     finite sorted scores).
+   At the end, tiny f32 bidirectional, top2bot, IGPT and Transformer1d
+   models with an int8 KV cache sample greedily on the card and on the
+   CPU: equal codes; and tiny bidirectional and top2bot models in
+   int8max, teacher-forced on seeded codes: top-1 agreement of the card's
+   and the CPU's depth logits at least 90%.
+
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
 non-zero without that line; so it does without a CUDA device or outside a
@@ -1171,7 +1204,7 @@ def sampling_shape(model):
 
 
 def checked_call(model, call, labels, name, da, st, q8, int8=False,
-                 bisect3=False, top_p=False):
+                 bisect3=False, top_p=False, a8w8=None):
     """One call of a sampler, checked: `call()` gives (pixels, codes) for
     `labels`' batch n, codes one tensor or a tuple of the levels' (see
     `sampling_shape`: N positions, each of the shapes there with a leading
@@ -1180,8 +1213,9 @@ def checked_call(model, call, labels, name, da, st, q8, int8=False,
     on the int8 variant with `int8`); draws x N K2 launches (all with the
     quartile search with `bisect3`; none with `top_p`, whose draws leave
     the kernel as in JAX); int8 gemms and convolutions counted with
-    `int8`, none without. Prints samples/s and peak memory; returns
-    (codes, samples/s)."""
+    `int8`, none without, unless `a8w8` says which of the two must run
+    (the flat baselines' int8 cache runs no gemm). Prints samples/s and
+    peak memory; returns (codes, samples/s)."""
     n = labels.shape[0]
     n_top, draws, sample_shapes = sampling_shape(model)
     res = model.config.dataset.image_resolution
@@ -1210,7 +1244,8 @@ def checked_call(model, call, labels, name, da, st, q8, int8=False,
             f'{name} K1 at pos {span}, expected {first}..'
             f'{first + n_top - 2}')
     gemms, convs = q8.int8_matmul.launches, q8.int8_conv2d.launches
-    require((gemms > 0 and convs > 0) if int8 else (gemms, convs) == (0, 0),
+    require((gemms > 0, convs > 0) == ((int8, int8) if a8w8 is None
+                                       else a8w8),
             f'{name} int8 gemms, convs {(gemms, convs)}')
     levels = codes if isinstance(codes, tuple) else (codes,)
     shapes = [(n,) + s for s in sample_shapes]
@@ -2515,14 +2550,18 @@ def run_depth_modes(da, st, q8):
     return joint
 
 
-def ar_loop_profile(model, weights, params, labels, gen, name):
-    """The AR loop alone, timed and profiled (`profile_phases`)."""
+def ar_loop_profile(model, weights, params, labels, gen, name, int8=None,
+                    scales=None):
+    """The AR loop alone, timed and profiled (`profile_phases`); `int8`
+    and `scales` as the sampler takes them."""
+    from hqtransformer_tpu_torch.ops.int8 import Int8Serving
     from hqtransformer_tpu_torch.sampling.engine import \
         make_hierarchical_sampler
 
     model.load_weights(weights)
     sampler = make_hierarchical_sampler(
-        model.stage2, model.top_res * model.top_res, params)
+        model.stage2, model.top_res * model.top_res, params,
+        int8 or Int8Serving(), scales)
     profile_phases(((f'{name} AR loop', lambda: sampler(gen, labels)),))
 
 
@@ -3008,6 +3047,467 @@ def run_stage1_rest(vq, da, st):
     return rates, k3
 
 
+# ------------------- phase 13: int8 serving of every sampler, and the CLIs
+
+# K1's int8 kernel on Transformer1d's cache (4 layers, T_FLAT rows): the
+# first and last step, and the rounds between.
+K1_INT8_FLAT_LAYERS = 4
+K1_INT8_FLAT_POSITIONS = (64, 191, 255, 318)
+# per spatial layer and position of a 2-level sampler: the fused QKV,
+# proj, mlp.0 and mlp.2 gemms, A8W8 under spatial_gemms
+SPATIAL_GEMMS = 4
+CLI_CAPTIONS = ('A red fox in the snow, in watercolor.',
+                'Two old sailboats beside a lake at dusk.',
+                'A bowl of ramen on a wooden table.',
+                'A lighthouse on a cliff, as a pencil sketch.')
+
+
+def check_k1_int8_flat(da):
+    """K1's int8 kernel against its plain version on Transformer1d's cache
+    (L 4, T_FLAT rows, d 1536, 24 heads) at K1_INT8_FLAT_POSITIONS, batch
+    128 and 1024: caches bit-equal, y within 2e-2 in units of 1/127
+    (`k1_case`, phase 7's bound). Returns the largest |y - plain| / 127."""
+    err = 0.0
+    for batch in (B, B_LARGE):
+        for pos in K1_INT8_FLAT_POSITIONS:
+            layer = pos % K1_INT8_FLAT_LAYERS
+            e = k1_case(da, 'int8', K1_INT8_FLAT_LAYERS, T_FLAT, batch, D,
+                        NH, pos, layer, seed=pos + batch + 1)
+            err = max(err, e)
+            print(f'K1 int8 cache, bf16 q, L={K1_INT8_FLAT_LAYERS} '
+                  f'T={T_FLAT} B={batch} layer={layer} pos={pos:3d}: caches '
+                  f'bit-equal, max|y - plain| / 127 = {e:.3e} (tol 2e-2)')
+        torch.cuda.empty_cache()
+    return err
+
+
+def time_k1_int8_flat(da):
+    """K1's int8 kernel at batch 128 on Transformer1d's cache at each of
+    K1_INT8_FLAT_POSITIONS, beside its plain version and its bound (the
+    int8 rows read once); the calls rotate over enough layers to hold
+    K1_ROTATE_BYTES. No PyTorch call attends over an int8 cache: no
+    library time. Returns {pos: (kernel, plain, None, bound)}."""
+    out = {}
+    for pos in K1_INT8_FLAT_POSITIONS:
+        n_layers = max(4, -(-K1_ROTATE_BYTES // (2 * (pos + 1) * B * D)))
+        g = torch.Generator(device='cuda').manual_seed(pos + 3)
+        kc, vc = (torch.randint(-128, 128, (n_layers, T_FLAT, B, D),
+                                generator=g, device='cuda', dtype=torch.int8)
+                  for _ in range(2))
+        kn, vn = (torch.randint(-128, 128, (B, D), generator=g,
+                                device='cuda', dtype=torch.int8)
+                  for _ in range(2))
+        q = (torch.randn((B, D), generator=g, device='cuda') *
+             0.02).bfloat16()
+        kernel = time_ms(lambda i: da.decode_attention_step(
+            q, kn, vn, kc, vc, i % n_layers, pos, NH), 240)
+        plain = time_ms(lambda i: da.decode_attention_step_plain(
+            q, kn, vn, kc, vc, i % n_layers, pos, NH), 24)
+        bnd = bound(k1_bytes(pos, B, True), k1_flops(pos, B))
+        print(f'K1 int8 cache, T {T_FLAT}, bf16 q, pos {pos} B {B}: kernel '
+              f'{kernel:.5f} ms, plain {plain:.5f} ms, bound {bnd[0]:.5f} ms '
+              f'({bnd[1]}; kernel {kernel / bnd[0]:.2f}x)')
+        out[pos] = (kernel, plain, None, bnd)
+        del kc, vc
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_int8_depth_modes(da, st, q8):
+    """`-bidirectional` and `-causal` (top2bot) in int8max: two bf16
+    calls, the three calibrations as measure_throughput takes them (its
+    `calibrate`), two int8max calls of make_pixel_sampler (756
+    K1 launches, all int8; 64 or 320 K2; exactly the spatial gemms A8W8,
+    12 layers x 4 at the prefill and the 63 steps: the depth passes and
+    head_bot float), samples/s and peak memory beside bf16's, the code
+    agreement with bf16 on one generator seed, and the int8max AR loop
+    profiled."""
+    from hqtransformer_tpu_torch.cli.measure_throughput import calibrate
+    from hqtransformer_tpu_torch.sampling.engine import SamplingParams
+
+    params = SamplingParams(**SAMPLING_2048)
+    for path, mode in ((BIDIR_S2, 'bidirectional'), (CAUSAL_S2, 'top2bot')):
+        model, weights, labels = bf16_model(
+            path, lambda cfg: torch.arange(B) % cfg.stage2.hparams.n_classes)
+        n_top = model.top_res * model.top_res
+        spatial = model.config.stage2.hparams.n_layers * SPATIAL_GEMMS * n_top
+        bf16 = model.make_pixel_sampler(params=params)
+        gen = torch.Generator(device='cuda').manual_seed(1)
+        for call in (1, 2):
+            out, rate16 = sampler_call(model, weights, bf16, gen, labels,
+                                       f'{mode} bf16 call {call} (phase 13)',
+                                       da, st, q8)
+            if call == 1:
+                codes16 = out
+        peak16 = torch.cuda.max_memory_allocated() / 2**30
+        scales = calibrate({'serving': 'int8max', 'code_levels': 2}, model,
+                           weights, labels, n_top)
+        sampler = model.make_pixel_sampler(params=params, int8=q8.INT8MAX,
+                                           scales=scales)
+        gen = torch.Generator(device='cuda').manual_seed(1)
+        for call in (1, 2):
+            codes, rate = sampler_call(model, weights, sampler, gen, labels,
+                                       f'{mode} int8max call {call}', da, st,
+                                       q8, int8=True)
+            require(q8.int8_matmul.launches == spatial,
+                    f'{mode} int8max ran {q8.int8_matmul.launches} A8W8 '
+                    f'gemms, expected the {spatial} spatial ones only')
+            if call == 1:
+                agree = [float((a == b).float().mean())
+                         for a, b in zip(codes, codes16)]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(all(getattr(m, 'q8', None) is None
+                    for m in model.stage2.modules()),
+                f'{mode}: serving state left behind')
+        print(f'{mode} int8max: {rate:.2f} samples/s, peak {peak:.2f} GiB '
+              f'against bf16 {rate16:.2f} samples/s, {peak16:.2f} GiB in this '
+              f'run ({rate / rate16:.2f}x); A8W8 gemms {spatial} a call, all '
+              f'spatial; codes on one generator seed (random weights) equal '
+              f'to bf16\'s: top {agree[0]:.2%}, bottom {agree[1]:.2%}')
+        ar_loop_profile(model, weights, params, labels, gen,
+                        f'{mode} int8max', q8.INT8MAX, scales)
+        del model, weights, scales
+        torch.cuda.empty_cache()
+
+
+def run_int8_flat(da, st, q8):
+    """The flat baselines with an int8 KV cache, scales from a float run
+    (`_flat_kv_scales`): IGPT through make_pixel_sampler_igpt with the int8
+    cache and the A8W8 decode (its scales on a bf16 call's top codes),
+    twice (756 K1, all int8; 64 K2; int8 convolutions, no int8 gemm); then
+    Transformer1d through make_txt2img_sampler with the int8 cache and 64
+    prefix tokens, twice (1,020 K1 at pos 64..318, all int8; 256 K2; no
+    A8W8), its codes decoded in bf16 with the top codes; each beside a
+    bf16 call in this run, and both AR loops profiled. Returns
+    Transformer1d's int8 K1 launches of a call."""
+    from hqtransformer_tpu_torch.models.twostage import _flat_kv_scales
+    from hqtransformer_tpu_torch.sampling.engine import (make_igpt_sampler,
+                                                         make_txt2img_sampler)
+
+    kv, kv_convs = (q8.Int8Serving(kv_cache=True),
+                    q8.Int8Serving(kv_cache=True, decode_convs=True))
+    top_model, top_weights, labels = bf16_model(
+        IGPT_S2, lambda cfg: torch.arange(B) % cfg.stage2.hparams.n_classes)
+    igpt16 = top_model.make_pixel_sampler_igpt()
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    for call in (1, 2):
+        out, rate16 = sampler_call(top_model, top_weights, igpt16, gen,
+                                   labels, f'IGPT bf16 call {call} (phase 13)',
+                                   da, st, q8)
+        if call == 1:
+            top16 = out
+    top_model.load_weights(top_weights)
+    scales = _flat_kv_scales(top_model.stage2,
+                             torch.Generator(device='cuda').manual_seed(2),
+                             labels, 64, top_k=256)
+    scales.update(top_model.calibrate_int8_decode(
+        top_weights, top16.reshape(-1, 8, 8), None))
+    sampler = top_model.make_pixel_sampler_igpt(int8=kv_convs, scales=scales)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    for call in (1, 2):
+        top_codes, rate = sampler_call(
+            top_model, top_weights, sampler, gen, labels,
+            f'IGPT int8 cache + int8 decode call {call}', da, st, q8,
+            int8=True, a8w8=(False, True))
+    print(f'IGPT int8 cache + int8 decode: {rate:.2f} samples/s against '
+          f'bf16 {rate16:.2f} in this run ({rate / rate16:.2f}x); codes on '
+          f'one generator seed equal to bf16\'s: '
+          f'{float((top_codes == top16).float().mean()):.2%} (call 2)')
+    top_model.load_weights(top_weights)
+    igpt8 = make_igpt_sampler(top_model.stage2, 64, top_k=256, int8=kv,
+                              scales=scales)
+    profile_phases((('IGPT int8 cache AR loop', lambda: igpt8(gen, labels)),))
+
+    bot_model, bot_weights, _ = bf16_model(TXT2IMG_S2, lambda cfg: labels)
+    prefix = top_codes.long()
+    bot_model.load_weights(bot_weights)
+    bot_scales = _flat_kv_scales(
+        bot_model.stage2, torch.Generator(device='cuda').manual_seed(3),
+        prefix, N_FLAT_IMG, top_k=256)
+    rates = {}
+    for name, int8, sc in (('bf16', q8.Int8Serving(), None),
+                           ('int8 cache', kv, bot_scales)):
+        txt2img = make_txt2img_sampler(bot_model.stage2, N_FLAT_IMG,
+                                       top_k=256, int8=int8, scales=sc)
+
+        def pair_call():
+            bot_model.load_weights(bot_weights)
+            bottom = txt2img(gen, prefix)
+            top_model.load_weights(top_weights)
+            return decode_pair(top_model, top_codes, bottom, None), bottom
+        for call in (1, 2):
+            _, rates[name] = checked_call(
+                bot_model, pair_call, prefix,
+                f'Transformer1d {name} call {call} (+ bf16 stage-1 decode)',
+                da, st, q8, int8=int8.kv_cache, a8w8=(False, False))
+    k1 = da.decode_attention_step.int8_launches
+    print(f'Transformer1d int8 cache: {rates["int8 cache"]:.2f} samples/s '
+          f'against bf16 {rates["bf16"]:.2f} in this run '
+          f'({rates["int8 cache"] / rates["bf16"]:.2f}x)')
+    bot_model.load_weights(bot_weights)
+    profile_phases((('Transformer1d int8 cache AR loop',
+                     lambda: txt2img(gen, prefix)),))
+    del top_model, top_weights, bot_model, bot_weights
+    torch.cuda.empty_cache()
+    return k1
+
+
+def run_cli(args, name, timeout=600):
+    """One port CLI in a subprocess of its own (`python -m
+    hqtransformer_tpu_torch.cli.<name>`), from the checkout's root: its
+    stdout, and its wall seconds printed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-m',
+                           f'hqtransformer_tpu_torch.cli.{name}', *args],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f'cli.{name} exited {proc.returncode}:\n'
+            f'{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}')
+    print(f'cli.{name} {" ".join(args[:2])} ...: {seconds:.1f} s wall')
+    return proc.stdout
+
+
+def _pickle(path):
+    import pickle
+    with open(path, 'rb') as f:
+        return pickle.load(f)
+
+
+def run_clis():
+    """The port's three CLIs, each in its own process, at full width:
+    sampling_hqmodel from a Lightning-layout .ckpt of the flagship's seeded
+    random weights in fp16 (2 classes of 128 samples: two pickles
+    [128, 3, 256, 256] f32 in [0, 1]); measure_throughput in int8max,
+    calibrating into an artifact, then measuring from it at batch 128 (its
+    ms/sample lines); sampling_hqmodel_txt2img on CC15M with four captions
+    and CLIP re-ranking of 4 candidates each by a seeded random ViT-B/32
+    state dict (the ranked pickle, finite scores sorted best first)."""
+    import tempfile
+
+    import numpy as np
+
+    from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.evaluation.clip_rerank import CLIP
+    from hqtransformer_tpu_torch.models.twostage import (TwoStageModel,
+                                                         random_state)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        model = TwoStageModel(build_twostage_config(str(FLAGSHIP)))
+        sd = {f'{stage}.{k}': t.half().cpu()
+              for stage, w in model.init_weights(seed=0).items()
+              for k, t in w.items()}
+        torch.save({'state_dict': sd, 'epoch': 0}, tmp / 'model.ckpt')
+        del model, sd
+        torch.cuda.empty_cache()
+        out = run_cli(['-r', str(tmp / 'cls'), '-m',
+                       str(tmp / 'model.ckpt'), '-c', str(FLAGSHIP),
+                       '--num-classes', '2', '--total-samples', '256',
+                       '--batch-size', '128', '--top-k', '2048'],
+                      'sampling_hqmodel')
+        for ln in out.splitlines():
+            if 'ms/sample' in ln:
+                print(f'  {ln}')
+        for c in (1, 2):
+            px = _pickle(tmp / 'cls' / f'samples_({c}_0).pkl')
+            require(px.dtype == np.float32 and px.shape == (B, 3, 256, 256)
+                    and np.isfinite(px).all() and px.min() >= 0 and
+                    px.max() <= 1, f'cli samples_({c}_0).pkl: {px.dtype} '
+                    f'{px.shape}')
+        print('cli.sampling_hqmodel: samples_(1_0).pkl, samples_(2_0).pkl '
+              f'f32 {(B, 3, 256, 256)} in [0, 1]')
+
+        scales = str(tmp / 'scales.pkl')
+        cfg = [f'model_path={FLAGSHIP}', 'serving=int8max']
+        run_cli(cfg + [f'scales_out={scales}'], 'measure_throughput')
+        out = run_cli(cfg + [f'scales_in={scales}', f'batch_size={B}',
+                             'samples_per_loop=256', 'n_loop=2'],
+                      'measure_throughput')
+        lines = [ln for ln in out.splitlines() if 'ms/sample' in ln]
+        require(len(lines) == 5 and lines[-1].startswith(f'bs{B} | '),
+                f'measure_throughput printed {lines}')
+        for ln in lines:
+            print(f'  {ln}')
+
+        (tmp / 'captions.txt').write_text('\n'.join(CLI_CAPTIONS) + '\n')
+        with torch.device('meta'):
+            clip = CLIP()
+        clip_state = random_state(clip, torch.Generator().manual_seed(11))
+        torch.save({k: t.half() for k, t in clip_state.items()},
+                   tmp / 'clip.pt')
+        del clip, clip_state
+        n = len(CLI_CAPTIONS)
+        run_cli(['-r', str(tmp / 'txt'), '-c', str(CC15M_S2),
+                 '--random-init', '--captions', str(tmp / 'captions.txt'),
+                 '--batch-size', str(n), '--clip-rerank', '4',
+                 '--clip-weights', str(tmp / 'clip.pt')],
+                'sampling_hqmodel_txt2img')
+        px = _pickle(tmp / 'txt' / f'samples_(1_{n}).pkl')
+        scores = np.load(tmp / 'txt' / f'clip_scores_(1_{n}).npz')['scores']
+        require(px.shape == (n, 4, 3, 256, 256) and px.dtype == np.float32
+                and np.isfinite(px).all(), f'cli txt2img samples {px.shape}')
+        require(scores.shape == (n, 4) and np.isfinite(scores).all() and
+                (np.diff(scores, axis=1) <= 0).all(),
+                f'cli txt2img CLIP scores {scores}')
+        print(f'cli.sampling_hqmodel_txt2img: samples_(1_{n}).pkl f32 '
+              f'{px.shape}, CLIP scores sorted best first: '
+              f'{np.round(scores, 4).tolist()}')
+    print(f'the CLIs: {time.perf_counter() - t0:.1f} s')
+
+
+@torch.inference_mode()
+def forced_depth_logits(model, labels, top, bottoms, int8, scales):
+    """The serving loop of a `bidirectional` or `top2bot` 2-level model
+    with the given codes in place of draws (top [n, N], bottoms
+    [n, N, ratio]): every position's depth logits [n, N, 1 + ratio, V],
+    as the mode's sampler computes them (the JAX package has no scorer
+    for these modes; this one exists for the card-against-CPU check)."""
+    from hqtransformer_tpu_torch.sampling.engine import _serving_loop
+
+    m = model
+
+    def depth(i, h):
+        t, b = top[:, i], bottoms[:, i]
+        if m.depth_mode == 'bidirectional':
+            logits = torch.cat(m.depth_bidirectional(h), dim=1)
+        else:
+            kc, vc = m.depth_caches(h.shape[0], h.device)
+            x = m.depth_causal_step(h[:, None] + m.sos_depth.to(h.dtype), kc,
+                                    vc, 0)
+            out = [m.head_top(m.ln_top(x[:, 0]))]
+            prev = [t] + list(b.unbind(1))
+            pos = m.pos_emb_depth.weight
+            for step in range(1, m.len_seq_depth):
+                table = m.tok_emb_top_depth if step == 1 else \
+                    m.tok_emb_bot_depth
+                x = m._emb(table, prev[step - 1]) + pos[step - 1].to(h.dtype)
+                x = m.depth_causal_step(x[:, None], kc, vc, step)
+                out.append(m.head_bot(m.ln_bot(x[:, 0])))
+            logits = torch.stack(out, dim=1)
+        return (t, b), logits.float()
+
+    outs, _ = _serving_loop(m, labels, top.shape[1], int8, scales, depth)
+    return torch.stack(outs, dim=1)
+
+
+def check_int8_references():
+    """Tiny models (d 128, 4 heads) of phase 13's paths with the same
+    weights and scales on the card and on the CPU plain path:
+    - the bidirectional and top2bot modes, IGPT over 16 codes and
+      Transformer1d over 64 after a 16-token prefix, f32 with an int8 KV
+      cache (scales from a CPU float run), greedy (top-k 1): the codes
+      equal;
+    - the bidirectional and top2bot modes in int8max (bf16, scales
+      calibrated on the CPU), teacher-forced on seeded codes: top-1
+      agreement of the depth logits >= 90%, the repo's bound for int8
+      logits (tests/test_torch_int8.py). Greedy bf16 codes cannot be held
+      equal: K1's int8 kernel gives y within a bf16 step of its plain
+      version (phase 7's bound), and a near-tie that flips then changes
+      every later position."""
+    from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.models.stage2.hierarchical import \
+        cells_to_raster
+    from hqtransformer_tpu_torch.models.twostage import (
+        TwoStageModel, _flat_kv_scales, _kv_scales, build_stage2,
+        random_state, serving_bf16_params)
+    from hqtransformer_tpu_torch.ops.int8 import INT8MAX, Int8Serving
+    from hqtransformer_tpu_torch.sampling.engine import (
+        SamplingParams, make_hierarchical_sampler, make_igpt_sampler,
+        make_txt2img_sampler)
+
+    greedy = SamplingParams(top_k_top=1, top_k_bot=1)
+    kv = Int8Serving(kv_cache=True)
+    g = torch.Generator().manual_seed(12)
+    labels = torch.arange(8) % 10
+    prefix = torch.randint(0, 256, (8, 16), generator=g)
+    for kind in ('hq-transformer/bidirectional4', 'hq-transformer', 'top',
+                 'bottom'):
+        cfg = build_twostage_config(str(TINY))
+        cfg.stage2.type = kind
+        if kind == 'bottom':
+            cfg.stage2.hparams.ctx_len_img = 64
+            cfg.stage2.hparams.ctx_len_txt = 16
+        cpu = build_stage2(cfg).eval()
+        state = random_state(cpu, torch.Generator().manual_seed(9))
+        cpu.load_state_dict(state)
+        gpu = build_stage2(cfg).cuda().eval()
+        gpu.load_state_dict(state)
+        cond, n = (prefix, 64) if kind == 'bottom' else (labels, 16)
+        if kind.startswith('hq'):
+            _, caches = make_hierarchical_sampler(
+                cpu, n, greedy, return_caches=True)(torch.Generator(), cond)
+            scales = _kv_scales(caches)
+        else:
+            scales = _flat_kv_scales(cpu, torch.Generator().manual_seed(2),
+                                     cond, n, top_k=8)
+        codes = []
+        for m, dev in ((cpu, 'cpu'), (gpu, 'cuda')):
+            gen, c = torch.Generator(device=dev), cond.to(dev)
+            if kind == 'top':
+                out = make_igpt_sampler(m, n, top_k=1, int8=kv,
+                                        scales=scales)(gen, c)
+            elif kind == 'bottom':
+                out = make_txt2img_sampler(m, n, top_k=1, int8=kv,
+                                           scales=scales)(gen, c)
+            else:
+                out = make_hierarchical_sampler(m, n, greedy, kv, scales)(
+                    gen, c)
+            codes.append([t.cpu() for t in
+                          (out if isinstance(out, tuple) else (out,))])
+        agree = [float((a == b).float().mean()) for a, b in zip(*codes)]
+        require(all(a == 1.0 for a in agree), f'tiny {kind} f32 int8-cache '
+                f'greedy codes: card equal to CPU at {agree}')
+        print(f'tiny {kind} f32 int8-cache greedy codes: card equal to CPU '
+              f'({[tuple(c.shape) for c in codes[0]]})')
+    for kind in ('hq-transformer/bidirectional4', 'hq-transformer'):
+        cfg = build_twostage_config(str(TINY))
+        cfg.stage2.type = kind
+        models = {dev: TwoStageModel(cfg, torch.bfloat16, device=dev)
+                  for dev in ('cpu', 'cuda')}
+        weights = {s: serving_bf16_params(w)
+                   for s, w in models['cpu'].init_weights(9).items()}
+        scales = models['cpu'].calibrate_kv_scales(
+            weights, torch.Generator().manual_seed(1), labels, greedy)
+        ct = torch.randint(0, 256, (8, 16), generator=g)
+        cells = torch.randint(0, 256, (8, 16, 4), generator=g)
+        scales.update(models['cpu'].calibrate_stage2_int8(
+            weights, ct, cells_to_raster(cells, 4, 2).reshape(8, -1),
+            labels))
+        logits = []
+        for dev, m in models.items():
+            m.load_weights(weights)
+            logits.append(forced_depth_logits(
+                m.stage2, labels.to(dev), ct.to(dev), cells.to(dev),
+                INT8MAX, scales).cpu())
+        ref, out = logits
+        top1 = float((ref.argmax(-1) == out.argmax(-1)).float().mean())
+        err = float((out - ref).abs().max())
+        require(bool(torch.isfinite(out).all()) and top1 >= 0.9,
+                f'tiny {kind} int8max teacher-forced depth logits: top-1 '
+                f'agreement card/CPU {top1:.2%}, max|d| {err:.3f}')
+        print(f'tiny {kind} int8max teacher-forced depth logits '
+              f'{tuple(out.shape)}: top-1 card = CPU at {top1:.2%}, '
+              f'max|card - cpu| {err:.4f} (logits up to '
+              f'{float(ref.abs().max()):.2f})')
+
+
+def run_serving_rest(da, st, q8):
+    """Phase 13. Returns the `decode_attention_int8_t320` JSON row's
+    numbers: (Transformer1d's int8 K1 launches, max |y - plain| / 127,
+    the times at pos 191)."""
+    t0 = time.perf_counter()
+    err = check_k1_int8_flat(da)
+    times = time_k1_int8_flat(da)
+    run_int8_depth_modes(da, st, q8)
+    launches = run_int8_flat(da, st, q8)
+    run_clis()
+    print(f'phase 13 (int8 serving of every sampler, the CLIs): '
+          f'{time.perf_counter() - t0:.1f} s')
+    return launches, err, times[191]
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(
         description='Smoke test of the PyTorch/CUDA port on one GPU; with '
@@ -3092,6 +3592,7 @@ def main(argv=None) -> int:
     run_level3(vq, da, st)
     k3f_launches, f32_images_per_s = run_encode_f32(vq, da, st)
     stage1_rates, k3d_launches = run_stage1_rest(vq, da, st)
+    k1ft_launches, k1ft_err, k1ft_times = run_serving_rest(da, st, q8)
     require(k3_shapes[K3_D256][5] == 0 and k3f_shapes[K3_D256][5] == 0,
             'K3 at the avgpool / conv2 top differs from plain')
     check_small_reference(vq)
@@ -3100,6 +3601,7 @@ def main(argv=None) -> int:
     check_conditioned_reference()
     check_other_samplers_reference()
     check_stage1_variants_reference(vq)
+    check_int8_references()
 
     kernels = []
     source = 'hqtransformer_tpu_torch/csrc/'
@@ -3113,6 +3615,9 @@ def main(argv=None) -> int:
             ('decode_attention_t320', source + 'decode_attention.cu',
              'hqtransformer_tpu/ops/pallas_attention.py:200', k1f_launches,
              k1f_err, k1f_times),
+            ('decode_attention_int8_t320', source + 'decode_attention.cu',
+             'hqtransformer_tpu/ops/pallas_attention.py:200', k1ft_launches,
+             k1ft_err, k1ft_times),
             ('sample_topk', source + 'sample_topk.cu',
              'hqtransformer_tpu/ops/pallas_sample.py:236', launches[1],
              k2_err, k2_times),

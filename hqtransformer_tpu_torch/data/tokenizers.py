@@ -36,6 +36,19 @@ Characters that Python's tables leave unassigned are kept as they are,
 where a reference built on a newer standard library may lowercase one of
 them.
 
+`create_tokenizer('clip')` is the counterpart of the JAX package's
+`ClipSimpleTokenizer`, the byte-level BPE of OpenAI CLIP's text tower
+(`bpe_simple_vocab_16e6.txt.gz`, read with `gzip`), which CLIP re-ranking
+reads: the text cleaned as JAX cleans it (HTML entities unescaped twice,
+NFC, runs of whitespace made one space, stripped, lowercased), split into
+pieces (`clip_pre_tokenize`), each piece's UTF-8 bytes mapped to
+characters and merged by rank; `encode_padded(text, n)` wraps the ids in
+<|startoftext|> and <|endoftext|> and pads with <|endoftext|>. JAX splits
+with the `regex` package's Unicode letter and number classes;
+here they are the Unicode categories L* and N* of Python's `unicodedata`
+(Unicode 15.0), which may differ from that package's newer tables only on
+characters assigned since.
+
 The vocabulary and merges are read as data files from
 `hqtransformer_tpu/assets/tokenizers/` beside this package in the
 repository, or from `vocab_dir`.
@@ -43,16 +56,20 @@ repository, or from `vocab_dir`.
 
 from __future__ import annotations
 
+import gzip
 import heapq
+import html
 import json
+import re
 import unicodedata
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 ASSETS = Path(__file__).resolve().parents[2] / 'hqtransformer_tpu' / \
     'assets' / 'tokenizers'
 FILES = {'bpe16k_huggingface': ('bpe-16k-vocab.json', 'bpe-16k-merges.txt'),
-         'bpe30k_huggingface': ('bpe-30k-vocab.json', 'bpe-30k-merges.txt')}
+         'bpe30k_huggingface': ('bpe-30k-vocab.json', 'bpe-30k-merges.txt'),
+         'clip': ('bpe_simple_vocab_16e6.txt.gz',)}
 UNK, PAD, SUFFIX = '[UNK]', '[PAD]', '</w>'
 
 # CJK ideograph blocks that BertNormalizer pads with spaces.
@@ -217,18 +234,150 @@ class CharBPETokenizer:
         return ids + [self.pad_id] * (context_length - len(ids))
 
 
+# --------------------------------------------------- CLIP's byte-level BPE
+
+SOT, EOT = '<|startoftext|>', '<|endoftext|>'
+# The pieces the split takes whole before any class, in its order.
+_CLIP_LITERALS = (SOT, EOT, "'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+# merges in the vocabulary file that the encoder uses (CLIP's count)
+_CLIP_MERGES = 49152 - 256 - 2
+
+
+def _bytes_to_unicode() -> Dict[int, str]:
+    """CLIP's reversible map of the 256 byte values to printable
+    characters."""
+    bs = (list(range(ord('!'), ord('~') + 1)) +
+          list(range(ord('\xa1'), ord('\xac') + 1)) +
+          list(range(ord('\xae'), ord('\xff') + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, map(chr, cs)))
+
+
+def clean_clip_text(text: str) -> str:
+    """HTML entities unescaped twice, NFC, whitespace runs made one space,
+    stripped and lowercased."""
+    text = unicodedata.normalize('NFC', html.unescape(html.unescape(text)))
+    return re.sub(r'\s+', ' ', text).strip().lower()
+
+
+def _clip_class(ch: str) -> str:
+    """'L' (a letter), 'N' (a number), ' ' (whitespace) or 'O'."""
+    major = unicodedata.category(ch)[0]
+    if major in 'LN':
+        return major
+    return ' ' if ch.isspace() else 'O'
+
+
+def clip_pre_tokenize(text: str) -> List[str]:
+    """CLIP's split of cleaned text, as JAX's pattern
+    `<|startoftext|>|<|endoftext|>|'s|'t|'re|'ve|'m|'ll|'d|[\\p{L}]+|
+    [\\p{N}]|[^\\s\\p{L}\\p{N}]+` finds it: at each position the first
+    literal that starts there, else a run of letters, one number, or a
+    run of other characters; whitespace separates."""
+    pieces, i, n = [], 0, len(text)
+    while i < n:
+        literal = next((t for t in _CLIP_LITERALS if text.startswith(t, i)),
+                       None)
+        if literal is not None:
+            pieces.append(literal)
+            i += len(literal)
+            continue
+        kind = _clip_class(text[i])
+        j = i + 1
+        if kind in 'LO':
+            while j < n and _clip_class(text[j]) == kind:
+                j += 1
+        if kind != ' ':
+            pieces.append(text[i:j])
+        i = j
+    return pieces
+
+
+class ClipSimpleTokenizer:
+    """CLIP's text tokenizer over `bpe_simple_vocab_16e6.txt.gz`."""
+
+    def __init__(self, bpe_path: Path):
+        with gzip.open(bpe_path) as f:
+            lines = f.read().decode('utf-8').split('\n')
+        merges = [tuple(m.split()) for m in lines[1:_CLIP_MERGES + 1]]
+        self.byte_encoder = _bytes_to_unicode()
+        vocab = list(self.byte_encoder.values())
+        vocab += [v + SUFFIX for v in vocab]
+        vocab += [''.join(m) for m in merges] + [SOT, EOT]
+        self.encoder = {tok: i for i, tok in enumerate(vocab)}
+        self.bpe_ranks = {m: i for i, m in enumerate(merges)}
+        self.cache = {SOT: SOT, EOT: EOT}
+        self.sot, self.eot = self.encoder[SOT], self.encoder[EOT]
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.encoder)
+
+    def _bpe(self, token: str) -> str:
+        """The merged symbols of one piece's byte characters, joined by
+        spaces: the pair of lowest rank merged everywhere, until none of
+        its pairs has a rank."""
+        if token in self.cache:
+            return self.cache[token]
+        word = tuple(token[:-1]) + (token[-1] + SUFFIX,)
+        while len(word) > 1:
+            pairs = set(zip(word, word[1:]))
+            first, second = min(pairs, key=lambda p: self.bpe_ranks.get(
+                p, float('inf')))
+            if (first, second) not in self.bpe_ranks:
+                break
+            merged, i = [], 0
+            while i < len(word):
+                if i < len(word) - 1 and word[i] == first and \
+                        word[i + 1] == second:
+                    merged.append(first + second)
+                    i += 2
+                else:
+                    merged.append(word[i])
+                    i += 1
+            word = tuple(merged)
+        self.cache[token] = out = ' '.join(word)
+        return out
+
+    def encode(self, text: str) -> List[int]:
+        """The ids of `text`, without the start and end tokens."""
+        ids: List[int] = []
+        for piece in clip_pre_tokenize(clean_clip_text(text)):
+            chars = ''.join(self.byte_encoder[b] for b in piece.encode())
+            ids.extend(self.encoder[t] for t in self._bpe(chars).split(' '))
+        return ids
+
+    def encode_padded(self, text: str, context_length: int) -> List[int]:
+        """<|startoftext|>, the ids of `text` cut to context_length - 2,
+        <|endoftext|>, then <|endoftext|> up to `context_length`."""
+        ids = [self.sot] + self.encode(text)[:context_length - 2] + \
+            [self.eot]
+        return ids + [self.eot] * (context_length - len(ids))
+
+
+Tokenizer = Union[CharBPETokenizer, ClipSimpleTokenizer]
+
+
 def create_tokenizer(name: str = 'bpe16k_huggingface',
-                     vocab_dir: Optional[str] = None) -> CharBPETokenizer:
+                     vocab_dir: Optional[str] = None) -> Tokenizer:
     """The tokenizer `name` ('bpe16k_huggingface' or 'bpe30k_huggingface';
-    'bpe16k' and 'bpe30k' name them too), its files read from `vocab_dir`
-    or from the repository's assets."""
+    'bpe16k' and 'bpe30k' name them too; 'clip', CLIP's), its files read
+    from `vocab_dir` or from the repository's assets."""
     name = {'bpe16k': 'bpe16k_huggingface',
             'bpe30k': 'bpe30k_huggingface'}.get(name, name)
     if name not in FILES:
         raise NotImplementedError(f'tokenizer {name!r} is not ported')
     root = Path(vocab_dir) if vocab_dir is not None else ASSETS
-    vocab, merges = (root / f for f in FILES[name])
-    return CharBPETokenizer(vocab, merges)
+    paths = [root / f for f in FILES[name]]
+    if name == 'clip':
+        return ClipSimpleTokenizer(*paths)
+    return CharBPETokenizer(*paths)
 
 
 def tokenize(texts: List[str], context_length: int = 64,

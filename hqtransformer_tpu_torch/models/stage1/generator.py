@@ -18,9 +18,9 @@ Images come in and pixels go out NHWC [B, H, W, 3], code maps are
 [B, H, W], the JAX package's layouts; the convolutions inside run NCHW. The
 EMA update (training) is not ported.
 
-`int8_decode(act_scales)` makes the decoder's convolutions A8W8 for the
-duration of one int8max serving call (the JAX package's HQT_INT8_DECODE
-inside `int8_decode_scope`).
+`int8_decode(act_scales)` makes the generator's quantizable convolutions
+A8W8 for the duration of one int8max serving call (the JAX package's
+HQT_INT8_DECODE inside `int8_decode_scope`).
 """
 
 from __future__ import annotations
@@ -131,16 +131,18 @@ class _Stage1Base(nn.Module):
     @contextlib.contextmanager
     def int8_decode(self, act_scales: Mapping[str, torch.Tensor]
                     ) -> Iterator[None]:
-        """Quantize every `QuantizableConv2d` of the decoder once, and run
-        them A8W8 until the context exits: with the static scale
-        `act_scales['decoder.<name>']` where there is one, else with
-        max|x| / 127 of each call, as the JAX QuantizableConv. Raises for
-        activations that are not bf16."""
+        """Quantize every `QuantizableConv2d` of the generator once, and
+        run them A8W8 until the context exits, as JAX's
+        `int8_decode_scope` switches every `QuantizableConv` (all that its
+        `conv()` builds: the encoder's, the decoder's, VQGAN2's
+        `decoder_top`): with the static scale `act_scales[<full module
+        name>]` where there is one, else with max|x| / 127 of each call.
+        A decode runs the decoder's alone. Raises for activations that
+        are not bf16."""
         if self.dtype != torch.bfloat16:
             raise ValueError(f'int8 convolutions run on bf16 activations; '
                              f'this model computes in {self.dtype}')
-        convs = [(f'decoder.{name}', m)
-                 for name, m in self.decoder.named_modules()
+        convs = [(name, m) for name, m in self.named_modules()
                  if isinstance(m, QuantizableConv2d)]
         try:
             for name, m in convs:

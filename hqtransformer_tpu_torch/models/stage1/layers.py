@@ -13,8 +13,9 @@ GroupNorm computes in f32 and returns the input dtype; attention scores and
 softmax are f32. Dropout is left out: every path of the port is inference.
 
 The convolutions the JAX package builds through its `conv()` helper (its
-`QuantizableConv`) are `QuantizableConv2d` here: with `q8` set (the
-generator's `int8_decode` does so for the decoder's during an int8max
+`QuantizableConv`: the 'same' convs, the stride-2 `Downsample` conv and the
+encoder's stride-2 `conv_in`) are `QuantizableConv2d` here: with `q8` set
+(the generator's `int8_decode` sets it on all of them during an int8max
 serving call) they run A8W8 (`ops/int8.py::int8_conv2d`).
 
 Reproduced quirks, both of which decide where attention blocks sit:
@@ -75,9 +76,9 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 class QuantizableConv2d(Conv2d):
     """Conv2d with the A8W8 path of int8max serving: with `q8` set, the
     input is quantized per tensor (static scale, else max|x| / 127) and
-    convolved with the per-output-channel int8 weight, in int32. Built by
-    `conv()` only, so always dense (no groups, no dilation), the JAX
-    package's condition for its int8 branch."""
+    convolved with the per-output-channel int8 weight, in int32. Always
+    dense (no groups, no dilation), the JAX package's condition for its
+    int8 branch."""
 
     q8: Optional[Int8Weight] = None
 
@@ -110,7 +111,7 @@ class Downsample(nn.Module):
 
     def __init__(self, channels: int, with_conv: bool = True):
         super().__init__()
-        self.conv = (Conv2d(channels, channels, 3, stride=2)
+        self.conv = (QuantizableConv2d(channels, channels, 3, stride=2)
                      if with_conv else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -174,7 +175,8 @@ class Encoder(nn.Module):
         super().__init__()
         n_levels = len(ch_mult)
         if use_init_downsample:
-            self.conv_in = Conv2d(in_channels, ch, 4, stride=2, padding=1)
+            self.conv_in = QuantizableConv2d(in_channels, ch, 4, stride=2,
+                                             padding=1)
         else:
             self.conv_in = conv(in_channels, ch, 3)
 

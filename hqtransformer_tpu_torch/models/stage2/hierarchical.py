@@ -38,8 +38,9 @@ int8max serving: `serving(int8, scales)` prepares one sampler call (see
 A8W8 when passed `int8=True` and `depth_second_logits` likewise, head_bot
 included, as the JAX package's `int8_stage2_scope` does around them.
 `depth_first_logits`, `embed_cell_step` (its `emb_blocks` too) and
-`head_txt` stay float, as in JAX. The other depth modes have no int8
-serving in the port (the sampler refuses it).
+`head_txt` stay float, as in JAX. In the `bidirectional` and `top2bot`
+modes only the spatial side runs int8 (cache and gemms); their depth
+passes and both heads stay float (`depth_int8`), as in JAX.
 """
 
 from __future__ import annotations
@@ -166,7 +167,12 @@ class SpatialDecoding:
     """The serving state and the spatial transformer's serving steps on
     the packed [L, T, B, D] KV caches, for a model with `blocks`, `depths`,
     `ln_f`, `dtype`, `int8_heads()` and `int8_embedding()`: the 2-level
-    and the 3-level models share them."""
+    and the 3-level models and the flat baselines share them.
+    `depth_int8` says whether `depth_gemms` quantizes the depth blocks and
+    the `int8_heads()`: the models whose depth passes JAX runs in its
+    int8 scope."""
+
+    depth_int8: bool = True
 
     @contextlib.contextmanager
     def serving(self, int8: Int8Serving = Int8Serving(),
@@ -175,8 +181,9 @@ class SpatialDecoding:
         """Prepare the modules for one serving call and undo it on exit:
         every attention layer's fused QKV and K/V weights concatenated in
         the activation dtype; with `int8.spatial_gemms` / `depth_gemms`
-        the spatial / depth blocks' gemms (and the `int8_heads()`)
-        quantized, with the static activation scales of
+        the spatial / depth blocks' gemms (and the `int8_heads()`; the
+        depth ones only where `depth_int8`) quantized, with the static
+        activation scales of
         `scales['stage2/act_scales']`, and with `spatial_gemms` the
         `int8_embedding()` gemms too; with `int8.kv_cache` the spatial
         layers' cache scales from `scales['stage2/kv_scales']`. Raises on a
@@ -189,11 +196,11 @@ class SpatialDecoding:
                              f'model computes in {self.dtype}')
         act = scales.get('stage2/act_scales', {})
         kv = scales.get('stage2/kv_scales', {}) if int8.kv_cache else None
+        depth8 = int8.depth_gemms and self.depth_int8
         attn, quantized = [], []
         for prefix, blocks, gemms in (('blocks', self.blocks,
                                        int8.spatial_gemms),
-                                      ('depths', self.depths,
-                                       int8.depth_gemms)):
+                                      ('depths', self.depths, depth8)):
             for i, blk in enumerate(blocks):
                 name = f'{prefix}.{i}'
                 attn.append(blk.attn.prepare_serving(
@@ -205,7 +212,7 @@ class SpatialDecoding:
                                   (f'{name}.mlp.2', blk.mlp[2])]
         if int8.spatial_gemms:
             quantized += self.int8_embedding()
-        if int8.depth_gemms:
+        if depth8:
             quantized += self.int8_heads()
         q8 = [Int8Weight.from_float(lin.weight, lin.bias, act_scale(act, name))
               for name, lin in quantized]
@@ -398,6 +405,14 @@ class HierarchicalGPT(Conditioning, SpatialDecoding, nn.Module):
         return logits_top, logits_bot
 
     # --------------------------------------------------------- decode steps
+    @property
+    def depth_int8(self) -> bool:
+        """`depth_gemms` quantizes the depth chain in the `parallel` mode
+        only: JAX enters its int8 scope around the parallel depth-second
+        chain alone, and runs the `bidirectional` pass and the `top2bot`
+        chain (head_bot included) in float."""
+        return self.depth_mode == 'parallel'
+
     def int8_heads(self) -> List[Tuple[str, nn.Module]]:
         """The heads that run A8W8 under `depth_gemms`: head_bot (the
         depth-second chain's; head_top stays float, as in JAX)."""

@@ -15,7 +15,9 @@ GPT over a flat code sequence:
 The prefix is `hierarchical.Conditioning`'s, and the packed-cache prefill
 and decode steps (decode attention K1) are `SpatialDecoding`'s, which the
 samplers (`sampling/engine.py::make_igpt_sampler`, `make_txt2img_sampler`)
-drive through the 2-level models' loop. Both serve in float only.
+drive through the 2-level models' loop. Both serve with a float or an
+int8 KV cache; their gemms stay float, as the JAX flat samplers enter no
+int8 scope.
 """
 
 from __future__ import annotations

@@ -24,7 +24,8 @@ logits after the image ones.
 
 Weights are state dicts in the PyTorch reference's key layout,
 {'stage1': {...}, 'stage2': {...}}: from `TwoStageModel.init_weights` (a
-seeded random init; the repo holds no trained weights) or converted from
+seeded random init; the repo holds no trained weights), from a reference
+Lightning checkpoint by `load_reference_checkpoint`, or converted from
 JAX variables by `convert.py`.
 
 int8max serving: the samplers take `int8` (an `ops.int8.Int8Serving`; all
@@ -49,18 +50,21 @@ from __future__ import annotations
 import contextlib
 import math
 import pickle
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 from torch import nn
 
+from ..checkpoint import (check_reference_path, load_torch_checkpoint,
+                          split_reference_state, widen)
 from ..config import TwoStageConfig, parse_model_type
 from ..convert import convert_scales, export_scales
 from ..device import resolve_device
 from ..ops.int8 import Int8Serving, recording_absmax, scale_from_absmax
 from ..sampling.engine import (LevelSampling, SamplingParams, Scales,
-                               make_hierarchical_sampler, make_igpt_sampler,
-                               make_multilevel_sampler)
+                               _flat_sampler, make_hierarchical_sampler,
+                               make_igpt_sampler, make_multilevel_sampler)
 from .stage1.generator import build_generator
 from .stage1.layers import QuantizableConv2d
 from .stage1.quantizer import EMAVectorQuantizer, VectorQuantizer
@@ -116,11 +120,11 @@ def serving_bf16_params(state: Dict[str, torch.Tensor]
 
 def _on_device(args: Any, device: torch.device,
                samples: slice = slice(None)) -> Any:
-    """The `samples` of every tensor in `args` (tensors and lists of
+    """The `samples` of every tensor in `args` (tensors, None and lists of
     them), moved to `device`."""
     if isinstance(args, (list, tuple)):
         return type(args)(_on_device(a, device, samples) for a in args)
-    return args[samples].to(device)
+    return None if args is None else args[samples].to(device)
 
 
 def _decode_chunked(dec1: Callable, arrays: Sequence[torch.Tensor],
@@ -147,6 +151,39 @@ def load_serving_scales(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
     artifact is a pickle: load only files you wrote."""
     with open(path, 'rb') as f:
         return convert_scales(pickle.load(f))
+
+
+def _kv_scales(caches: Tuple[torch.Tensor, torch.Tensor]) -> Scales:
+    """The int8 KV-cache scales of a float sampling run's final packed
+    caches [L, T, B, D]: each layer's per-channel absmax over (T, B), a
+    prefix's rows included, as max(m, 1e-6) / 127 (the JAX function's
+    default margin of 1). Returns {'stage2/kv_scales':
+    {'blocks.<l>.attn.k' | '.v': [D]}}."""
+    out = {}
+    for which, c in zip('kv', caches):
+        m = torch.maximum(c.amax(dim=(1, 2)), -c.amin(dim=(1, 2)))
+        m = torch.clamp_min(m.float(), 1e-6)
+        s = m / torch.tensor(127.0, device=m.device)
+        for i in range(s.shape[0]):
+            out[f'blocks.{i}.attn.{which}'] = s[i]
+    return {'stage2/kv_scales': out}
+
+
+@torch.inference_mode()
+def _flat_kv_scales(model: Union[IGPT, Transformer1d],
+                    generator: torch.Generator, labels: torch.Tensor,
+                    max_seq_len: int, top_k: Optional[int] = None) -> Scales:
+    """The int8 KV-cache scales of a flat baseline (its loaded weights):
+    one float sampling run on `labels` (top-k `top_k`, temperature 1),
+    its caches reduced by `_kv_scales`, as `calibrate_kv_scales` reduces
+    the hierarchical models'. The JAX package has no flat calibration (its
+    `calibrate_kv_scales` refuses these models and its flat samplers take
+    the scales as given), so this stays private: the tests and the GPU
+    smoke make the flat samplers' scales with it."""
+    sampler = _flat_sampler(model, max_seq_len, top_k, None, 1.0,
+                            Int8Serving(), None, return_caches=True)
+    _, caches = sampler(generator, labels)
+    return _kv_scales(caches)
 
 
 def random_state(module: nn.Module, generator: torch.Generator
@@ -234,6 +271,39 @@ class TwoStageModel:
         return {'stage1': random_state(self.stage1, gen),
                 'stage2': random_state(self.stage2, gen)}
 
+    def load_reference_checkpoint(self, path_or_sd: Union[
+            str, Mapping[str, torch.Tensor]]) -> Weights:
+        """The weights of a reference checkpoint: a Lightning `.ckpt` (or
+        `.pth`, `.pt`) path, read by `checkpoint.load_torch_checkpoint`
+        (trusted files only: it unpickles), or its state dict with
+        'stage1.' / 'stage2.' keys. Every key and shape must match the
+        modules' (JAX's strict=True): raises KeyError naming the
+        unmatched and the missing keys. Returns {'stage1': ...,
+        'stage2': ...} of f32 CPU tensors, for `load_weights` and the
+        samplers."""
+        sd = (load_torch_checkpoint(check_reference_path(path_or_sd))
+              if isinstance(path_or_sd, str) else widen(path_or_sd))
+        weights = split_reference_state(sd)
+        problems = []
+        for name, module in (('stage1', self.stage1),
+                             ('stage2', self.stage2)):
+            want = {k: t.shape for k, t in module.state_dict().items()}
+            got = weights[name]
+            unmatched = sorted(f'{name}.{k}' for k in got
+                               if k not in want or got[k].shape != want[k])
+            missing = sorted(f'{name}.{k}' for k in want if k not in got)
+            if unmatched:
+                problems.append(f'unmatched checkpoint keys (absent or of '
+                                f'another shape) {unmatched[:10]} '
+                                f'(+{max(0, len(unmatched) - 10)} more)')
+            if missing:
+                problems.append(f'keys missing from the checkpoint '
+                                f'{missing[:10]} '
+                                f'(+{max(0, len(missing) - 10)} more)')
+        if problems:
+            raise KeyError('; '.join(problems))
+        return weights
+
     def load_weights(self, weights: Weights) -> None:
         """Make `weights` the modules' tensors (strict key match, no copy
         for tensors already on the model's device)."""
@@ -284,11 +354,10 @@ class TwoStageModel:
                             = None,
                             max_seq_len: Optional[int] = None) -> Scales:
         """Per-channel scales of the int8 KV cache: one float sampling run
-        on `labels` (`params`: the family's sampling knobs, by default
-        the JAX function's, no top-k at temperature 1), whose final caches
-        are reduced to each layer's per-channel absmax over (T, B), a
-        caption's prefix rows included, as in JAX: max(m, 1e-6) / 127 (the
-        JAX function's default margin of 1).
+        on `labels` in the model's own depth mode (`params`: the family's
+        sampling knobs, by default the JAX function's, no top-k at
+        temperature 1), whose final caches `_kv_scales` reduces as JAX
+        does. The flat baselines raise, as in JAX.
         Returns {'stage2/kv_scales': {'blocks.<l>.attn.k' | '.v': [D]}}."""
         if not isinstance(self.stage2, MultiLevelHQTransformer):
             self._two_levels('calibrate_kv_scales')
@@ -303,14 +372,7 @@ class TwoStageModel:
                 self.stage2, n_top, params or (LevelSampling(),) * 3,
                 return_caches=True)
         _, caches = sampler(generator, labels.to(self.device))
-        out = {}
-        for which, c in zip('kv', caches):
-            m = torch.maximum(c.amax(dim=(1, 2)), -c.amin(dim=(1, 2)))
-            m = torch.clamp_min(m.float(), 1e-6)
-            s = m / torch.tensor(127.0, device=m.device)
-            for i in range(s.shape[0]):
-                out[f'blocks.{i}.attn.{which}'] = s[i]
-        return {'stage2/kv_scales': out}
+        return _kv_scales(caches)
 
     @torch.inference_mode()
     def calibrate_stage2_int8(self, weights: Weights, *forward_args) -> Scales:
@@ -320,7 +382,8 @@ class TwoStageModel:
         [B, Ttop], codes_b [B, Tbot] raster, labels) for 2 levels, ([top,
         mid, bottom] raster maps [B, T_l], labels) for 3. The 3-level
         logits are [B, 21 Ttop, V]: the JAX package calibrates on 32
-        samples (64 for 2 levels). A text model's forward also runs
+        samples (64 for 2 levels). The 2-level forward runs the model's
+        own depth mode. A text model's forward also runs
         `head_txt`, which is not quantizable, so no scale is recorded for
         it. Returns {'stage2/act_scales': {name: scale}}."""
         self.load_weights(weights)
@@ -337,9 +400,9 @@ class TwoStageModel:
         `decode_code(*decode_args)` in `chunk`-sample slices, each conv's
         input absmax merged by max over the slices, as max(m, 1e-8) / 127.
         `decode_args` are the stage-1 decode's: code maps code_t
-        [B, Ht, Wt], code_b [B, Hb, Wb] for 2 levels, the list of the
-        levels' maps, top first, for N. Returns {'stage1/act_scales':
-        {name: scale}}."""
+        [B, Ht, Wt], code_b [B, Hb, Wb] for 2 levels (code_b None for the
+        IGPT's top-only decode), the list of the levels' maps, top first,
+        for N. Returns {'stage1/act_scales': {name: scale}}."""
         self.load_weights(weights)
         first = decode_args[0]
         batch = (first[0] if isinstance(first, (list, tuple))
@@ -461,12 +524,14 @@ class TwoStageModel:
             temperature: Sequence[float] = (1.0, 1.0, 1.0),
             bisect3: bool = False, decode_chunk: int = 128,
             int8: Int8Serving = Int8Serving(),
-            scales: Optional[Scales] = None) -> Callable:
+            scales: Optional[Scales] = None,
+            top_p: Sequence[Optional[float]] = (None, None, None)
+            ) -> Callable:
         """End-to-end sampler of the 3-level family: fn(weights, generator,
         labels) -> (pixels [B, H, W, 3] in [0, 1], (tops [B, N], mids
         [B, N, 4], bots [B, N, 16])), with per-level (top, mid, bottom)
-        `top_k` and `temperature`, and `bisect3` for every draw (see
-        `engine.LevelSampling`). The codes go to the stage-1 decode as
+        `top_k`, `top_p` and `temperature`, and `bisect3` for every draw
+        (see `engine.LevelSampling`). The codes go to the stage-1 decode as
         raster maps, in `decode_chunk`-sample chunks. `int8` and `scales`
         choose int8 serving (see the module docstring)."""
         if self.code_levels != 3:
@@ -475,8 +540,9 @@ class TwoStageModel:
         n_top = max_seq_len or self.top_res * self.top_res
         sampler = make_multilevel_sampler(
             self.stage2, n_top, tuple(
-                LevelSampling(top_k=k, temperature=t, bisect3=bisect3)
-                for k, t in zip(top_k, temperature)), int8, scales)
+                LevelSampling(top_k=k, top_p=p, temperature=t,
+                              bisect3=bisect3)
+                for k, p, t in zip(top_k, top_p, temperature)), int8, scales)
         decode = self._pixel_decoder(n_top, decode_chunk, int8, scales)
 
         @torch.inference_mode()
@@ -492,11 +558,17 @@ class TwoStageModel:
                                 top_k: Optional[int] = 256,
                                 top_p: Optional[float] = None,
                                 temperature: float = 1.0,
-                                decode_chunk: int = 128) -> Callable:
+                                decode_chunk: int = 128,
+                                int8: Int8Serving = Int8Serving(),
+                                scales: Optional[Scales] = None) -> Callable:
         """End-to-end sampler of the flat iGPT baseline (stage-2 type
         'top'): fn(weights, generator, labels) -> (pixels [B, H, W, 3] in
         [0, 1], codes [B, N]), the top codes decoded alone (the bottom
-        level zeros), in `decode_chunk`-sample chunks."""
+        level zeros), in `decode_chunk`-sample chunks. `int8` may ask for
+        the int8 KV cache (scales from `_flat_kv_scales`) and the A8W8
+        decode convolutions (`calibrate_int8_decode` on the top maps, the
+        bottom None), as JAX decodes inside `int8_decode_scope`; its gemm
+        switches raise (`engine.make_igpt_sampler`)."""
         if not isinstance(self.stage2, IGPT):
             raise NotImplementedError(
                 f'make_pixel_sampler_igpt takes the IGPT baseline, not '
@@ -504,7 +576,9 @@ class TwoStageModel:
         n_top = max_seq_len or self.top_res * self.top_res
         res = int(math.isqrt(n_top))
         sampler = make_igpt_sampler(self.stage2, n_top, top_k=top_k,
-                                    top_p=top_p, temperature=temperature)
+                                    top_p=top_p, temperature=temperature,
+                                    int8=int8, scales=scales)
+        act = (scales or {}).get('stage1/act_scales', {})
 
         def dec1(codes):
             pixels = self.stage1.decode_code(codes.reshape(-1, res, res),
@@ -516,6 +590,9 @@ class TwoStageModel:
                           labels: torch.Tensor):
             self.load_weights(weights)
             codes = sampler(generator, labels)
-            return _decode_chunked(dec1, [codes], decode_chunk), codes
+            with (self.stage1.int8_decode(act) if int8.decode_convs
+                  else contextlib.nullcontext()):
+                pixels = _decode_chunked(dec1, [codes], decode_chunk)
+            return pixels, codes
 
         return sample_pixels

@@ -43,11 +43,15 @@ class Int8Serving:
     - kv_cache: the spatial KV cache in int8 (decode attention's int8
       variant), with calibrated per-channel scales;
     - depth_gemms: A8W8 gemms in the depth transformer: for the 2-level
-      model the depth-second chain and head_bot (the depth-first step and
-      head_top stay float); for the 3-level model every depth phase and
-      every head_levels.<i>, except phase 0's K/V, which JAX computes with
-      a float product (the JAX sampler wraps all three phases in its
-      int8 scope);
+      model in the `parallel` mode the depth-second chain and head_bot
+      (the depth-first step and head_top stay float); in the
+      `bidirectional` and `top2bot` modes nothing, as HQT_INT8_STAGE2
+      changes nothing there in JAX (its int8 scope wraps the parallel
+      chain alone); for the 3-level model every depth phase and every
+      head_levels.<i>, except phase 0's K/V, which JAX computes with a
+      float product (the JAX sampler wraps all three phases in its int8
+      scope); the flat baselines have no depth transformer and take no
+      gemm switch;
     - spatial_gemms: A8W8 gemms in the spatial prefill (a caption's
       too) and steps (the blocks.* gemms), and the 3-level cell
       embedding's `emb_blocks` (`transformerN`, N > 1), which the JAX

@@ -43,11 +43,13 @@ search instead of its binary one; it is off by default, as in JAX.
 int8 serving: `int8` (an `Int8Serving`) and `scales` (the calibrated
 collections, see `models/twostage.py`) choose the int8 KV cache and the
 A8W8 gemms of the spatial steps and of the depth chain (the 2-level
-depth-second chain; every 3-level depth phase), as the JAX samplers'
-cache_dtype and HQT_INT8_* switches do; the spatial gemms include the
-text prefix's prefill and the 3-level cell embedding's `emb_blocks`. The
-2-level `bidirectional` and `top2bot` modes and the flat baselines serve
-in float only.
+`parallel` depth-second chain; every 3-level depth phase), as the JAX
+samplers' cache_dtype and HQT_INT8_* switches do; the spatial gemms
+include the text prefix's prefill and the 3-level cell embedding's
+`emb_blocks`. The 2-level `bidirectional` and `top2bot` modes take every
+switch, and run their depth passes in float, as JAX does. The flat
+baselines take the int8 KV cache alone: JAX's flat samplers enter no int8
+scope, and the port refuses a gemm switch for them.
 """
 
 from __future__ import annotations
@@ -258,8 +260,8 @@ def make_hierarchical_sampler(model: HierarchicalGPT, max_seq_len: int = 64,
     `TwoStageModel.calibrate_kv_scales`. With `use_given_top`,
     fn(generator, labels, given_top_codes [B, N]): codes_t are the given
     codes and the bottoms are drawn under them (see the module docstring).
-    int8 serving is the `parallel` mode's only: another mode with any
-    `int8` switch on raises ValueError.
+    Every depth mode takes every `int8` switch; outside `parallel`,
+    `depth_gemms` changes nothing (see the module docstring).
 
     The packed [L, T, B, D] KV cache (T = sos_len + N - 1), int8 with
     `int8.kv_cache` and else in the activation dtype, is allocated once
@@ -268,9 +270,6 @@ def make_hierarchical_sampler(model: HierarchicalGPT, max_seq_len: int = 64,
     `n_segments` and `t_compute` are not needed: they bound the
     static-shape compute of the TPU kernel, while the CUDA kernel's loop
     already stops at the current position."""
-    if model.depth_mode != 'parallel' and int8 != Int8Serving():
-        raise ValueError(f'int8 serving of the {model.depth_mode!r} depth '
-                         f'mode is not ported')
     depth_fn = _DEPTH_SAMPLERS[model.depth_mode]
 
     @torch.inference_mode()
@@ -387,9 +386,20 @@ def make_multilevel_sampler(model: MultiLevelHQTransformer,
 
 def _flat_sampler(model: Union[IGPT, Transformer1d], max_seq_len: int,
                   top_k: Optional[int], top_p: Optional[float],
-                  temperature: float) -> Callable:
+                  temperature: float, int8: Int8Serving,
+                  scales: Optional[Scales],
+                  return_caches: bool = False) -> Callable:
     """fn(generator, labels) -> codes [B, max_seq_len], int32: one draw a
-    position from the spatial step's image logits."""
+    position from the spatial step's image logits; with `return_caches`,
+    (codes, (k_caches, v_caches)). `int8` may ask for the int8 KV cache
+    alone (its scales: `scales['stage2/kv_scales']`, the rows
+    `blocks.<l>.attn.{k,v}`); a gemm switch raises ValueError, as JAX's
+    flat samplers run no int8 gemm. `decode_convs` belongs to the pixel
+    decode and is not read here."""
+    if int8.depth_gemms or int8.spatial_gemms:
+        raise ValueError(f'the flat {type(model).__name__} sampler takes '
+                         f'the int8 KV cache alone (Int8Serving(kv_cache='
+                         f'True)), not int8 gemms')
 
     @torch.inference_mode()
     def sample(generator: torch.Generator, labels: torch.Tensor):
@@ -399,9 +409,10 @@ def _flat_sampler(model: Union[IGPT, Transformer1d], max_seq_len: int,
                                       top_p=top_p)
             return (code,), code
 
-        outs, _ = _serving_loop(model, labels, max_seq_len, Int8Serving(),
-                                None, depth)
-        return torch.stack(outs, dim=1)
+        outs, caches = _serving_loop(model, labels, max_seq_len, int8,
+                                     scales, depth)
+        codes = torch.stack(outs, dim=1)
+        return (codes, caches) if return_caches else codes
 
     return sample
 
@@ -409,20 +420,28 @@ def _flat_sampler(model: Union[IGPT, Transformer1d], max_seq_len: int,
 def make_igpt_sampler(model: IGPT, max_seq_len: int = 256,
                       top_k: Optional[int] = None,
                       top_p: Optional[float] = None,
-                      temperature: float = 1.0) -> Callable:
+                      temperature: float = 1.0,
+                      int8: Int8Serving = Int8Serving(),
+                      scales: Optional[Scales] = None) -> Callable:
     """The sampler of the flat iGPT baseline: fn(generator, labels) ->
     codes [B, N], int32, N = max_seq_len (labels: class ids [B], or a dummy
     [B] without class conditioning). One sos token, then N - 1 spatial
-    steps (decode attention at pos 1..N-1), a draw after each."""
-    return _flat_sampler(model, max_seq_len, top_k, top_p, temperature)
+    steps (decode attention at pos 1..N-1), a draw after each. `int8` and
+    `scales`: the int8 KV cache (`_flat_sampler`)."""
+    return _flat_sampler(model, max_seq_len, top_k, top_p, temperature,
+                         int8, scales)
 
 
 def make_txt2img_sampler(model: Transformer1d, max_seq_len: int = 256,
                          top_k: Optional[int] = None,
                          top_p: Optional[float] = None,
-                         temperature: float = 1.0) -> Callable:
+                         temperature: float = 1.0,
+                         int8: Int8Serving = Int8Serving(),
+                         scales: Optional[Scales] = None) -> Callable:
     """The sampler of the text-to-image Transformer1d: fn(generator,
     texts [B, N_txt]) -> codes [B, N], int32, N = max_seq_len. The N_txt
     prefix tokens are prefilled, then N - 1 spatial steps (decode
-    attention at pos N_txt..N_txt + N - 2), a draw after each."""
-    return _flat_sampler(model, max_seq_len, top_k, top_p, temperature)
+    attention at pos N_txt..N_txt + N - 2), a draw after each. `int8` and
+    `scales`: the int8 KV cache (`_flat_sampler`)."""
+    return _flat_sampler(model, max_seq_len, top_k, top_p, temperature,
+                         int8, scales)

@@ -3,8 +3,8 @@ and `use_given_top` in the PyTorch port against the JAX package, on the
 tiny config at d 64, vocabulary 64, 2 spatial and 4 depth layers, a 4x4
 top: the strict load of JAX's export, the teacher-forced logits (f32 and
 bf16), the depth functions, the greedy samplers with and without given top
-codes, the draws each mode makes, and what the port refuses (int8 serving
-and the scorer on these modes).
+codes, the draws each mode makes, and what the port refuses (the scorer
+on these modes).
 
 Both sides get the same weights (JAX init, converted by
 `convert_variables` and loaded with strict=True) and the same numpy
@@ -322,15 +322,13 @@ def test_draws_per_position(monkeypatch, mode, draws):
 
 @pytest.mark.parametrize('mode', list(MODES))
 def test_int8_serving_and_scorer_refuse_the_mode(mode):
-    """int8 serving of these modes is not ported: any switch raises a
-    ValueError that names the mode; the scorer takes the parallel mode
-    only, as JAX asserts."""
+    """The scorer takes the parallel mode only, as JAX asserts: in float
+    and in int8 serving it raises a ValueError that names the mode. (The
+    samplers serve these modes in int8: `test_torch_int8_modes.py`.)"""
     _, _, tm = pair(mode)
-    for int8 in (q8.INT8MAX, q8.Int8Serving(kv_cache=True)):
+    for int8 in (q8.Int8Serving(), q8.INT8MAX):
         with pytest.raises(ValueError, match=mode):
-            make_hierarchical_sampler(tm, N_TOP, int8=int8)
-    with pytest.raises(ValueError, match=mode):
-        make_hierarchical_scorer(tm, N_TOP)
+            make_hierarchical_scorer(tm, N_TOP, int8)
 
 
 def test_given_top_codes_go_with_the_flag():

@@ -325,10 +325,11 @@ def test_depth_phases_int8max_near_jax(bf16_models, monkeypatch):
 # ----------------------------------------------------- (d) quantized sets
 
 def test_int8_decode_quantizes_jax_convs(bf16_models, monkeypatch):
-    """HQVAEGenerator.int8_decode quantizes the convolutions JAX's 3-level
-    decode runs A8W8 under HQT_INT8_DECODE (every decoder QuantizableConv;
-    post_quant_conv_b and the quantizers stay float in both), and their
-    scales carry JAX's names."""
+    """HQVAEGenerator.int8_decode quantizes every convolution JAX builds as
+    a QuantizableConv, which its int8_decode_scope switches (the encoder's
+    and the decoder's; post_quant_conv_b and the quantizers stay float in
+    both); of those, JAX's 3-level decode runs the decoder's A8W8 under
+    HQT_INT8_DECODE, and their scales carry JAX's names."""
     jm, v, tm, _, scales, _ = bf16_models
     maps = [jnp.asarray(m) for m in _maps(_raster_codes(4, 1))]
     calls = []
@@ -341,12 +342,20 @@ def test_int8_decode_quantizes_jax_convs(bf16_models, monkeypatch):
             s1, maps, method=type(jm.stage1).decode_code), v['stage1'], maps)
     jax_convs = {'.'.join(_segment(p) for p in path)
                  for path, _, _, _ in calls}
+    calls.clear()
+    with fnn.intercept_methods(_intercepting(
+            calls, lambda m, method: isinstance(m, QuantizableConv))):
+        jax.eval_shape(jm.stage1.init, jax.random.PRNGKey(0),
+                       jnp.zeros((1, 64, 64, 3), jnp.bfloat16))
+    jax_all = {'.'.join(_segment(p) for p in path)
+               for path, _, _, _ in calls}
     stage1 = tm.stage1
     with stage1.int8_decode(scales['stage1/act_scales']):
         ours = {n for n, m in stage1.named_modules()
                 if getattr(m, 'q8', None) is not None}
-    assert ours == jax_convs == set(scales['stage1/act_scales'])
-    assert all(n.startswith('decoder.') for n in ours)
+    assert ours == jax_all and jax_convs < ours
+    assert jax_convs == set(scales['stage1/act_scales'])
+    assert all(n.startswith('decoder.') for n in jax_convs)
     assert all(getattr(m, 'q8', None) is None for m in stage1.modules())
 
 
