@@ -281,6 +281,27 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    int8max, teacher-forced on seeded codes: top-1 agreement of the card's
    and the CPU's depth logits at least 90%.
 
+14. The data pipeline, FID-Inception and the evaluation CLIs (after
+   phase 13): 256 PNGs written by the script's own encoder (zlib and
+   struct; sizes 256x256, 320x240, 500x375, 375x500, 200x300; RGB, L, P,
+   RGBA, LA; every row filter on some rows) under build/smoke_eval/val/
+   in 4 classes; the loader alone (the decoder it took, ms an image of
+   decode and of the valid transform, images/s at batch 128 with 8
+   workers; two train passes with one seed equal); `cli.eval_stage1`
+   --fid --code-usage --top-only --batch-size 128 on the flagship stage 1
+   (a trainer's .ckpt of seeded random f32 weights) with seeded He-scaled
+   pt_inception-layout weights, in this process (exactly 8 K3 launches,
+   no K1 or K2; MSE finite, both levels' usage in (0, 1], rFID finite)
+   and as a subprocess, wall seconds and images/s; FID-Inception alone
+   (f32, batch 128, 256^2): images/s, peak memory and its bound, its
+   features of 4 images within 1e-4 of a CPU run; `cli.compute_fid_stats`
+   --save-acts over the tree, then `cli.eval_hqmodel` on phase 13's
+   samples (FID finite, precision, recall, coverage in [0, 1], acts.npz),
+   a second call served from the cache with no Inception forward, pixel
+   features' FID; `frechet_distance` at 2048 dimensions timed on the
+   host. The JSON line gains `vq_argmin_f32_eval`, f32 K3 with the
+   launches of the eval_stage1 run.
+
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
 non-zero without that line; so it does without a CUDA device or outside a
@@ -292,7 +313,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -336,6 +359,8 @@ B_LARGE = 1024
 SCALES_PATH = ROOT / 'build' / 'int8max_scales.pkl'
 LEVEL3_SCALES_PATH = ROOT / 'build' / 'int8max_level3_scales.pkl'
 TOP4X4_SCALES_PATH = ROOT / 'build' / 'int8max_top4x4_scales.pkl'
+# phase 13's cli.sampling_hqmodel output, which phase 14 evaluates
+SMOKE_SAMPLES = ROOT / 'build' / 'smoke_samples'
 
 
 def require(ok, message) -> None:
@@ -3302,7 +3327,8 @@ def run_clis():
         torch.save({'state_dict': sd, 'epoch': 0}, tmp / 'model.ckpt')
         del model, sd
         torch.cuda.empty_cache()
-        out = run_cli(['-r', str(tmp / 'cls'), '-m',
+        shutil.rmtree(SMOKE_SAMPLES, ignore_errors=True)
+        out = run_cli(['-r', str(SMOKE_SAMPLES), '-m',
                        str(tmp / 'model.ckpt'), '-c', str(FLAGSHIP),
                        '--num-classes', '2', '--total-samples', '256',
                        '--batch-size', '128', '--top-k', '2048'],
@@ -3311,7 +3337,7 @@ def run_clis():
             if 'ms/sample' in ln:
                 print(f'  {ln}')
         for c in (1, 2):
-            px = _pickle(tmp / 'cls' / f'samples_({c}_0).pkl')
+            px = _pickle(SMOKE_SAMPLES / f'samples_({c}_0).pkl')
             require(px.dtype == np.float32 and px.shape == (B, 3, 256, 256)
                     and np.isfinite(px).all() and px.min() >= 0 and
                     px.max() <= 1, f'cli samples_({c}_0).pkl: {px.dtype} '
@@ -3508,6 +3534,436 @@ def run_serving_rest(da, st, q8):
     return launches, err, times[191]
 
 
+# ------------- phase 14: the data pipeline, FID-Inception, the eval CLIs
+
+PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
+PNG_COLOUR = {'L': 0, 'RGB': 2, 'P': 3, 'LA': 4, 'RGBA': 6}
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    import zlib
+    return (len(body).to_bytes(4, 'big') + kind + body +
+            (zlib.crc32(kind + body) & 0xFFFFFFFF).to_bytes(4, 'big'))
+
+
+def encode_png(array, mode: str, filters, palette=None, bits: int = 8,
+               trns: bytes = None) -> bytes:
+    """The bytes of a PNG file (zlib and struct only) of uint8 `array`
+    ([H, W] or [H, W, bands]) in `mode` ('L', 'LA', 'RGB', 'RGBA', or 'P'
+    with `palette` [n, 3] at `bits` 1, 2, 4 or 8): row r filtered with
+    filter type filters[r % len(filters)] (0 None, 1 Sub, 2 Up, 3
+    Average, 4 Paeth); `trns` is a tRNS chunk's body."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    arr = np.asarray(array, np.uint8)
+    h, w = arr.shape[:2]
+    rows = arr.reshape(h, -1).astype(np.int32)
+    if bits < 8:
+        per_byte = 8 // bits
+        padded = np.zeros((h, -(-w // per_byte) * per_byte), np.int32)
+        padded[:, :w] = rows
+        shifts = 8 - bits * (np.arange(per_byte) + 1)
+        rows = (padded.reshape(h, -1, per_byte) << shifts).sum(-1)
+    bpp = max(1, rows.shape[1] // w if bits == 8 else 1)
+    # every row's raw neighbours are known, so all rows filter at once
+    a = np.pad(rows, ((0, 0), (bpp, 0)))[:, :-bpp]        # left
+    b = np.pad(rows, ((1, 0), (0, 0)))[:-1]               # up
+    c = np.pad(b, ((0, 0), (bpp, 0)))[:, :-bpp]           # up-left
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    kinds = np.asarray([filters[r % len(filters)] for r in range(h)])
+    pred = np.choose(kinds[:, None], [np.zeros_like(rows), a, b,
+                                      (a + b) >> 1, paeth])
+    data = np.concatenate([kinds[:, None], (rows - pred) & 0xFF],
+                          1).astype(np.uint8).tobytes()
+    out = PNG_SIGNATURE + _png_chunk(b'IHDR', struct.pack(
+        '>IIBBBBB', w, h, bits, PNG_COLOUR[mode], 0, 0, 0))
+    if palette is not None:
+        out += _png_chunk(b'PLTE', np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += _png_chunk(b'tRNS', trns)
+    return (out + _png_chunk(b'IDAT', zlib.compress(data, 1)) +
+            _png_chunk(b'IEND', b''))
+
+
+SMOKE_EVAL = ROOT / 'build' / 'smoke_eval'
+STAGE1_FLAGSHIP = ROOT / 'configs/imagenet/stage1/' \
+    'hqvae-pixelshuffle-top8x8.yaml'
+# ImageNet-like sizes (w, h) and the tree's size: two batches of 128
+EVAL_SIZES = ((256, 256), (320, 240), (500, 375), (375, 500), (200, 300))
+EVAL_IMAGES = 256
+
+
+def eval_image(k: int, rng):
+    """Image k of the tree: smooth colour waves plus noise at one of
+    EVAL_SIZES; RGB but for every 16 images one each of L, P, RGBA and
+    LA. -> (array, mode, palette)."""
+    import numpy as np
+
+    w, h = EVAL_SIZES[k % len(EVAL_SIZES)]
+    x, y = np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32)
+    phase = rng.rand(3) * 6.283
+    waves = []
+    for c in range(3):      # sin(u + v) = sin u cos v + cos u sin v
+        u, v = x / (17 + 9 * c) + phase[c], y / (23 + 5 * c)
+        waves.append(127 + 100 * (np.outer(np.cos(v), np.sin(u)) +
+                                  np.outer(np.sin(v), np.cos(u))))
+    rgb = np.clip(np.stack(waves, -1) + rng.randint(-12, 13, (h, w, 3)), 0,
+                  255).astype(np.uint8)
+    alpha = np.broadcast_to((np.arange(w) * 255 // max(w - 1, 1)).astype(
+        np.uint8), (h, w))
+    kind = k % 16
+    if kind == 1:
+        return rgb.mean(-1).astype(np.uint8), 'L', None
+    if kind == 5:
+        return rgb[..., 0], 'P', rng.randint(0, 256, (256, 3))
+    if kind == 9:
+        return np.concatenate([rgb, alpha[..., None]], -1), 'RGBA', None
+    if kind == 13:
+        return np.stack([rgb[..., 1], alpha], -1), 'LA', None
+    return rgb, 'RGB', None
+
+
+def write_eval_tree():
+    """EVAL_IMAGES PNGs under build/smoke_eval/val/class<0..3>/, each row
+    filter type on some rows of every file."""
+    import numpy as np
+
+    shutil.rmtree(SMOKE_EVAL, ignore_errors=True)
+    rng = np.random.RandomState(14)
+    t0 = time.perf_counter()
+    for k in range(EVAL_IMAGES):
+        arr, mode, palette = eval_image(k, rng)
+        filters = [0, 1, 2, 3, 4] + list(rng.randint(0, 5, arr.shape[0]))
+        path = SMOKE_EVAL / 'val' / f'class{k % 4}' / f'{k:04d}.png'
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(encode_png(arr, mode, filters, palette))
+    print(f'wrote {EVAL_IMAGES} PNGs (sizes {EVAL_SIZES}; RGB, L, P, RGBA, '
+          f'LA) in {time.perf_counter() - t0:.1f} s')
+
+
+def time_loader():
+    """The loader alone on the tree: the decoder it took, ms an image of
+    decode and of the valid transform (one thread), images/s of the
+    valid loader at batch 128 with 8 workers; where Pillow took it, the
+    port's PNG decoder too (arrays equal to Pillow's); two train passes
+    with one seed giving equal arrays. Returns the valid batches."""
+    import numpy as np
+
+    from hqtransformer_tpu_torch.data import datasets
+    from hqtransformer_tpu_torch.data import transforms as T
+
+    ds = datasets.build_dataset('imagenet', str(SMOKE_EVAL), 'val')
+    require(len(ds) == EVAL_IMAGES, f'tree holds {len(ds)} images')
+    loader = datasets.DataLoader(ds, datasets.LoaderConfig(
+        batch_size=B, resolution=256, train=False, num_workers=8))
+    print(f'loader: {loader!r}')
+    n = min(40, len(ds))
+    t0 = time.perf_counter()
+    images = [datasets.load_image(ds.samples[i][0]) for i in range(n)]
+    decode_ms = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    for im in images:
+        T.valid_transform(im, 256)
+    resize_ms = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    batches = list(loader)
+    seconds = time.perf_counter() - t0
+    require([x.shape for x, _ in batches] == [(B, 256, 256, 3)] * 2,
+            'valid loader batches')
+    print(f'loader: decode {decode_ms:.2f} ms/image, resize + crop + '
+          f'normalise {resize_ms:.2f} ms/image (one thread, {n} images of '
+          f'every size); valid loader {EVAL_IMAGES / seconds:.2f} images/s '
+          f'(batch {B}, 8 workers, {seconds:.2f} s)')
+    class First:
+        def __init__(self, n):
+            self.n = min(n, len(ds))
+
+        def __len__(self):
+            return self.n
+
+        def __getitem__(self, i):
+            return ds[i]
+
+    if datasets._pillow() is not None:
+        # the port's own decoder, which hosts without Pillow take, on the
+        # first 64 images (batch 16)
+        pillow = datasets._pillow
+        datasets._pillow = lambda: None
+        cfg = datasets.LoaderConfig(batch_size=16, resolution=256,
+                                    train=False, num_workers=8)
+        try:
+            t0 = time.perf_counter()
+            for i in range(n):
+                datasets.load_image(ds.samples[i][0])
+            png_ms = (time.perf_counter() - t0) / n * 1e3
+            t0 = time.perf_counter()
+            own = np.concatenate([x for x, _ in datasets.DataLoader(
+                First(64), cfg)])
+            png_seconds = time.perf_counter() - t0
+        finally:
+            datasets._pillow = pillow
+        ref = np.concatenate([x for x, _ in batches])[:len(own)]
+        require(len(own) > 0 and (own == ref).all(),
+                'the PNG decoder\'s batches differ from Pillow\'s')
+        print(f'loader with the port\'s PNG decoder (data/png.py): decode '
+              f'{png_ms:.2f} ms/image (one thread); valid loader '
+              f'{len(own) / png_seconds:.2f} images/s (batch 16, 8 workers, '
+              f'{len(own)} images); arrays equal to Pillow\'s')
+
+    cfg = datasets.LoaderConfig(batch_size=16, resolution=256, seed=3)
+    runs = [[x for x, _ in datasets.DataLoader(First(32), cfg)]
+            for _ in range(2)]
+    require(all((a == b).all() for a, b in zip(*runs)) and len(runs[0]) > 0,
+            'two train passes with one seed differ')
+    print(f'loader: two train passes (seed 3, {len(First(32))} images) give '
+          f'equal arrays')
+    return batches
+
+
+def write_eval_weights():
+    """A stage-1 trainer's .ckpt of seeded random f32 weights of the
+    flagship stage 1 (generator. keys and a discriminator. entry) and a
+    pt_inception-layout .pth of seeded He-scaled weights (with AuxLogits.*
+    entries)."""
+    from hqtransformer_tpu_torch.config import build_stage1_config
+    from hqtransformer_tpu_torch.evaluation.inception import he_scaled_state
+    from hqtransformer_tpu_torch.evaluation.stage1 import init_stage1_weights
+
+    cfg = build_stage1_config(str(STAGE1_FLAGSHIP))
+    sd = {f'generator.{k}': v.cpu() for k, v in
+          init_stage1_weights(cfg.stage1, seed=14).items()}
+    sd['discriminator.main.0.weight'] = torch.zeros(64, 3, 4, 4)
+    torch.save({'state_dict': sd, 'epoch': 0}, SMOKE_EVAL / 'stage1.ckpt')
+    state = he_scaled_state(14)
+    state['AuxLogits.conv0.conv.weight'] = torch.zeros(128, 768, 1, 1)
+    state['AuxLogits.fc.weight'] = torch.zeros(1000, 768)
+    torch.save(state, SMOKE_EVAL / 'pt_inception.pth')
+
+
+def captured_main(main, argv):
+    """main(argv) in this process with its stdout captured and echoed:
+    (return code, stdout)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    for ln in out.splitlines():
+        print(f'  {ln}')
+    return rc, out
+
+
+def run_eval_stage1(vq, da, st):
+    """cli.eval_stage1 on the tree with --fid --code-usage --top-only at
+    batch 128, in this process (launch counters read: exactly 8 K3, 2
+    levels x 2 batches x 2 passes, no K1 or K2) and then as a
+    subprocess. Returns the K3 launches."""
+    from hqtransformer_tpu_torch.cli import eval_stage1
+
+    argv = ['-c', str(STAGE1_FLAGSHIP), '-m', str(SMOKE_EVAL / 'stage1.ckpt'),
+            '--data-root', str(SMOKE_EVAL), '--batch-size', str(B), '--fid',
+            '--code-usage', '--top-only', '--inception-weights',
+            str(SMOKE_EVAL / 'pt_inception.pth')]
+    reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc, out = captured_main(eval_stage1.main, argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts(vq, da, st)
+    require(rc == 0 and counts == (8, 0, 0),
+            f'eval_stage1: rc {rc}, launches (K3, K1, K2) {counts}')
+    mse = re.search(r'^MSE: (\S+) over (\d+) images', out, re.M)
+    top = re.search(r'^MSE \(top-only recon\): (\S+)', out, re.M)
+    usage = [float(u) / 100 for u in
+             re.findall(r'^level \d+: (\S+)% of', out, re.M)]
+    rfid = re.search(r'^rFID: (\S+)', out, re.M)
+    require(mse and int(mse.group(2)) == EVAL_IMAGES and
+            math.isfinite(float(mse.group(1))) and top and
+            math.isfinite(float(top.group(1))), f'eval_stage1 MSE: {out}')
+    require(len(usage) == 2 and all(0 < u <= 1 for u in usage),
+            f'eval_stage1 code usage {usage}')
+    require(rfid and math.isfinite(float(rfid.group(1))) and
+            float(rfid.group(1)) >= 0, f'eval_stage1 rFID: {out}')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'cli.eval_stage1 in this process: {counts[0]} K3 launches, no '
+          f'K1 or K2; {seconds:.1f} s wall, {EVAL_IMAGES / seconds:.2f} '
+          f'images/s (data, f32 reconstruction, top-only reconstruction, '
+          f'Inception, rFID), peak {peak:.2f} GiB')
+    torch.cuda.empty_cache()
+    out = run_cli(argv, 'eval_stage1')
+    print('  ' + out.strip().splitlines()[-1])
+    return counts[0]
+
+
+def conv_macs(model, x):
+    """Multiply-adds of the convolutions and the fc of one forward."""
+    macs = []
+
+    def hook(module, inputs, output):
+        if isinstance(module, torch.nn.Conv2d):
+            kh, kw = module.kernel_size
+            macs.append(output.numel() * module.in_channels * kh * kw)
+        elif isinstance(module, torch.nn.Linear):
+            macs.append(output.numel() * module.in_features)
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.inference_mode():
+            model(x, return_logits=True)
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(macs)
+
+
+def time_inception():
+    """FID-Inception alone, f32 (TF32 off), batch 128 of 256^2 inputs:
+    images/s, peak memory and the f32 bound; its features of 4 images
+    against a CPU run of the same weights (rtol 1e-4, atol 1e-4, std >
+    1e-2)."""
+    from hqtransformer_tpu_torch.evaluation.fid import InceptionExtractor
+    from hqtransformer_tpu_torch.evaluation.inception import (
+        FIDInceptionV3, load_pt_inception)
+
+    weights = str(SMOKE_EVAL / 'pt_inception.pth')
+    ext = InceptionExtractor(weights, batch_size=B)
+    g = torch.Generator(device='cuda').manual_seed(14)
+    x = torch.rand(B, 256, 256, 3, generator=g, device='cuda')
+    macs = conv_macs(ext.model, x[:1])
+    with torch.inference_mode():
+        ext.model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(3):
+            ext.model(x)
+        end.record()
+        torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    bound_ms = 2 * macs * B / F32_FLOPS_PER_S * 1e3
+    print(f'FID-Inception f32, batch {B}, 256^2 -> 299^2: {ms:.3f} ms a '
+          f'batch, {B / ms * 1e3:.2f} images/s, peak {peak:.1f} MiB; '
+          f'{macs / 1e9:.3f} G multiply-adds an image, bound {bound_ms:.3f} '
+          f'ms a batch at 67 TFLOP/s f32 ({bound_ms / ms:.1%} of it)')
+    cpu = FIDInceptionV3().eval()
+    load_pt_inception(cpu, torch.load(weights, weights_only=True))
+    with torch.inference_mode():
+        ref = cpu(x[:4].cpu())
+    card = torch.from_numpy(ext.features(x[:4]))
+    err = float((card - ref).abs().max())
+    require(torch.allclose(card, ref, rtol=1e-4, atol=1e-4) and
+            float(ref.std()) > 1e-2,
+            f'Inception card vs CPU: max |diff| {err}, std {ref.std()}')
+    print(f'FID-Inception card = CPU on 4 images: max |diff| {err:.2e} '
+          f'(features std {float(ref.std()):.4f})')
+
+
+def run_fid_clis(batches):
+    """cli.compute_fid_stats over the tree (--save-acts), then
+    cli.eval_hqmodel on phase 13's samples against it: FID finite,
+    precision, recall and coverage in [0, 1], acts.npz written; a second
+    call served from acts.npz with no Inception forward; pixel features
+    (their reference from the valid loader's batches) give a finite FID;
+    the first call's frechet_distance at 2048 dimensions timed on the
+    host."""
+    import ast
+
+    import numpy as np
+
+    from hqtransformer_tpu_torch.cli import eval_hqmodel
+    from hqtransformer_tpu_torch.evaluation import fid
+    from hqtransformer_tpu_torch.evaluation.inception import FIDInceptionV3
+
+    weights = str(SMOKE_EVAL / 'pt_inception.pth')
+    stats = SMOKE_EVAL / 'stats.npz'
+    run_cli(['-d', 'imagenet', '--data-root', str(SMOKE_EVAL), '--split',
+             'val', '-o', str(stats), '--save-acts', '--batch-size', str(B),
+             '--inception-weights', weights], 'compute_fid_stats')
+    ref = np.load(stats)
+    require(ref['acts'].shape == (EVAL_IMAGES, 2048) and
+            np.isfinite(ref['sigma']).all(), 'compute_fid_stats npz')
+    pixels = SMOKE_EVAL / 'pixel_stats.npz'
+    feats = fid.PixelExtractor().features(
+        np.concatenate([x for x, _ in batches]) * 0.5 + 0.5)
+    np.savez(pixels, **dict(zip(('mu', 'sigma'),
+                                fid.mean_covar_numpy(feats))))
+
+    forwards, fid_seconds = [0], []
+    original, frechet = FIDInceptionV3.forward, eval_hqmodel.frechet_distance
+
+    def counted(self, *args, **kwargs):
+        forwards[0] += 1
+        return original(self, *args, **kwargs)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = frechet(*args, **kwargs)
+        fid_seconds.append(time.perf_counter() - t0)
+        return out
+
+    FIDInceptionV3.forward = counted
+    eval_hqmodel.frechet_distance = timed
+    try:
+        t0 = time.perf_counter()
+        rc, out = captured_main(eval_hqmodel.main, [
+            '-r', str(SMOKE_SAMPLES), '--ref-stat-path', str(stats),
+            '--ref-feature-path', str(stats), '--inception-weights',
+            weights])
+        first = ast.literal_eval(out.strip().splitlines()[-1])
+        seconds = time.perf_counter() - t0
+        require(rc == 0 and math.isfinite(first['fid']) and
+                all(0 <= first[k] <= 1
+                    for k in ('precision', 'recall', 'coverage')) and
+                (SMOKE_SAMPLES / 'acts.npz').exists() and forwards[0] > 0,
+                f'eval_hqmodel: {first}, {forwards[0]} Inception forwards')
+        print(f'cli.eval_hqmodel: {seconds:.1f} s wall, {forwards[0]} '
+              f'Inception forwards, acts.npz written; frechet_distance at '
+              f'2048 dimensions (256 samples a side) {fid_seconds[0]:.2f} s '
+              f'on the host')
+        before = forwards[0]
+        rc, out = captured_main(eval_hqmodel.main, [
+            '-r', str(SMOKE_SAMPLES), '--ref-feature-path', str(stats)])
+        second = ast.literal_eval(out.strip().splitlines()[-1])
+        require(rc == 0 and forwards[0] == before and
+                all(second[k] == first[k] for k in second),
+                f'eval_hqmodel from acts.npz: {second}, '
+                f'{forwards[0] - before} Inception forwards')
+        print('cli.eval_hqmodel second call: served from acts.npz, no '
+              'Inception forward, the same PRDC')
+    finally:
+        FIDInceptionV3.forward = original
+        eval_hqmodel.frechet_distance = frechet
+    rc, out = captured_main(eval_hqmodel.main, [
+        '-r', str(SMOKE_SAMPLES), '--feature-extractor', 'pixels',
+        '--ref-stat-path', str(pixels), '-m', 'fid'])
+    pixel_fid = ast.literal_eval(out.strip().splitlines()[-1])['fid']
+    require(rc == 0 and math.isfinite(pixel_fid), f'pixel FID {pixel_fid}')
+    print(f'cli.eval_hqmodel --feature-extractor pixels: FID {pixel_fid}')
+
+
+def run_eval_pipeline(vq, da, st):
+    """Phase 14. Returns the K3 launches of the eval_stage1 run."""
+    t0 = time.perf_counter()
+    write_eval_tree()
+    batches = time_loader()
+    write_eval_weights()
+    k3 = run_eval_stage1(vq, da, st)
+    time_inception()
+    run_fid_clis(batches)
+    print(f'phase 14 (the data pipeline, FID-Inception, the evaluation '
+          f'CLIs): {time.perf_counter() - t0:.1f} s')
+    return k3
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(
         description='Smoke test of the PyTorch/CUDA port on one GPU; with '
@@ -3593,6 +4049,7 @@ def main(argv=None) -> int:
     k3f_launches, f32_images_per_s = run_encode_f32(vq, da, st)
     stage1_rates, k3d_launches = run_stage1_rest(vq, da, st)
     k1ft_launches, k1ft_err, k1ft_times = run_serving_rest(da, st, q8)
+    k3e_launches = run_eval_pipeline(vq, da, st)
     require(k3_shapes[K3_D256][5] == 0 and k3f_shapes[K3_D256][5] == 0,
             'K3 at the avgpool / conv2 top differs from plain')
     check_small_reference(vq)
@@ -3635,7 +4092,10 @@ def main(argv=None) -> int:
              max(k3_err, k3f_served_err), flagship_entry(k3f_shapes)),
             ('vq_argmin_d256', source + 'vq_argmin.cu',
              'hqtransformer_tpu/ops/pallas_vq.py:63', k3d_launches,
-             max(k3_err, k3_served_err), k3_shapes[K3_D256][:4])):
+             max(k3_err, k3_served_err), k3_shapes[K3_D256][:4]),
+            ('vq_argmin_f32_eval', source + 'vq_argmin.cu',
+             'hqtransformer_tpu/ops/pallas_vq.py:63', k3e_launches,
+             max(k3_err, k3f_served_err), flagship_entry(k3f_shapes))):
         kernels.append({'name': name, 'route': 'cuda', 'source': src,
                         'replaces': replaces, 'launches': n,
                         'max_abs_err': err, 'ms': ms, 'kernel_ms': ms,

@@ -188,3 +188,30 @@ def export_scales(scales: Mapping[str, Mapping[str, torch.Tensor]]
             node[path[-1]] = t.detach().float().cpu().numpy()
         out[key] = tree
     return out
+
+
+def fid_inception_state_from_jax(variables: Mapping[str, Any]
+                                 ) -> Dict[str, torch.Tensor]:
+    """The JAX package's FID-Inception variables {'params', 'batch_stats'}
+    -> the port's state dict (the pt_inception-2015-12-05 layout): the
+    inverse of `hqtransformer_tpu.evaluation.inception.
+    load_torch_fid_inception`. Conv kernels HWIO -> OIHW, BatchNorm
+    scale / bias / mean / var -> weight / bias / running_mean /
+    running_var, the fc kernel transposed."""
+    names = {('params', 'scale'): 'weight', ('params', 'bias'): 'bias',
+             ('batch_stats', 'mean'): 'running_mean',
+             ('batch_stats', 'var'): 'running_var'}
+    out: Dict[str, torch.Tensor] = {}
+    for col in ('params', 'batch_stats'):
+        for path, leaf in _leaves(variables[col]):
+            arr = np.asarray(leaf, dtype=np.float32)
+            base = '.'.join(path[:-1])
+            if path[-1] == 'kernel':
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+                out[f'{base}.weight'] = arr
+            elif path[:-1] == ('fc',):
+                out[f'fc.{path[-1]}'] = arr
+            else:
+                out[f'{base}.{names[col, path[-1]]}'] = arr
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in out.items()}

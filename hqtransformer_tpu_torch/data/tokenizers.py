@@ -49,6 +49,28 @@ here they are the Unicode categories L* and N* of Python's `unicodedata`
 (Unicode 15.0), which may differ from that package's newer tables only on
 characters assigned since.
 
+`create_tokenizer('wordpiece16k_huggingface')` (also 'bert_huggingface'
+and 'wordpiece30k_huggingface', the same file) is the `tokenizers`
+package's `BertWordPieceTokenizer` over `bert-base-uncased-vocab.txt`:
+its five special tokens ('[PAD]', '[UNK]', '[CLS]', '[SEP]', '[MASK]')
+split off the raw text; `BertNormalizer` with accents stripped (NFD,
+then the non-spacing marks dropped) before lowercasing; the same
+pre-tokenizer; greedy longest-match WordPiece with '##' continuations, a
+word of more than 100 characters or with no match being '[UNK]'; and
+[CLS] ... [SEP] around the ids. Marks assigned after Unicode 8.0 are
+kept whole, as that tokenizer's tables do not know them
+(`_MARKS_AFTER_8`, found by holding every code point against it).
+
+`create_tokenizer('bytebpe16k_huggingface')` is its
+`ByteLevelBPETokenizer` over `vocab.json` and `merges.txt`: lowercase,
+GPT-2's split (`byte_level_pre_tokenize`, by Unicode categories: no
+`regex` package), each piece's UTF-8 bytes mapped to characters and
+merged by rank; no special tokens, and padding with id 0 (the id of '!':
+the JAX wrapper pads with '[PAD]''s id, else 0).
+
+BPE dropout (`dropout`), which only training reads, is not ported: the
+`tokenizers` package draws it from a generator of its own.
+
 The vocabulary and merges are read as data files from
 `hqtransformer_tpu/assets/tokenizers/` beside this package in the
 repository, or from `vocab_dir`.
@@ -69,7 +91,12 @@ ASSETS = Path(__file__).resolve().parents[2] / 'hqtransformer_tpu' / \
     'assets' / 'tokenizers'
 FILES = {'bpe16k_huggingface': ('bpe-16k-vocab.json', 'bpe-16k-merges.txt'),
          'bpe30k_huggingface': ('bpe-30k-vocab.json', 'bpe-30k-merges.txt'),
-         'clip': ('bpe_simple_vocab_16e6.txt.gz',)}
+         'clip': ('bpe_simple_vocab_16e6.txt.gz',),
+         'wordpiece16k_huggingface': ('bert-base-uncased-vocab.txt',),
+         'bytebpe16k_huggingface': ('vocab.json', 'merges.txt')}
+ALIASES = {'bpe16k': 'bpe16k_huggingface', 'bpe30k': 'bpe30k_huggingface',
+           'bert_huggingface': 'wordpiece16k_huggingface',
+           'wordpiece30k_huggingface': 'wordpiece16k_huggingface'}
 UNK, PAD, SUFFIX = '[UNK]', '[PAD]', '</w>'
 
 # CJK ideograph blocks that BertNormalizer pads with spaces.
@@ -113,9 +140,8 @@ def _is_punctuation(ch: str) -> bool:
                                 and not _within(c, _PUNCT_AFTER_8))
 
 
-def normalize(text: str) -> str:
-    """BertNormalizer (clean text, pad CJK, keep accents, no lowercase)
-    and then Lowercase, character by character."""
+def _clean(text: str) -> str:
+    """BertNormalizer's clean text and CJK padding."""
     out = []
     for ch in text:
         c = ord(ch)
@@ -130,7 +156,90 @@ def normalize(text: str) -> str:
             out.append(f' {ch} ')
         else:
             out.append(ch)
-    return ''.join(ch.lower() for ch in ''.join(out))
+    return ''.join(out)
+
+
+def _lower(text: str) -> str:
+    """Each character lowercased on its own."""
+    return ''.join(ch.lower() for ch in text)
+
+
+def normalize(text: str) -> str:
+    """BertNormalizer (clean text, pad CJK, keep accents, no lowercase)
+    and then Lowercase, character by character."""
+    return _lower(_clean(text))
+
+
+# Marks (Mn, Mc) assigned after Unicode 8.0 that BertNormalizer keeps
+# whole when it strips accents, and the one mark it drops that Python's
+# tables no longer call non-spacing.
+_MARKS_AFTER_8 = (
+    (0x7FD, 0x7FD), (0x898, 0x89F), (0x8CA, 0x8E1), (0x9FE, 0x9FE),
+    (0xAFA, 0xAFF), (0xB55, 0xB55), (0xC04, 0xC04), (0xC3C, 0xC3C),
+    (0xD00, 0xD00), (0xD3B, 0xD3C), (0xD81, 0xD81), (0xEBA, 0xEBA),
+    (0xECE, 0xECE), (0x180F, 0x180F), (0x1885, 0x1886), (0x1ABF, 0x1ACE),
+    (0x1DF6, 0x1DFB), (0xA82C, 0xA82C), (0xA8C5, 0xA8C5), (0xA8FF, 0xA8FF),
+    (0xA9BD, 0xA9BD), (0x10D24, 0x10D27), (0x10EAB, 0x10EAC),
+    (0x10EFD, 0x10EFF), (0x10F46, 0x10F50), (0x10F82, 0x10F85),
+    (0x11070, 0x11070), (0x11073, 0x11074), (0x110C2, 0x110C2),
+    (0x111C9, 0x111C9), (0x111CF, 0x111CF), (0x1123E, 0x1123E),
+    (0x11241, 0x11241), (0x1133B, 0x1133B), (0x11438, 0x1143F),
+    (0x11442, 0x11444), (0x11446, 0x11446), (0x1145E, 0x1145E),
+    (0x1182F, 0x11837), (0x11839, 0x1183A), (0x11938, 0x11938),
+    (0x1193B, 0x1193C), (0x1193E, 0x1193E), (0x11943, 0x11943),
+    (0x119D4, 0x119D7), (0x119DA, 0x119DB), (0x119E0, 0x119E0),
+    (0x11A01, 0x11A0A), (0x11A33, 0x11A38), (0x11A3B, 0x11A3E),
+    (0x11A47, 0x11A47), (0x11A51, 0x11A56), (0x11A59, 0x11A5B),
+    (0x11A8A, 0x11A96), (0x11A98, 0x11A99), (0x11C30, 0x11C36),
+    (0x11C38, 0x11C3D), (0x11C3F, 0x11C3F), (0x11C92, 0x11CA7),
+    (0x11CAA, 0x11CB0), (0x11CB2, 0x11CB3), (0x11CB5, 0x11CB6),
+    (0x11D31, 0x11D36), (0x11D3A, 0x11D3A), (0x11D3C, 0x11D3D),
+    (0x11D3F, 0x11D45), (0x11D47, 0x11D47), (0x11D90, 0x11D91),
+    (0x11D95, 0x11D95), (0x11D97, 0x11D97), (0x11EF3, 0x11EF4),
+    (0x11F00, 0x11F01), (0x11F36, 0x11F3A), (0x11F40, 0x11F40),
+    (0x11F42, 0x11F42), (0x13440, 0x13440), (0x13447, 0x13455),
+    (0x16F4F, 0x16F4F), (0x16FE4, 0x16FE4), (0x1CF00, 0x1CF2D),
+    (0x1CF30, 0x1CF46), (0x1E000, 0x1E006), (0x1E008, 0x1E018),
+    (0x1E01B, 0x1E021), (0x1E023, 0x1E024), (0x1E026, 0x1E02A),
+    (0x1E08F, 0x1E08F), (0x1E130, 0x1E136), (0x1E2AE, 0x1E2AE),
+    (0x1E2EC, 0x1E2EF), (0x1E4EC, 0x1E4EF), (0x1E944, 0x1E94A))
+_NONSPACING_IN_8 = '\u1734'
+
+
+_KEPT_MARKS = frozenset(cp for lo, hi in _MARKS_AFTER_8
+                        for cp in range(lo, hi + 1))
+
+
+def strip_accents(text: str) -> str:
+    """NFD, then the non-spacing marks (Mn) dropped, by the tables of
+    Unicode 8.0: a mark assigned later is kept as it is."""
+    out, start = [], 0
+
+    def flush(seg: str) -> None:
+        out.extend(c for c in unicodedata.normalize('NFD', seg)
+                   if unicodedata.category(c) != 'Mn')
+
+    for i, ch in enumerate(text):
+        if ord(ch) in _KEPT_MARKS or ch == _NONSPACING_IN_8:
+            flush(text[start:i])
+            start = i + 1
+            if ch != _NONSPACING_IN_8:
+                out.append(ch)
+    flush(text[start:])
+    return ''.join(out)
+
+
+def split_special(text: str, specials) -> List[Tuple[str, bool]]:
+    """`text` cut at each occurrence of a special token: [(piece,
+    is_special)], in order."""
+    pattern = re.compile('|'.join(re.escape(t) for t in specials))
+    out, pos = [], 0
+    for m in pattern.finditer(text):
+        out.append((text[pos:m.start()], False))
+        out.append((m.group(), True))
+        pos = m.end()
+    out.append((text[pos:], False))
+    return [(p, sp) for p, sp in out if p]
 
 
 def pre_tokenize(text: str) -> List[str]:
@@ -166,7 +275,7 @@ class CharBPETokenizer:
             a, b = line.split(' ')
             pair = (self.vocab[a], self.vocab[b])
             self.merges[pair] = (rank, self.vocab[a + b])
-        self.unk_id = self.vocab[UNK]
+        self.unk_id = self.vocab.get(UNK)
         self.pad_id = self.vocab.get(PAD, 0)
 
     @property
@@ -232,6 +341,118 @@ class CharBPETokenizer:
         '[PAD]'."""
         ids = self.encode(text)[:context_length]
         return ids + [self.pad_id] * (context_length - len(ids))
+
+
+class ByteLevelBPETokenizer(CharBPETokenizer):
+    """The byte-level BPE tokenizer over `vocab.json` and `merges.txt`:
+    each piece's UTF-8 bytes as characters, merged by rank, no
+    end-of-word suffix, no special tokens."""
+
+    def __init__(self, vocab_path: Path, merges_path: Path):
+        super().__init__(vocab_path, merges_path)
+        self.byte_encoder = _bytes_to_unicode()
+
+    def encode(self, text: str) -> List[int]:
+        """The ids of `text`."""
+        out: List[int] = []
+        for piece in byte_level_pre_tokenize(_lower(text)):
+            out.extend(self._merge([self.vocab[self.byte_encoder[b]]
+                                    for b in piece.encode()]))
+        return out
+
+
+_GPT2_CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+# Unicode's White_Space, the regex's \s (Python's isspace also takes
+# U+001C..U+001F)
+_WHITE_SPACE = frozenset('\t\n\x0b\x0c\r \x85\xa0\u1680\u2028\u2029\u202f'
+                         '\u205f\u3000' + ''.join(map(chr, range(0x2000,
+                                                                 0x200B))))
+
+
+def _gpt2_class(ch: str) -> str:
+    """'L' (a letter), 'N' (a number), ' ' (white space) or 'O'."""
+    major = unicodedata.category(ch)[0]
+    if major in 'LN':
+        return major
+    return ' ' if ch in _WHITE_SPACE else 'O'
+
+
+def byte_level_pre_tokenize(text: str) -> List[str]:
+    """GPT-2's split, as the pattern `'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+|
+    ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+` finds it: a contraction,
+    else a run of letters, of numbers or of other characters, each with
+    at most one space before it, else a run of white space that leaves
+    its last space to the word after it."""
+    pieces, i, n = [], 0, len(text)
+    while i < n:
+        literal = next((t for t in _GPT2_CONTRACTIONS
+                        if text.startswith(t, i)), None)
+        if literal is not None:
+            pieces.append(literal)
+            i += len(literal)
+            continue
+        start = i
+        if text[i] == ' ' and i + 1 < n and _gpt2_class(text[i + 1]) != ' ':
+            i += 1
+        kind = _gpt2_class(text[i])
+        j = i + 1
+        while j < n and _gpt2_class(text[j]) == kind:
+            j += 1
+        if kind == ' ' and j < n and j - start >= 2:
+            j -= 1
+        pieces.append(text[start:j])
+        i = j
+    return pieces
+
+
+class WordPieceTokenizer:
+    """BERT's WordPiece tokenizer over `bert-base-uncased-vocab.txt`."""
+
+    SPECIALS = ('[PAD]', '[UNK]', '[CLS]', '[SEP]', '[MASK]')
+    MAX_WORD = 100
+
+    def __init__(self, vocab_path: Path):
+        with open(vocab_path, encoding='utf-8') as f:
+            self.vocab: Dict[str, int] = {
+                ln.rstrip(): i for i, ln in enumerate(f)}
+        self.unk_id = self.vocab[UNK]
+        self.pad_id = self.vocab.get(PAD, 0)
+        self.cls_id, self.sep_id = self.vocab['[CLS]'], self.vocab['[SEP]']
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
+
+    def _word(self, word: str) -> List[int]:
+        """Greedy longest match, '##' before every piece but the first;
+        '[UNK]' for a word too long or with a part that matches nothing."""
+        if len(word) > self.MAX_WORD:
+            return [self.unk_id]
+        out, start = [], 0
+        while start < len(word):
+            for end in range(len(word), start, -1):
+                sub = word[start:end] if start == 0 else \
+                    '##' + word[start:end]
+                if sub in self.vocab:
+                    break
+            else:
+                return [self.unk_id]
+            out.append(self.vocab[sub])
+            start = end
+        return out
+
+    def encode(self, text: str) -> List[int]:
+        """[CLS], the ids of `text`, [SEP]."""
+        out = [self.cls_id]
+        for part, special in split_special(text, self.SPECIALS):
+            if special:
+                out.append(self.vocab[part])
+                continue
+            for word in pre_tokenize(_lower(strip_accents(_clean(part)))):
+                out.extend(self._word(word))
+        return out + [self.sep_id]
+
+    encode_padded = CharBPETokenizer.encode_padded
 
 
 # --------------------------------------------------- CLIP's byte-level BPE
@@ -361,23 +582,32 @@ class ClipSimpleTokenizer:
         return ids + [self.eot] * (context_length - len(ids))
 
 
-Tokenizer = Union[CharBPETokenizer, ClipSimpleTokenizer]
+Tokenizer = Union[CharBPETokenizer, ByteLevelBPETokenizer,
+                  WordPieceTokenizer, ClipSimpleTokenizer]
+_CLASSES = {'clip': ClipSimpleTokenizer,
+            'wordpiece16k_huggingface': WordPieceTokenizer,
+            'bytebpe16k_huggingface': ByteLevelBPETokenizer}
 
 
 def create_tokenizer(name: str = 'bpe16k_huggingface',
-                     vocab_dir: Optional[str] = None) -> Tokenizer:
-    """The tokenizer `name` ('bpe16k_huggingface' or 'bpe30k_huggingface';
-    'bpe16k' and 'bpe30k' name them too; 'clip', CLIP's), its files read
-    from `vocab_dir` or from the repository's assets."""
-    name = {'bpe16k': 'bpe16k_huggingface',
-            'bpe30k': 'bpe30k_huggingface'}.get(name, name)
-    if name not in FILES:
-        raise NotImplementedError(f'tokenizer {name!r} is not ported')
+                     vocab_dir: Optional[str] = None,
+                     dropout: Optional[float] = None) -> Tokenizer:
+    """The tokenizer `name`, as the JAX package's `create_tokenizer` names
+    it ('bpe16k_huggingface', 'bpe30k_huggingface', 'bpe16k', 'bpe30k',
+    'wordpiece16k_huggingface', 'bert_huggingface',
+    'wordpiece30k_huggingface', 'bytebpe16k_huggingface', 'clip'), its
+    files read from `vocab_dir` or from the repository's assets. A
+    nonzero `dropout` (BPE dropout, for training) raises."""
+    if dropout:
+        raise NotImplementedError(
+            'BPE dropout is not ported: it comes with training (ROADMAP '
+            'A11)')
+    key = ALIASES.get(name, name)
+    if key not in FILES:
+        raise ValueError(f'unknown tokenizer {name}')
     root = Path(vocab_dir) if vocab_dir is not None else ASSETS
-    paths = [root / f for f in FILES[name]]
-    if name == 'clip':
-        return ClipSimpleTokenizer(*paths)
-    return CharBPETokenizer(*paths)
+    paths = [root / f for f in FILES[key]]
+    return _CLASSES.get(key, CharBPETokenizer)(*paths)
 
 
 def tokenize(texts: List[str], context_length: int = 64,

@@ -4,21 +4,25 @@
 Counterpart of the `recon` and `recon_top` closures and the per-batch
 accumulation of `eval_stage1.py`: `make_reconstructor(...)(weights,
 images)` gives pixels clipped to [-1, 1] and the per-level code maps;
-`ReconstructionMetrics` sums the per-image MSE and each level's code counts
-over batches, giving the MSE over the set and the fraction of each
-codebook used. The dataset loader and the command line are not ported.
+`ReconstructionMetrics` sums over batches the per-image MSE (of the full
+and, with `--top-only`, of the top-only reconstructions) and each
+level's code counts, and keeps the Inception features of the real and
+reconstructed images, giving the MSE over the set, the fraction of each
+codebook used and the rFID. `cli/eval_stage1.py` is the command line.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..config import Stage1Config
 from ..device import resolve_device
 from ..models.stage1.generator import build_generator
 from ..models.twostage import random_state
+from .fid import frechet_distance, mean_covar_numpy
 
 
 def _generator(stage1_cfg: Stage1Config, dtype: torch.dtype,
@@ -91,18 +95,32 @@ def code_usage(counts: Sequence[torch.Tensor]) -> List[float]:
 
 class ReconstructionMetrics:
     """Sums over batches what `eval_stage1.py` prints: the MSE over all
-    images and, for each level, the codes used out of `n_embed`."""
+    images (and over the top-only reconstructions), for each level the
+    codes used out of `n_embed`, and, given an Inception `extractor`, the
+    rFID between the real and reconstructed images' features."""
 
-    def __init__(self, n_embed: int):
+    def __init__(self, n_embed: int, extractor=None):
         self.n_embed = n_embed
+        self.extractor = extractor
         self.mse_sum = 0.0
+        self.mse_top_sum = 0.0
         self.n_images = 0
         self.counts: List[torch.Tensor] = []
+        self.real_features: List[np.ndarray] = []
+        self.fake_features: List[np.ndarray] = []
 
     def update(self, images: torch.Tensor, pixels: torch.Tensor,
-               codes: Sequence[torch.Tensor]) -> None:
-        self.mse_sum += float(reconstruction_mse(images.to(pixels.device),
-                                                 pixels).sum())
+               codes: Sequence[torch.Tensor],
+               top_pixels: Optional[torch.Tensor] = None) -> None:
+        """One batch: images and pixels [B, H, W, 3] in [-1, 1] (the
+        images are moved to the pixels' device), the code maps to count
+        ([] to count none), the top-only reconstruction if there is
+        one."""
+        images = images.to(pixels.device)
+        self.mse_sum += float(reconstruction_mse(images, pixels).sum())
+        if top_pixels is not None:
+            self.mse_top_sum += float(reconstruction_mse(images,
+                                                         top_pixels).sum())
         self.n_images += images.shape[0]
         for li, c in enumerate(codes):
             binc = torch.bincount(c.reshape(-1), minlength=self.n_embed)
@@ -110,10 +128,26 @@ class ReconstructionMetrics:
                 self.counts.append(binc)
             else:
                 self.counts[li] = self.counts[li] + binc
+        if self.extractor is not None:
+            self.real_features.append(self.extractor.features(
+                images.float() * 0.5 + 0.5))
+            self.fake_features.append(self.extractor.features(
+                pixels.float() * 0.5 + 0.5))
 
     @property
     def mse(self) -> float:
         return self.mse_sum / self.n_images
 
+    @property
+    def mse_top(self) -> float:
+        return self.mse_top_sum / self.n_images
+
     def code_usage(self) -> List[float]:
         return code_usage(self.counts)
+
+    def rfid(self) -> float:
+        """The Frechet distance between the real and the reconstructed
+        images' Inception statistics."""
+        mu_r, s_r = mean_covar_numpy(np.concatenate(self.real_features))
+        mu_f, s_f = mean_covar_numpy(np.concatenate(self.fake_features))
+        return frechet_distance(mu_r, s_r, mu_f, s_f)

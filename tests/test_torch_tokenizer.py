@@ -91,3 +91,82 @@ def test_random_text_matches(text):
         assert ours.encode_padded(text, CONTEXT) == \
             ref.encode_padded(text, CONTEXT), name
 
+
+
+# WordPiece (BertWordPieceTokenizer) and byte-level BPE
+# (ByteLevelBPETokenizer), the other tokenizers of `create_tokenizer`.
+OTHER_NAMES = ('wordpiece16k_huggingface', 'bytebpe16k_huggingface')
+OTHER_CAPTIONS = CAPTIONS + [
+    'a dog',
+    '[CLS] first [SEP] second [MASK] [PAD] [UNK]x[cls]',
+    'x' * 100 + ' ' + 'y' * 101,
+    "it's they're we've I'm you'll he'd 'S 'LL",
+    'İstanbul ǅemal ΣΊΣΥΦΟΣ àéîõü ñ Ω ﬁ',
+    'a࢘b᜴ćd ்̀̂ eᇰ0f',
+    'two  spaces,   three, \t tab\n\nnewlines  ',
+    '\x1c\x1d\x1e\x1f file separators \x85 nel \xa0 nbsp 　 ideo',
+    'числа 123 45.6 ٣٤ ½ Ⅻ 𝟙',
+]
+_OTHER_PAIRS = {name: (jax_tokenizer(name), tokenizers.create_tokenizer(name))
+                for name in OTHER_NAMES}
+
+
+@pytest.mark.parametrize('name', OTHER_NAMES)
+@pytest.mark.parametrize('caption', OTHER_CAPTIONS,
+                         ids=range(len(OTHER_CAPTIONS)))
+def test_other_tokenizers_fixed_captions_match(name, caption):
+    ref, ours = _OTHER_PAIRS[name]
+    assert ours.encode(caption) == ref.encode(caption)
+    assert ours.encode_padded(caption, CONTEXT) == \
+        ref.encode_padded(caption, CONTEXT)
+
+
+def test_other_tokenizers_vocabulary_and_padding():
+    """WordPiece wraps the ids in [CLS] .. [SEP] (JAX's encode('a dog') is
+    [101, 1037, 3899, 102]) and pads with [PAD] = 0; byte-level BPE has no
+    [PAD] and pads with 0, which is also the id of '!' (JAX's quirk);
+    every alias of the vocabularies builds, and a name JAX does not know
+    raises as JAX's does."""
+    for name in OTHER_NAMES:
+        ref, ours = _OTHER_PAIRS[name]
+        assert ours.vocab_size == ref.vocab_size
+        assert ours.pad_id == ref.pad_id == 0
+    wp = _OTHER_PAIRS['wordpiece16k_huggingface'][1]
+    assert wp.encode('a dog') == [101, 1037, 3899, 102]
+    assert wp.encode_padded('a dog', 6) == [101, 1037, 3899, 102, 0, 0]
+    byte_bpe = _OTHER_PAIRS['bytebpe16k_huggingface'][1]
+    assert byte_bpe.encode('!') == [0]
+    for alias in ('bert_huggingface', 'wordpiece30k_huggingface'):
+        assert tokenizers.create_tokenizer(alias).encode('a dog') == \
+            wp.encode('a dog')
+    with pytest.raises(ValueError, match='unknown tokenizer'):
+        tokenizers.create_tokenizer('wordpiece')
+
+
+def test_bpe_dropout_waits_for_training():
+    """A nonzero dropout (training's BPE dropout) raises; None and 0 are
+    JAX's inference settings and build the tokenizer."""
+    for name in OTHER_NAMES + NAMES:
+        with pytest.raises(NotImplementedError, match='A11'):
+            tokenizers.create_tokenizer(name, dropout=0.1)
+        for off in (None, 0, 0.0):
+            tokenizers.create_tokenizer(name, dropout=off)
+
+
+OTHER_WORDS = st.lists(st.sampled_from(
+    ['the', 'The', 'photograph', "don't", "it's", 'U.S.', '', '[CLS]',
+     '[SEP]', '[MASK]', '[PAD]', 'naïve', '東京', 'Ünïcödé', '  ', '\t',
+     '...', '1999', '3.14', 'x' * 101, 'straße']), max_size=20).map(''.join)
+
+
+@settings(max_examples=150, deadline=None)
+@given(text=st.one_of(TEXT, OTHER_WORDS))
+def test_other_tokenizers_random_text_matches(text):
+    """150 random texts through WordPiece and byte-level BPE: the
+    characters of `test_random_text_matches`, or caption words joined
+    without separators (special tokens and long words included)."""
+    for name in OTHER_NAMES:
+        ref, ours = _OTHER_PAIRS[name]
+        assert ours.encode(text) == ref.encode(text), name
+        assert ours.encode_padded(text, CONTEXT) == \
+            ref.encode_padded(text, CONTEXT), name
