@@ -302,6 +302,38 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    host. The JSON line gains `vq_argmin_f32_eval`, f32 K3 with the
    launches of the eval_stage1 run.
 
+15. Stage-2 training (after phase 14): the flagship
+   (`hqtransformer-l12-top8x8.yaml`, 12 layers, d 1536) and its stage 1
+   on seeded random weights, batch 64, f32 and bf16: 2 warm-up and 10
+   timed steps on seeded images (ms a step, images/s, peak memory),
+   exactly 2 K3 launches a step and no K1 or K2, finite losses and
+   gradient norm; the f32 step broken down (stage-1 codes, forward and
+   backward, optimizer) under the profiler; one repeated batch at a
+   constant lr 1e-4: the loss falls over 10 steps; `remat` gradients
+   within 1e-6 of the plain run (batch 16); one step each of `-level3`
+   at batch 32 (3 K3 launches) and `-soft` at batch 16 (none); the tiny
+   config's 3 f32 steps on the card and the CPU (parameters within 1e-5);
+   the train loader alone on a PNG tree the script writes
+   (build/smoke_train/data/, 128 train and 32 val images); then
+   `cli.main_stage2` on the flagship in a subprocess, --max-steps 4 from
+   phase 14's trainer-layout stage-1 .ckpt, then --resume to 6 (the step
+   count continues), and its ckpt_full bundle loads strictly. K3 at the
+   training shapes (f32, and bf16 z on an f32 codebook) against plain,
+   timed.
+16. Stage-1 training (after phase 15): the flagship stage 1
+   (`hqvae-pixelshuffle-top8x8.yaml`) at batch 16, f32, the GAN active
+   from step 0, LPIPS on seeded He-scaled random VGG16 weights: the
+   faithful step (2 warm-up, 5 timed: images/s, peak memory, exactly 4
+   K3 launches a step, every EMA buffer changed, d_weight finite and
+   positive; one step profiled), the fast step likewise (2 K3 a step), one
+   bf16 step; the tiny stage 1's 2 f32 steps on the card and the CPU
+   (the tests' bounds); `cli.main_stage1` in a subprocess, --max-steps 2
+   with --lpips-vgg (a torchvision-layout file of the random weights),
+   then --resume to 3. K3 at the stage-1 training shapes, timed. The JSON
+   line gains `vq_argmin_stage2_train` and `vq_argmin_stage1_train` (f32
+   K3 with the timed f32 runs' launches, `dtype` and
+   `launches_per_step`).
+
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
 non-zero without that line; so it does without a CUDA device or outside a
@@ -3964,6 +3996,547 @@ def run_eval_pipeline(vq, da, st):
     return k3
 
 
+# ------------------------------------------------- phase 15: stage-2 training
+
+SMOKE_TRAIN = ROOT / 'build' / 'smoke_train'
+LEVEL3_S2 = ROOT / 'configs/imagenet/stage2/hqtransformer-l12-top8x8-level3.yaml'
+TINY_S1 = ROOT / 'configs/tiny/stage1-tiny.yaml'
+B_TRAIN2, B_TRAIN1 = 64, 16
+TRAIN_WARMUP, TRAIN_STEPS2, TRAIN_STEPS1 = 2, 10, 5
+# K3 on the training paths, (N, D) per level: the frozen stage 1 of
+# stage-2 training at batch 64, and stage-1 training at batch 16.
+K3_TRAIN = {'stage2': ((B_TRAIN2 * 64, 1024), (B_TRAIN2 * 256, 256)),
+            'stage1': ((B_TRAIN1 * 64, 1024), (B_TRAIN1 * 256, 256))}
+
+
+def train_batches(n: int, batch: int, seed: int, n_classes: int = 1000):
+    """n seeded batches of images [batch, 256, 256, 3] in [-1, 1] and class
+    labels on the card."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    return [(torch.rand((batch, 256, 256, 3), generator=g, device='cuda') *
+             2 - 1, torch.randint(0, n_classes, (batch,), generator=g,
+                                  device='cuda')) for _ in range(n)]
+
+
+def training_model(path, dtype, seed, device='cuda', draw_on=None):
+    """(config, TwoStageModel) of a stage-2 config with seeded random f32
+    weights (drawn on `draw_on`, by default the model's device) loaded
+    once; stage 1 frozen."""
+    from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.models.twostage import TwoStageModel
+
+    cfg = build_twostage_config(str(path))
+    model = TwoStageModel(cfg, dtype, device=device)
+    drawer = TwoStageModel(cfg, device=draw_on) if draw_on else model
+    model.load_weights(drawer.init_weights(seed))
+    model.stage1.requires_grad_(False)
+    return cfg, model
+
+
+def stage2_trainer(cfg, model, schedule=None):
+    """(train_step, state, optimizer) on the config's optimizer, one
+    micro-step an update."""
+    from hqtransformer_tpu_torch.train import stage2 as ts
+    from hqtransformer_tpu_torch.train.scheduler import \
+        build_schedule_from_config
+
+    if schedule is None:
+        schedule = build_schedule_from_config(cfg.optimizer, 1000, 100000,
+                                              world_size=1)
+    opt = ts.make_optimizer(cfg.optimizer, schedule,
+                            mask=ts.decay_mask(model.stage2))
+    s2 = cfg.stage2
+    step = ts.make_train_step(
+        model.stage2, model.stage1, opt, weight_bottom=s2.weight_bottom or 4.0,
+        weight_img=s2.weight_img, weight_txt=s2.weight_txt,
+        temp_soft_labels=s2.temp_soft_labels,
+        use_cond=bool(s2.use_cls_cond or s2.use_txt_cond),
+        multilevel='multilevel-hq' in s2.type)
+    return step, ts.init_train_state(model.stage2, opt), opt
+
+
+def time_training(name, step, state, batches, kernels, k3_per_step, n_steps,
+                  batch, loss_key='loss', rng=None):
+    """TRAIN_WARMUP steps, then n_steps timed (host clock around them,
+    ending in a synchronisation) with the launch counters set to 0 just
+    before: exactly k3_per_step K3 launches a step and no K1 or K2,
+    finite losses. Returns (state, ms a step, K3 launches)."""
+    vq, da, st = kernels
+    extra = () if rng is None else (rng,)
+
+    def args(i):
+        x, y = batches[i % len(batches)]
+        return (x,) + extra if rng is not None else (x, y)
+    for i in range(TRAIN_WARMUP):
+        state, _ = step(state, *args(i))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        state, m = step(state, *args(TRAIN_WARMUP + i))
+        losses.append(m[loss_key])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    counts = launch_counts(vq, da, st)
+    losses = [float(v) for v in losses]
+    require(counts == (k3_per_step * n_steps, 0, 0),
+            f'{name}: launches (K3, K1, K2) {counts} in {n_steps} steps, '
+            f'not {k3_per_step} K3 a step')
+    require(all(math.isfinite(v) for v in losses), f'{name}: losses {losses}')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'{name}: {ms:.1f} ms a step, {batch / ms * 1e3:.2f} images/s at '
+          f'batch {batch} ({n_steps} steps after {TRAIN_WARMUP}), '
+          f'{counts[0] // n_steps} K3 launches a step, no K1 or K2, peak '
+          f'{peak:.2f} GiB; {loss_key} {losses[0]:.4f} .. {losses[-1]:.4f}')
+    return state, ms, counts[0]
+
+
+def global_norm(grads) -> float:
+    return float(torch.sqrt(sum((g.float() ** 2).sum()
+                                for g in grads.values())))
+
+
+def time_k3_training(vq, shapes, z_dtype, e_dtype, label):
+    """K3 at a training path's (N, D) levels, z in z_dtype and the EMA
+    codebook in e_dtype: codes against the plain version's (the near-tie
+    rule), then kernel, plain and addmm+argmin times and the bound, as
+    `time_vq_argmin` takes them. Returns the JSON fields (ms, plain,
+    library, (bound, by)) as the mean of one launch a level, and the
+    largest f64 gap of a differing row."""
+    rows, max_err = [], 0.0
+    pairs = pair_list(vq, z_dtype, e_dtype)
+    for N, D in shapes:
+        g = torch.Generator(device='cuda').manual_seed(N + D + 15)
+        z = torch.randn((N, D), generator=g, device='cuda').to(z_dtype)
+        e = torch.randn((N_CODES, D), generator=g, device='cuda').to(e_dtype)
+        n_diff, err = compare_codes(z, e, vq.vq_argmin(z, e),
+                                    vq.vq_argmin_plain(z, e))
+        max_err = max(max_err, err)
+        ms = time_ms(lambda i: vq.vq_argmin(z, e), 5)
+        plain = time_ms(lambda i: vq.vq_argmin_plain(z, e), 3)
+        ef = e.float()
+        lib = time_ms(lambda i: torch.addmm(ef.square().sum(1), z.float(),
+                                            ef.T, alpha=-2).argmin(1), 5)
+        n_bytes = N * D * z.element_size() + N_CODES * D * e.element_size() \
+            + N * 8
+        bnd = bound(n_bytes, 2 * N * N_CODES * D, BF16_FLOPS_PER_S)
+        rows.append((ms, plain, lib, bnd))
+        print(f'K3 {label} N={N} D={D} {str(z_dtype)[6:]} z, '
+              f'{str(e_dtype)[6:]} codebook ({pairs}): {n_diff} of {N} rows '
+              f'differ from plain, each a near-tie; kernel {ms:.4f} ms, plain '
+              f'{plain:.4f} ms, addmm+argmin {lib:.4f} ms, bound '
+              f'{bnd[0]:.4f} ms ({bnd[1]}; kernel {ms / bnd[0]:.2f}x)')
+        del z, e, ef
+    mean = tuple(sum(r[i] for r in rows) / len(rows) for i in range(3))
+    return mean + ((sum(r[3][0] for r in rows) / len(rows), rows[0][3][1]),
+                   ), max_err
+
+
+def param_diffs(a, b):
+    """|a - b| over every entry of parameter dicts a and b (on the CPU)."""
+    require(set(a) == set(b), 'the parameter names differ')
+    return torch.cat([(a[k].detach().cpu() - b[k].detach().cpu()).abs()
+                      .reshape(-1) for k in b])
+
+
+def check_stage2_training_tiny():
+    """configs/tiny/stage2-tiny.yaml, 3 f32 steps on the card and on the
+    CPU from the same weights and batches (clipping active, warmup lr to
+    1e-3): the parameters' median difference under 1e-7, 99% within 1e-6
+    and all within 2e-4 (Adam makes a near-zero gradient's rounding a
+    whole update: see tests/test_torch_train_stage1.py)."""
+    import numpy as np
+
+    from hqtransformer_tpu_torch.train.scheduler import build_schedule
+
+    out = {}
+    for device in ('cuda', 'cpu'):
+        cfg, model = training_model(TINY, torch.float32, 15, device, 'cpu')
+        step, state, _ = stage2_trainer(
+            cfg, model, build_schedule(1e-3, 2, 10, warmup_epoch=1.0))
+        rng = np.random.RandomState(15)
+        for _ in range(3):
+            x = torch.from_numpy(rng.uniform(-1, 1, (4, 32, 32, 3)).astype(
+                np.float32)).to(device)
+            y = torch.from_numpy(rng.randint(0, 10, (4,))).to(device)
+            state, _ = step(state, x, y)
+        out[device] = state.params
+    diffs = param_diffs(out['cuda'], out['cpu'])
+    q = [float(torch.quantile(diffs, p)) for p in (0.5, 0.99, 0.999)]
+    worst = float(diffs.max())
+    print(f'tiny stage-2 training, 3 f32 steps: card and CPU parameters '
+          f'differ by median {q[0]:.2e}, 99% within {q[1]:.2e}, 99.9% '
+          f'within {q[2]:.2e}, at most {worst:.2e}')
+    require(q[0] < 1e-7 and q[1] <= 1e-6 and worst <= 2e-4,
+            'tiny stage-2 training: card and CPU parameters differ')
+
+
+def write_train_tree():
+    """128 train and 32 val PNGs (phase 14's image maker: ImageNet-like
+    sizes and modes) under build/smoke_train/data/{train,val}/class<k>/."""
+    import numpy as np
+
+    root = SMOKE_TRAIN / 'data'
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.RandomState(15)
+    for split, n in (('train', 128), ('val', 32)):
+        for k in range(n):
+            arr, mode, palette = eval_image(k, rng)
+            path = root / split / f'class{k % 4}' / f'{k:04d}.png'
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_bytes(encode_png(arr, mode, [0, 1, 2, 3, 4], palette))
+    return root
+
+
+def run_dir(parent):
+    (run,) = [p for p in Path(parent).glob('*/*') if p.is_dir()]
+    return run
+
+
+def time_train_loader(root):
+    """The train loader alone on the tree at batch 64 (8 workers): images/s
+    of the host's part of a stage-2 step."""
+    from hqtransformer_tpu_torch.data import datasets
+
+    ds = datasets.build_dataset('imagenet', str(root), 'train')
+    cfg = datasets.LoaderConfig(batch_size=B_TRAIN2, resolution=256, seed=1)
+    t0 = time.perf_counter()
+    n = sum(len(x) for x, _ in datasets.DataLoader(ds, cfg))
+    seconds = time.perf_counter() - t0
+    print(f'train loader (train transform, 8 workers, batch {B_TRAIN2}): '
+          f'{n / seconds:.2f} images/s ({n} images in {seconds:.2f} s)')
+
+
+def run_stage2_cli(root):
+    """cli.main_stage2 on the flagship: --max-steps 4 from a trainer-layout
+    stage-1 .ckpt, then --resume to 6 (the step count continues); the
+    sampler-ready bundle loads strictly."""
+    from hqtransformer_tpu_torch.checkpoint import restore_checkpoint
+    from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.models.twostage import TwoStageModel
+
+    s1 = SMOKE_EVAL / 'stage1.ckpt'
+    if not s1.exists():
+        SMOKE_EVAL.mkdir(parents=True, exist_ok=True)
+        write_eval_weights()
+    common = ['-c', str(FLAGSHIP), '--data-root', str(root),
+              '--stage1-ckpt', str(s1)]
+    for d in ('s2a', 's2b'):
+        shutil.rmtree(SMOKE_TRAIN / d, ignore_errors=True)
+    run_cli(['-r', str(SMOKE_TRAIN / 's2a'), '--max-steps', '4', *common],
+            'main_stage2')
+    first = run_dir(SMOKE_TRAIN / 's2a')
+    run_cli(['-r', str(SMOKE_TRAIN / 's2b'), '--max-steps', '6', '--resume',
+             str(first / 'ckpt'), *common], 'main_stage2')
+    second = run_dir(SMOKE_TRAIN / 's2b')
+    log = (second / 'train.log').read_text()
+    require('resumed from' in log and '@ step 4' in log and
+            'final checkpoint saved @ step 6' in log,
+            f'cli.main_stage2 --resume: {log[-2000:]}')
+    require(restore_checkpoint(str(second / 'ckpt'), 6)['step'] == 6,
+            'the resumed run did not save step 6')
+    print('  ' + '\n  '.join(ln for ln in log.splitlines()
+                             if 'step ' in ln or 'valid' in ln)[:1500])
+    bundle = second / 'ckpt_full' / '6.ckpt'
+    model = TwoStageModel(build_twostage_config(str(FLAGSHIP)))
+    weights = model.load_reference_checkpoint(str(bundle))
+    print(f'cli.main_stage2: 4 steps, resumed to 6; {bundle.name} loads '
+          f'strictly ({len(weights["stage1"])} + {len(weights["stage2"])} '
+          f'tensors)')
+
+
+def run_stage2_training(vq, da, st):
+    """Phase 15. Returns the JSON fields of K3 on the stage-2 training path
+    (launches of the timed f32 run, max gap, times)."""
+    from hqtransformer_tpu_torch.train.optim import grads_of
+
+    t0 = time.perf_counter()
+    kernels = (vq, da, st)
+    batches = train_batches(4, B_TRAIN2, 150)
+    results = {}
+    cfg, model = training_model(FLAGSHIP, torch.float32, 15)
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype == torch.bfloat16:
+            weights = {s: dict(getattr(model, s).state_dict())
+                       for s in ('stage1', 'stage2')}
+            del model
+            torch.cuda.empty_cache()
+            cfg, model = training_model(FLAGSHIP, dtype, 15)
+            model.load_weights(weights)
+            del weights
+        step, state, opt = stage2_trainer(cfg, model)
+        name = f'stage-2 training {str(dtype)[6:]}'
+        state, ms, k3 = time_training(name, step, state, batches, kernels,
+                                      2, TRAIN_STEPS2, B_TRAIN2)
+        x, y = batches[0]
+        loss, _ = step.loss_fn(x, y)
+        norm = global_norm(grads_of(loss, state.params))
+        require(math.isfinite(norm), f'{name}: gradient norm {norm}')
+        print(f'{name}: gradient norm {norm:.4f} (finite)')
+        results[dtype] = (ms, k3)
+        if dtype == torch.float32:
+            profile_stage2_step(step, state, batches[0], model.stage1, opt)
+        del step, state, opt, loss
+        torch.cuda.empty_cache()
+    # one repeated batch at a constant lr: the loss falls
+    step, state, _ = stage2_trainer(cfg, model, lambda t: 1e-4)
+    x, y = batches[1]
+    losses = []
+    for _ in range(10):
+        state, m = step(state, x, y)
+        losses.append(float(m['loss']))
+    require(losses[-1] < losses[0], f'the loss did not fall: {losses}')
+    print(f'stage-2 training bf16, one batch repeated at lr 1e-4: loss '
+          f'{losses[0]:.4f} -> {losses[-1]:.4f} over 10 steps')
+    del step, state, model
+    torch.cuda.empty_cache()
+    check_remat()
+    for path, batch, k3 in ((LEVEL3_S2, 32, 3), (SOFT_S2, 16, 0)):
+        one_step(path, batch, k3, kernels)
+    check_stage2_training_tiny()
+    root = write_train_tree()
+    time_train_loader(root)
+    run_stage2_cli(root)
+    fields, err = time_k3_training(vq, K3_TRAIN['stage2'], torch.float32,
+                                   torch.float32, 'stage-2 training')
+    time_k3_training(vq, K3_TRAIN['stage2'], torch.bfloat16, torch.float32,
+                     'stage-2 training (bf16 activations)')
+    print(f'phase 15 (stage-2 training): {time.perf_counter() - t0:.1f} s')
+    return results[torch.float32][1], err, fields
+
+
+def profile_stage2_step(step, state, batch, stage1, opt):
+    """Where a flagship f32 step's time goes: the frozen stage 1's codes
+    alone, the step's forward and backward (codes included), the
+    optimizer's update, each timed alone and profiled."""
+    from hqtransformer_tpu_torch.train import stage2 as ts
+    from hqtransformer_tpu_torch.train.optim import grads_of
+
+    x, y = batch
+    grads = {}
+
+    def fwd_bwd():
+        loss, _ = step.loss_fn(x, y)
+        grads.update(grads_of(loss, state.params))
+
+    fwd_bwd()
+    profile_phases((
+        ('stage-2 step: stage-1 codes (2 K3)',
+         lambda: ts.stage1_codes(stage1, x)),
+        ('stage-2 step: forward and backward (codes included)', fwd_bwd),
+        ('stage-2 step: optimizer (clip, AdamW)',
+         lambda: opt.update(grads, state.opt_state, state.params))))
+
+
+def check_remat():
+    """The flagship's gradients on one batch of 16, with and without
+    `remat` (the main blocks recomputed in the backward pass): within
+    1e-6."""
+    from hqtransformer_tpu_torch.train.optim import grads_of
+
+    cfg, model = training_model(FLAGSHIP, torch.float32, 16)
+    step, state, _ = stage2_trainer(cfg, model)
+    x, y = train_batches(1, 16, 160)[0]
+    grads = []
+    for remat in (False, True):
+        model.stage2.remat = remat
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = step.loss_fn(x, y)
+        grads.append(grads_of(loss, state.params))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f'flagship f32 loss and gradients at batch 16, remat '
+              f'{remat}: peak {peak:.2f} GiB')
+    worst = max(float((grads[0][k] - grads[1][k]).abs().max())
+                for k in grads[0])
+    require(worst <= 1e-6, f'remat gradients differ by {worst}')
+    print(f'remat: gradients within {worst:.2e} of the plain run (bound '
+          f'1e-6)')
+
+
+def one_step(path, batch, k3, kernels):
+    """One checked, untimed step of a stage-2 config at `batch`: exactly k3
+    K3 launches, no K1 or K2, a finite loss."""
+    vq, da, st = kernels
+    cfg, model = training_model(path, torch.float32, 17)
+    step, state, _ = stage2_trainer(cfg, model)
+    x, y = train_batches(1, batch, 170)[0]
+    reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+    state, m = step(state, x, y)
+    torch.cuda.synchronize()
+    counts = launch_counts(vq, da, st)
+    require(counts == (k3, 0, 0) and math.isfinite(float(m['loss'])),
+            f'{path.name}: launches (K3, K1, K2) {counts}, loss '
+            f'{float(m["loss"])}')
+    print(f'stage-2 training step {path.name} at batch {batch}: {k3} K3 '
+          f'launches, no K1 or K2, loss {float(m["loss"]):.4f}')
+    del model, step, state
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------- phase 16: stage-1 training
+
+def stage1_trainer(cfg, dtype, seed, fast=False, lpips=True, device='cuda'):
+    """(train_step, state, generator) of a stage-1 config with seeded
+    random weights: the generator, the discriminator, LPIPS on seeded
+    He-scaled random VGG16 weights (or none), Adam from the config, one
+    micro-step an update."""
+    from hqtransformer_tpu_torch.evaluation.stage1 import init_stage1_weights
+    from hqtransformer_tpu_torch.models.stage1.generator import \
+        build_generator
+    from hqtransformer_tpu_torch.models.stage1.lpips import init_lpips
+    from hqtransformer_tpu_torch.train import stage1 as t1
+    from hqtransformer_tpu_torch.train.scheduler import \
+        build_schedule_from_config
+
+    with torch.device('meta'):
+        generator = build_generator(cfg.stage1, dtype)
+    generator = generator.to_empty(device=device)
+    generator.load_state_dict(init_stage1_weights(cfg.stage1, seed, 'cpu'))
+    hd = cfg.stage1.hparams_disc
+    disc = t1.init_discriminator(t1.make_discriminator(hd, dtype), seed + 1,
+                                 device)
+    lp = init_lpips(seed, dtype, device) if lpips else None
+    sched = build_schedule_from_config(cfg.optimizer, 1000, 100000)
+    g_opt, d_opt = (t1.make_stage1_optimizer(cfg.optimizer, sched)
+                    for _ in range(2))
+    step = t1.make_stage1_train_step(
+        generator, disc, lp, g_opt, d_opt, hd,
+        residual_l1_weight=hd.residual_l1_weight or 0.0,
+        perceptual_weight=1.0 if lpips else 0.0,
+        faithful_double_forward=not fast)
+    return step, t1.init_stage1_state(generator, disc, g_opt, d_opt), \
+        generator
+
+
+def check_stage1_training_tiny():
+    """configs/tiny/stage1-tiny.yaml, 2 f32 steps (no restarts, no LPIPS)
+    on the card and on the CPU from the same weights and images, the
+    tests' bounds: parameters' median difference under 2e-6 and 99%
+    within 1e-4; EMA counts within 1e-6, codebooks rtol 1e-2, atol 1e-3."""
+    import numpy as np
+
+    from hqtransformer_tpu_torch.config import build_stage1_config
+
+    cfg = build_stage1_config(str(TINY_S1))
+    out = {}
+    for device in ('cuda', 'cpu'):
+        step, state, _ = stage1_trainer(cfg, torch.float32, 16, lpips=False,
+                                        device=device)
+        rng = np.random.RandomState(16)
+        for _ in range(2):
+            x = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+            state, _ = step(state, torch.from_numpy(x).to(device))
+        out[device] = state
+    a, b = out['cuda'], out['cpu']
+    diffs = param_diffs({**a.gen_params, **a.disc_params},
+                        {**b.gen_params, **b.disc_params})
+    median, p99 = (float(torch.quantile(diffs, q)) for q in (0.5, 0.99))
+    require(median < 2e-6 and p99 <= 1e-4,
+            f'tiny stage-1 training: parameters differ by median {median}, '
+            f'99% within {p99}')
+    for k, v in b.ema.items():
+        got = a.ema[k].cpu()
+        tol = (1e-6, 0.0) if k.endswith('cluster_size') else (1e-3, 1e-2)
+        require(bool(((got - v).abs() <= tol[0] + tol[1] * v.abs()).all()),
+                f'tiny stage-1 training: EMA buffer {k} differs')
+    print(f'tiny stage-1 training, 2 f32 steps: card and CPU parameters '
+          f'differ by median {median:.2e}, 99% within {p99:.2e}; EMA '
+          f'buffers within bounds')
+
+
+def run_stage1_cli(root):
+    """cli.main_stage1 on the flagship stage 1 with LPIPS from a
+    torchvision-layout VGG16 file of seeded random weights: --max-steps 2,
+    then --resume to 3."""
+    from hqtransformer_tpu_torch.checkpoint import restore_checkpoint
+    from hqtransformer_tpu_torch.models.stage1.lpips import init_lpips
+
+    vgg = SMOKE_TRAIN / 'vgg16.pth'
+    sd = init_lpips(16).state_dict()
+    torch.save({k.replace('net.conv_', 'features.'): v for k, v in sd.items()
+                if k.startswith('net.')}, vgg)
+    common = ['-c', str(STAGE1_FLAGSHIP), '--data-root', str(root),
+              '--lpips-vgg', str(vgg)]
+    for d in ('s1a', 's1b'):
+        shutil.rmtree(SMOKE_TRAIN / d, ignore_errors=True)
+    run_cli(['-r', str(SMOKE_TRAIN / 's1a'), '--max-steps', '2', *common],
+            'main_stage1')
+    first = run_dir(SMOKE_TRAIN / 's1a')
+    run_cli(['-r', str(SMOKE_TRAIN / 's1b'), '--max-steps', '3', '--resume',
+             str(first / 'ckpt'), *common], 'main_stage1')
+    second = run_dir(SMOKE_TRAIN / 's1b')
+    log = (second / 'train.log').read_text()
+    require('resumed from' in log and '@ step 2' in log and
+            'final checkpoint saved @ step 3' in log and 'LPIPS weights '
+            'loaded' in log, f'cli.main_stage1 --resume: {log[-2000:]}')
+    require(restore_checkpoint(str(second / 'ckpt'), 3)['step'] == 3,
+            'the resumed run did not save step 3')
+    print('  ' + '\n  '.join(ln for ln in log.splitlines()
+                             if 'step ' in ln or 'valid' in ln)[:1500])
+    print('cli.main_stage1: 2 steps, resumed to 3')
+
+
+def run_stage1_training(vq, da, st):
+    """Phase 16. Returns the JSON fields of K3 on the stage-1 training path
+    (launches of the timed faithful run, max gap, times)."""
+    from hqtransformer_tpu_torch.config import build_stage1_config
+
+    t0 = time.perf_counter()
+    kernels = (vq, da, st)
+    cfg = build_stage1_config(str(STAGE1_FLAGSHIP))
+    require(cfg.stage1.hparams_disc.disc_start == 0,
+            'the flagship stage 1 should train its GAN from step 0')
+    batches = train_batches(3, B_TRAIN1, 161)
+    rng = torch.Generator(device='cuda').manual_seed(16)
+    launches = None
+    for fast, k3 in ((False, 4), (True, 2)):
+        step, state, _ = stage1_trainer(cfg, torch.float32, 16, fast)
+        ema = {k: v.clone() for k, v in state.ema.items()}
+        name = f'stage-1 training f32 {"fast" if fast else "faithful"}'
+        state, ms, n = time_training(name, step, state, batches, kernels,
+                                     k3, TRAIN_STEPS1, B_TRAIN1,
+                                     'total_loss', rng)
+        state, m = step(state, batches[0][0], rng)
+        d_weight = float(m['d_weight'])
+        require(math.isfinite(d_weight) and d_weight > 0,
+                f'{name}: d_weight {d_weight}')
+        moved = sum(not torch.equal(ema[k], v) for k, v in state.ema.items())
+        require(moved == len(ema), f'{name}: {moved} of {len(ema)} EMA '
+                f'buffers changed')
+        print(f'{name}: d_weight {d_weight:.4f}, every EMA buffer changed '
+              f'({len(ema)})')
+        if not fast:
+            launches = n
+            profile_phases(((f'{name} step', lambda: step(
+                state, batches[1][0], rng)),))
+        del step, state
+        torch.cuda.empty_cache()
+    step, state, _ = stage1_trainer(cfg, torch.bfloat16, 16)
+    reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step(state, batches[0][0], rng)
+    torch.cuda.synchronize()
+    require(launch_counts(vq, da, st) == (4, 0, 0) and
+            math.isfinite(float(m['total_loss'])),
+            f'stage-1 bf16 step: launches {launch_counts(vq, da, st)}')
+    print(f'stage-1 training bf16, one faithful step: 4 K3 launches, loss '
+          f'{float(m["total_loss"]):.4f}, peak '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+    del step, state
+    torch.cuda.empty_cache()
+    check_stage1_training_tiny()
+    root = SMOKE_TRAIN / 'data'
+    if not root.exists():
+        root = write_train_tree()
+    run_stage1_cli(root)
+    fields, err = time_k3_training(vq, K3_TRAIN['stage1'], torch.float32,
+                                   torch.float32, 'stage-1 training')
+    print(f'phase 16 (stage-1 training): {time.perf_counter() - t0:.1f} s')
+    return launches, err, fields
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(
         description='Smoke test of the PyTorch/CUDA port on one GPU; with '
@@ -4050,6 +4623,8 @@ def main(argv=None) -> int:
     stage1_rates, k3d_launches = run_stage1_rest(vq, da, st)
     k1ft_launches, k1ft_err, k1ft_times = run_serving_rest(da, st, q8)
     k3e_launches = run_eval_pipeline(vq, da, st)
+    k3t2_launches, k3t2_err, k3t2_times = run_stage2_training(vq, da, st)
+    k3t1_launches, k3t1_err, k3t1_times = run_stage1_training(vq, da, st)
     require(k3_shapes[K3_D256][5] == 0 and k3f_shapes[K3_D256][5] == 0,
             'K3 at the avgpool / conv2 top differs from plain')
     check_small_reference(vq)
@@ -4095,12 +4670,21 @@ def main(argv=None) -> int:
              max(k3_err, k3_served_err), k3_shapes[K3_D256][:4]),
             ('vq_argmin_f32_eval', source + 'vq_argmin.cu',
              'hqtransformer_tpu/ops/pallas_vq.py:63', k3e_launches,
-             max(k3_err, k3f_served_err), flagship_entry(k3f_shapes))):
+             max(k3_err, k3f_served_err), flagship_entry(k3f_shapes)),
+            ('vq_argmin_stage2_train', source + 'vq_argmin.cu',
+             'hqtransformer_tpu/ops/pallas_vq.py:63', k3t2_launches,
+             k3t2_err, k3t2_times),
+            ('vq_argmin_stage1_train', source + 'vq_argmin.cu',
+             'hqtransformer_tpu/ops/pallas_vq.py:63', k3t1_launches,
+             k3t1_err, k3t1_times)):
         kernels.append({'name': name, 'route': 'cuda', 'source': src,
                         'replaces': replaces, 'launches': n,
                         'max_abs_err': err, 'ms': ms, 'kernel_ms': ms,
                         'plain_ms': plain, 'bound_ms': bnd, 'bound_by': by,
                         'library_ms': lib})
+    # the training paths' K3 entries: f32 z and codebook, launches a step
+    for entry, per_step in zip(kernels[-2:], (2, 4)):
+        entry.update(dtype='float32', launches_per_step=per_step)
     print(f'K2 rows differing from plain at most {k2_frac:.4f}; main path '
           f'{samples_per_s:.2f} samples/s at batch {B}; 3-level sampling '
           f'{level3_samples_per_s:.2f} samples/s at batch {B}; encode slice '

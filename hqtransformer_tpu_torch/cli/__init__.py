@@ -18,7 +18,10 @@ package's root scripts:
   (`eval_hqmodel.py`);
 - `python -m hqtransformer_tpu_torch.cli.compute_fid_stats`: reference
   statistics (and features) of a dataset folder
-  (`scripts/compute_fid_stats.py`).
+  (`scripts/compute_fid_stats.py`);
+- `python -m hqtransformer_tpu_torch.cli.main_stage2` and
+  `cli.main_stage1`: stage-2 and stage-1 training with `--resume`,
+  data-parallel under torchrun (`main_stage2.py`, `main_stage1.py`).
 
 They take the JAX scripts' arguments and read and write their files, so
 either package's evaluation reads the other's results. Real FID needs the
@@ -27,5 +30,6 @@ weights`), which are not in the repository. Differences: they run on
 the card unless asked for the CPU (`--device cpu`, `device=cpu`), with no
 quiet fall back; the random numbers are a `torch.Generator` seeded by the
 seed argument, so the draws are not JAX's; models load from the
-reference's PyTorch checkpoints, not from Orbax directories.
+reference's PyTorch checkpoints, not from Orbax directories, and the
+trainers write training checkpoints of the port's own (`checkpoint.py`).
 """

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import re
 from dataclasses import dataclass, field
 from typing import Any, List, Optional
@@ -293,6 +294,16 @@ def build_twostage_config(config_path: str) -> TwoStageConfig:
         cfg.stage1.hparams_disc = Stage1HparamsDisc()
     _merge_into_dataclass(cfg, data)
     return cfg
+
+
+def save_config(cfg: Any, path: str) -> None:
+    """Write the dataclass config `cfg` to `path` as YAML, every field
+    included, as the JAX package's `save_config` does;
+    `build_twostage_config` or `build_stage1_config` reads it back to an
+    equal config."""
+    os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
+    with open(path, 'w') as fp:
+        yaml.safe_dump(dataclasses.asdict(cfg), fp, sort_keys=False)
 
 
 # ---------------------------------------------------------------------------

@@ -102,11 +102,13 @@ def _leaves(tree: Mapping[str, Any], prefix=()):
 
 
 def convert_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax variables {'params': ..., 'ema': ...} -> {torch key: f32 tensor}.
-    Raises on any other collection."""
+    """Flax variables {'params': ..., 'ema': ..., 'batch_stats': ...} ->
+    {torch key: f32 tensor}; a BatchNorm's `batch_stats` `mean` and `var`
+    become `running_mean` and `running_var`. Raises on any other
+    collection."""
     out: Dict[str, torch.Tensor] = {}
     for col, tree in variables.items():
-        if col not in ('params', 'ema'):
+        if col not in ('params', 'ema', 'batch_stats'):
             raise ValueError(f'cannot convert collection {col!r}')
         for path, leaf in _leaves(tree):
             arr = np.asarray(leaf, dtype=np.float32)
@@ -119,6 +121,9 @@ def convert_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
             if col == 'ema':
                 out[key(name)] = arr
+            elif col == 'batch_stats':
+                out[key('running_mean' if name == 'mean' else
+                        'running_var')] = arr
             elif name == 'kernel' and arr.ndim == 4:
                 seg_last = segs[-1] if segs else ''
                 if (seg_last.startswith('upsample')

@@ -68,8 +68,15 @@ GPT-2's split (`byte_level_pre_tokenize`, by Unicode categories: no
 merged by rank; no special tokens, and padding with id 0 (the id of '!':
 the JAX wrapper pads with '[PAD]''s id, else 0).
 
-BPE dropout (`dropout`), which only training reads, is not ported: the
-`tokenizers` package draws it from a generator of its own.
+BPE dropout (`create_tokenizer(..., dropout=p, generator=g)`, which
+training reads) is that package's rule: the merges pop from the queue as
+above, each skipped with probability p (one uniform draw a pop, from `g`:
+a `random.Random` or a `torch.Generator`; a fresh `random.Random` when
+none is given), the skipped ones pushed back after the next merge that
+is not skipped, and the encoding ends when the queue is empty. Its draws
+are not the package's (it draws from a generator of its own), so the two
+agree in distribution only. The WordPiece and CLIP tokenizers take no
+dropout, as in JAX.
 
 The vocabulary and merges are read as data files from
 `hqtransformer_tpu/assets/tokenizers/` beside this package in the
@@ -82,10 +89,13 @@ import gzip
 import heapq
 import html
 import json
+import random
 import re
 import unicodedata
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
+
+import torch
 
 ASSETS = Path(__file__).resolve().parents[2] / 'hqtransformer_tpu' / \
     'assets' / 'tokenizers'
@@ -277,6 +287,23 @@ class CharBPETokenizer:
             self.merges[pair] = (rank, self.vocab[a + b])
         self.unk_id = self.vocab.get(UNK)
         self.pad_id = self.vocab.get(PAD, 0)
+        self.dropout: Optional[float] = None
+        self.uniform: Optional[Callable[[], float]] = None
+
+    def set_dropout(self, p: Optional[float],
+                    generator: Union[random.Random, torch.Generator,
+                                     None] = None) -> None:
+        """BPE dropout with probability `p` (None or 0: none), its draws
+        from `generator`."""
+        if not p:
+            self.dropout, self.uniform = None, None
+            return
+        if isinstance(generator, torch.Generator):
+            self.uniform = lambda: float(torch.rand(
+                (), generator=generator, device=generator.device))
+        else:
+            self.uniform = (generator or random.Random()).random
+        self.dropout = float(p)
 
     @property
     def vocab_size(self) -> int:
@@ -303,8 +330,17 @@ class CharBPETokenizer:
             if m:
                 heap.append((m[0], i, m[1]))
         heapq.heapify(heap)
+        skipped = []
         while heap:
-            _, pos, new_id = heapq.heappop(heap)
+            top = heapq.heappop(heap)
+            if self.dropout is not None:
+                if self.uniform() < self.dropout:
+                    skipped.append(top)
+                    continue
+                for item in skipped:
+                    heapq.heappush(heap, item)
+                skipped.clear()
+            _, pos, new_id = top
             if not alive[pos] or nxt[pos] == -1:
                 continue
             right = nxt[pos]
@@ -591,23 +627,26 @@ _CLASSES = {'clip': ClipSimpleTokenizer,
 
 def create_tokenizer(name: str = 'bpe16k_huggingface',
                      vocab_dir: Optional[str] = None,
-                     dropout: Optional[float] = None) -> Tokenizer:
+                     dropout: Optional[float] = None,
+                     generator: Union[random.Random, torch.Generator,
+                                      None] = None) -> Tokenizer:
     """The tokenizer `name`, as the JAX package's `create_tokenizer` names
     it ('bpe16k_huggingface', 'bpe30k_huggingface', 'bpe16k', 'bpe30k',
     'wordpiece16k_huggingface', 'bert_huggingface',
     'wordpiece30k_huggingface', 'bytebpe16k_huggingface', 'clip'), its
-    files read from `vocab_dir` or from the repository's assets. A
-    nonzero `dropout` (BPE dropout, for training) raises."""
-    if dropout:
-        raise NotImplementedError(
-            'BPE dropout is not ported: it comes with training (ROADMAP '
-            'A11)')
+    files read from `vocab_dir` or from the repository's assets. The BPE
+    tokenizers take BPE dropout (training): `dropout` p, drawn from
+    `generator` (see the module docstring); the others ignore it, as in
+    JAX."""
     key = ALIASES.get(name, name)
     if key not in FILES:
         raise ValueError(f'unknown tokenizer {name}')
     root = Path(vocab_dir) if vocab_dir is not None else ASSETS
     paths = [root / f for f in FILES[key]]
-    return _CLASSES.get(key, CharBPETokenizer)(*paths)
+    tok = _CLASSES.get(key, CharBPETokenizer)(*paths)
+    if isinstance(tok, CharBPETokenizer):
+        tok.set_dropout(dropout, generator)
+    return tok
 
 
 def tokenize(texts: List[str], context_length: int = 64,

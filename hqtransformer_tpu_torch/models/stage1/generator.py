@@ -2,8 +2,8 @@
 style two-codebook baseline (`VQGAN2Generator`), the paper's 2-level HQ-VAE
 (`SimRQGAN2Generator`) and the N-level HQ-VAE (`HQVAEGenerator`).
 
-Counterparts of `hqtransformer_tpu/models/stage1/generator.py`, for
-inference. The HQ-VAEs encode images through the `Encoder` and the 1x1
+Counterparts of `hqtransformer_tpu/models/stage1/generator.py`. The
+HQ-VAEs encode images through the `Encoder` and the 1x1
 `quant_conv_b`, then quantize a pyramid of residuals, top level first:
 each level's map is the bottom map resampled down, less the upsampled
 quantization of the levels above. The resampler is `hparams_aux.upsample`
@@ -15,8 +15,11 @@ bottom grid and decodes to pixels. `get_soft_codes` gives the soft code
 distributions that soft-label stage-2 training reads (off K3, as in JAX).
 
 Images come in and pixels go out NHWC [B, H, W, 3], code maps are
-[B, H, W], the JAX package's layouts; the convolutions inside run NCHW. The
-EMA update (training) is not ported.
+[B, H, W], the JAX package's layouts; the convolutions inside run NCHW.
+Training: `encode(x, update_ema=True, generator=g)` takes one EMA step in
+every EMA codebook it searches (restarts drawn from `g`), and
+`decode(..., ret_pre_out=True)` also returns the decoder's features before
+its `conv_out` (NHWC).
 
 `int8_decode(act_scales)` makes the generator's quantizable convolutions
 A8W8 for the duration of one int8max serving call (the JAX package's
@@ -125,6 +128,15 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def _decoded(decoder: Decoder, z: torch.Tensor, ret_pre_out: bool):
+    """decoder(z) NHWC, and with `ret_pre_out` its pre-conv_out features
+    NHWC too."""
+    if ret_pre_out:
+        out, pre = decoder(z, ret_pre_out=True)
+        return _nhwc(out), _nhwc(pre)
+    return _nhwc(decoder(z))
+
+
 class _Stage1Base(nn.Module):
     """Encoder, quant_conv_b and decoder, with NHWC at the boundaries."""
 
@@ -163,10 +175,11 @@ class _Stage1Base(nn.Module):
         """Images [B, H, W, in_ch] -> bottom latent [B, h, w, embed_dim]."""
         return _nhwc(self.quant_conv_b(self.encoder(_nchw(x).to(self.dtype))))
 
-    def _decode_map(self, quant: torch.Tensor) -> torch.Tensor:
-        """Latent [B, h, w, C] -> pixels [B, H, W, out_ch]."""
+    def _decode_map(self, quant: torch.Tensor, ret_pre_out: bool = False):
+        """Latent [B, h, w, C] -> pixels [B, H, W, out_ch] (and the
+        decoder's pre-conv_out features, with `ret_pre_out`)."""
         z = self.post_quant_conv_b(_nchw(quant).to(self.dtype))
-        return _nhwc(self.decoder(z))
+        return _decoded(self.decoder, z, ret_pre_out)
 
 
 class VQGANGenerator(_Stage1Base):
@@ -174,25 +187,28 @@ class VQGANGenerator(_Stage1Base):
     post_quant_conv, decoder."""
 
     def __init__(self, n_embed: int, embed_dim: int, ema_update: bool,
-                 hparams, dtype: torch.dtype = torch.float32):
+                 hparams, dtype: torch.dtype = torch.float32,
+                 ema_distributed: bool = False):
         super().__init__()
         hp = hparams
         self.dtype = dtype
         self.encoder, self.decoder = _backbone(hp)
-        self.quantize = make_quantizer(ema_update, embed_dim, n_embed)
+        self.quantize = make_quantizer(ema_update, embed_dim, n_embed,
+                                       ema_distributed=ema_distributed)
         self.quant_conv = Conv2d(hp.z_channels, embed_dim, 1)
         self.post_quant_conv = Conv2d(embed_dim, hp.z_channels, 1)
 
-    def encode(self, x: torch.Tensor):
+    def encode(self, x: torch.Tensor, update_ema: bool = False,
+               generator: Optional[torch.Generator] = None):
         """Images [B, H, W, 3] -> (quant [B, h, w, embed_dim], loss, codes
         [B, h, w])."""
         h = self.quant_conv(self.encoder(_nchw(x).to(self.dtype)))
-        return self.quantize(_nhwc(h))
+        return self.quantize(_nhwc(h), update_ema, generator)
 
-    def decode(self, quant: torch.Tensor) -> torch.Tensor:
+    def decode(self, quant: torch.Tensor, ret_pre_out: bool = False):
         """quant [B, h, w, embed_dim] -> pixels [B, H, W, out_ch]."""
         z = self.post_quant_conv(_nchw(quant).to(self.dtype))
-        return _nhwc(self.decoder(z))
+        return _decoded(self.decoder, z, ret_pre_out)
 
     def forward(self, x: torch.Tensor):
         """Images -> (pixels, loss, codes [B, h, w])."""
@@ -219,7 +235,8 @@ class VQGAN2Generator(_Stage1Base):
     no get_codes, and neither does the port."""
 
     def __init__(self, n_embed: int, embed_dim: int, ema_update: bool,
-                 hparams, hparams_aux, dtype: torch.dtype = torch.float32):
+                 hparams, hparams_aux, dtype: torch.dtype = torch.float32,
+                 ema_distributed: bool = False):
         super().__init__()
         hp, aux = hparams, hparams_aux
         if aux.decoding_type not in ('concat', 'sum'):
@@ -237,9 +254,11 @@ class VQGAN2Generator(_Stage1Base):
                                    hp.num_res_blocks, hp.attn_resolutions,
                                    hp.attn_resolutions[0] * 2, hp.z_channels,
                                    False, hp.use_mid_block, hp.use_attn)
-        self.quantize_t = make_quantizer(ema_update, embed_dim, n_embed)
+        self.quantize_t = make_quantizer(ema_update, embed_dim, n_embed,
+                                         ema_distributed=ema_distributed)
         self.quantize_b = None if aux.shared_codebook else \
-            make_quantizer(ema_update, embed_dim, n_embed)
+            make_quantizer(ema_update, embed_dim, n_embed,
+                           ema_distributed=ema_distributed)
         half = hp.z_channels // (2 if self.concat else 1)
         # the encoder's last downsample input has ch * ch_mult[-2] channels
         bottom = hp.ch * hp.ch_mult[-2]
@@ -262,26 +281,28 @@ class VQGAN2Generator(_Stage1Base):
     def _join(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.cat([a, b], dim=1) if self.concat else a + b
 
-    def encode(self, x: torch.Tensor):
+    def encode(self, x: torch.Tensor, update_ema: bool = False,
+               generator: Optional[torch.Generator] = None):
         """Images -> (quant_t, quant_b, diff_t, diff_b, (code_t, code_b)),
         quant_* NHWC."""
         h_t, h_b = self.encoder(_nchw(x).to(self.dtype), ret_bottom=True)
         quant_t, diff_t, code_t = self.quantize_t(
-            _nhwc(self.quant_conv_t(h_t)))
+            _nhwc(self.quant_conv_t(h_t)), update_ema, generator)
         d_b = self.decoder_top(self.post_quant_conv_t(_nchw(quant_t)))
         quant_b, diff_b, code_b = self._bottom_quantizer(
-            _nhwc(self.quant_conv_b(self._join(h_b, d_b))))
+            _nhwc(self.quant_conv_b(self._join(h_b, d_b))), update_ema,
+            generator)
         return quant_t, quant_b, diff_t, diff_b, (code_t, code_b)
 
     def decode(self, quant_t: torch.Tensor, quant_b: torch.Tensor,
-               bottom_bypass: bool = False) -> torch.Tensor:
+               bottom_bypass: bool = False, ret_pre_out: bool = False):
         """quant_t, quant_b (NHWC) -> pixels; `bottom_bypass` decodes zeros
         in place of the bottom (after its post_quant_conv_b)."""
         up = self.upsample_t(_nchw(quant_t).to(self.dtype))
         quant_b = self.post_quant_conv_b(_nchw(quant_b).to(self.dtype))
         if bottom_bypass:
             quant_b = torch.zeros_like(quant_b)
-        return _nhwc(self.decoder(self._join(up, quant_b)))
+        return _decoded(self.decoder, self._join(up, quant_b), ret_pre_out)
 
     def forward(self, x: torch.Tensor, bottom_bypass: bool = False):
         """Images -> (pixels, (diff_t, diff_b), (code_t, code_b))."""
@@ -297,7 +318,8 @@ class SimRQGAN2Generator(_Stage1Base):
     [upsample_t(quant_t), quant_b]."""
 
     def __init__(self, n_embed: int, embed_dim: int, ema_update: bool,
-                 hparams, hparams_aux, dtype: torch.dtype = torch.float32):
+                 hparams, hparams_aux, dtype: torch.dtype = torch.float32,
+                 ema_distributed: bool = False):
         super().__init__()
         if hparams_aux.decoding_type != 'concat':
             raise ValueError(f'decoding type {hparams_aux.decoding_type!r}: '
@@ -308,30 +330,36 @@ class SimRQGAN2Generator(_Stage1Base):
         self.encoder, self.decoder = _backbone(hp)
         self.down_t, self.upsample_t = resamplers(self.spec, embed_dim)
         self.quant_conv_b = Conv2d(hp.z_channels, embed_dim, 1)
+        restart = bool(hparams_aux.restart_unused_codes)
         self.quantize_t = make_quantizer(
-            ema_update, top_embed_dim(self.spec, embed_dim), n_embed)
+            ema_update, top_embed_dim(self.spec, embed_dim), n_embed,
+            restart, ema_distributed)
         # a shared codebook searches the bottom residual in quantize_t too,
         # and there is no quantize_b (the JAX package creates none)
         self.quantize_b = None if hparams_aux.shared_codebook else \
-            make_quantizer(ema_update, embed_dim, n_embed)
+            make_quantizer(ema_update, embed_dim, n_embed, restart,
+                           ema_distributed)
         self.post_quant_conv_b = Conv2d(2 * embed_dim, hp.z_channels, 1)
 
-    def encode(self, x: torch.Tensor):
+    def encode(self, x: torch.Tensor, update_ema: bool = False,
+               generator: Optional[torch.Generator] = None):
         """Images [B, H, W, 3] -> (quant_t, quant_b, diff_t, diff_b,
         (code_t, code_b, resid_b)); quant_* are NHWC, resid_b is the bottom
         latent less the upsampled top quantization."""
         h_b = self._encode_map(x)
-        quant_t, diff_t, code_t = self.quantize_t(self.down_t(h_b))
+        quant_t, diff_t, code_t = self.quantize_t(self.down_t(h_b),
+                                                  update_ema, generator)
         h_b = h_b - self.upsample_t(quant_t)
-        quant_b, diff_b, code_b = self._bottom_quantizer(h_b)
+        quant_b, diff_b, code_b = self._bottom_quantizer(h_b, update_ema,
+                                                         generator)
         return quant_t, quant_b, diff_t, diff_b, (code_t, code_b, h_b)
 
-    def decode(self, quant_t: torch.Tensor,
-               quant_b: torch.Tensor) -> torch.Tensor:
+    def decode(self, quant_t: torch.Tensor, quant_b: torch.Tensor,
+               ret_pre_out: bool = False):
         """quant_t at the top grid, quant_b at the bottom grid (NHWC) ->
         pixels [B, H, W, out_ch] in roughly [-1, 1]."""
         return self._decode_map(torch.cat(
-            [self.upsample_t(quant_t), quant_b], dim=-1))
+            [self.upsample_t(quant_t), quant_b], dim=-1), ret_pre_out)
 
     def forward(self, x: torch.Tensor, bottom_bypass: bool = False):
         """Images -> (pixels, (diff_t, diff_b, mean|resid_b|), (code_t,
@@ -403,7 +431,8 @@ class HQVAEGenerator(_Stage1Base):
 
     def __init__(self, n_embed_levels: Sequence[int], embed_dim: int,
                  ema_update: bool, hparams, hparams_aux,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 ema_distributed: bool = False):
         super().__init__()
         if hparams_aux.decoding_type not in ('add', 'concat'):
             raise ValueError(f'decoding type {hparams_aux.decoding_type!r}: '
@@ -419,22 +448,25 @@ class HQVAEGenerator(_Stage1Base):
         self.downsamples = nn.ModuleList(d for d, _ in pairs)
         self.upsamples = nn.ModuleList(u for _, u in pairs)
         self.quant_conv_b = Conv2d(hp.z_channels, embed_dim, 1)
+        restart = bool(hparams_aux.restart_unused_codes)
         self.quantizers = nn.ModuleList(
             make_quantizer(ema_update,
                            top_embed_dim(self.spec, embed_dim,
                                          self.code_levels - ci - 1),
-                           n_embed_levels[ci])
+                           n_embed_levels[ci], restart, ema_distributed)
             for ci in range(self.code_levels))
         self.post_quant_conv_b = Conv2d(embed_dim, hp.z_channels, 1)
 
     def encode(self, x: torch.Tensor, soft_codes: bool = False,
                temp: float = 1.0, stochastic: bool = False,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               update_ema: bool = False):
         """Images -> (quant [B, h, w, embed_dim], diffs, codes top first,
         the residuals of every level but the top); with `soft_codes`,
         (quant, diffs, soft codes [B, H, W, K] top first, codes,
         residuals), each level quantized by `get_soft_codes(temp,
-        stochastic, generator)`."""
+        stochastic, generator)`; with `update_ema`, each EMA codebook takes
+        one step (restarts drawn from `generator`)."""
         h_map = [self._encode_map(x)]
         for down in self.downsamples:
             h_map.insert(0, down(h_map[0]))
@@ -447,7 +479,7 @@ class HQVAEGenerator(_Stage1Base):
                     resid, temp, stochastic, generator)
                 softs.append(soft)
             else:
-                quant, diff, code = quantizer(resid)
+                quant, diff, code = quantizer(resid, update_ema, generator)
             recon = quant + recon
             if qi < self.code_levels - 1:
                 recon = self.upsamples[qi](recon)
@@ -458,9 +490,9 @@ class HQVAEGenerator(_Stage1Base):
             return recon, diffs, softs, codes, resids[1:]
         return recon, diffs, codes, resids[1:]
 
-    def decode(self, quant: torch.Tensor) -> torch.Tensor:
+    def decode(self, quant: torch.Tensor, ret_pre_out: bool = False):
         """Bottom-grid latent [B, h, w, embed_dim] -> pixels."""
-        return self._decode_map(quant)
+        return self._decode_map(quant, ret_pre_out)
 
     def forward(self, x: torch.Tensor):
         """Images -> (pixels, diffs, codes + [sum of the residuals'
@@ -501,12 +533,15 @@ class HQVAEGenerator(_Stage1Base):
         return self.decode(quant)
 
 
-def build_generator(cfg: Stage1Config, dtype: torch.dtype = torch.float32
-                    ) -> nn.Module:
+def build_generator(cfg: Stage1Config, dtype: torch.dtype = torch.float32,
+                    ema_distributed: bool = False) -> nn.Module:
     """Generator for `stage1.type` ('vqgan', 'vqgan2', 'simrqgan2',
-    'hqvae'), with the EMA or the learned codebook as `ema_update` says."""
+    'hqvae'), with the EMA or the learned codebook as `ema_update` says;
+    `ema_distributed` sums the EMA statistics over the data-parallel
+    ranks."""
     common = dict(embed_dim=cfg.embed_dim, ema_update=cfg.ema_update,
-                  hparams=cfg.hparams, dtype=dtype)
+                  hparams=cfg.hparams, dtype=dtype,
+                  ema_distributed=ema_distributed)
     if cfg.type == 'vqgan':
         return VQGANGenerator(cfg.n_embed, **common)
     if cfg.type == 'vqgan2':

@@ -10,7 +10,15 @@ Parameter names follow the PyTorch reference (`down.0.block.0.conv1.weight`,
 
 Convolutions run in their input's dtype (weights may be stored in bf16);
 GroupNorm computes in f32 and returns the input dtype; attention scores and
-softmax are f32. Dropout is left out: every path of the port is inference.
+softmax are f32. Dropout is left out: the JAX package's training runs these
+modules deterministic too.
+
+Training adds `Decoder(ret_pre_out=True)` and the PatchGAN discriminator
+(`NLayerDiscriminator`, `nn.Sequential` names `main.<i>`, NHWC in and out)
+with its three norms: GroupNorm, `ActNorm` (JAX's per-channel affine,
+its scale named `weight` as the JAX export names it) and `FrozenBatchNorm`
+(JAX's BatchNorm runs on its running statistics, `use_running_average`,
+so this one never updates them and holds no batch counter).
 
 The convolutions the JAX package builds through its `conv()` helper (its
 `QuantizableConv`: the 'same' convs, the stride-2 `Downsample` conv and the
@@ -275,7 +283,9 @@ class Decoder(nn.Module):
         self.norm_out = GroupNorm(block_in)
         self.conv_out = conv(block_in, out_ch, 3)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, ret_pre_out: bool = False):
+        """With ret_pre_out, also returns the features conv_out reads (the
+        adaptive GAN weight differentiates through that last conv)."""
         h = self.conv_in(z)
         if self.mid is not None:
             h = self.mid.block_1(h)
@@ -289,4 +299,71 @@ class Decoder(nn.Module):
                     h = level.attn[i_block](h)
             if level.upsample is not None:
                 h = level.upsample(h)
-        return self.conv_out(swish(self.norm_out(h)))
+        pre = swish(self.norm_out(h))
+        out = self.conv_out(pre)
+        return (out, pre) if ret_pre_out else out
+
+
+class ActNorm(nn.Module):
+    """Per-channel affine weight * (x + loc) of NCHW maps; loc starts at 0
+    and weight at 1, as in JAX (no data-dependent init)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.loc = nn.Parameter(torch.zeros(channels))
+        self.weight = nn.Parameter(torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype)[:, None, None]
+        return w * (x + self.loc.to(x.dtype)[:, None, None])
+
+
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm (eps 1e-5) on its running statistics, which it never
+    updates: flax's BatchNorm with use_running_average=True, computed in
+    f32 and returned in the input dtype."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer('running_mean', torch.zeros(channels))
+        self.register_buffer('running_var', torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x.float(), self.running_mean, self.running_var,
+                            self.weight.float(), self.bias.float(), False,
+                            0.0, 1e-5).to(x.dtype)
+
+
+class NLayerDiscriminator(nn.Module):
+    """PatchGAN discriminator: a k 4 stride 2 conv and leaky ReLU(0.2),
+    n_layers - 1 more stride-2 convs and one stride-1 conv, each with its
+    norm ('bn', 'gn' or 'actnorm'; convs before a norm biased only under
+    'actnorm', as in JAX), then a k 4 conv to one logit channel. Images
+    NHWC [B, H, W, C] in, logits NHWC [B, h, w, 1] out, in `dtype`."""
+
+    def __init__(self, input_nc: int = 3, ndf: int = 64, n_layers: int = 3,
+                 norm_type: str = 'bn', dtype: torch.dtype = torch.float32):
+        super().__init__()
+        norms = {'bn': FrozenBatchNorm, 'gn': GroupNorm, 'actnorm': ActNorm}
+        if norm_type not in norms:
+            raise ValueError(f'{norm_type} is not supported..')
+        norm = norms[norm_type]
+        use_bias = norm_type == 'actnorm'
+        self.dtype = dtype
+        layers = [Conv2d(input_nc, ndf, 4, stride=2, padding=1),
+                  nn.LeakyReLU(0.2)]
+        nf_mult = 1
+        for n in range(1, n_layers + 1):
+            nf_prev, nf_mult = nf_mult, min(2 ** n, 8)
+            layers += [Conv2d(ndf * nf_prev, ndf * nf_mult, 4,
+                              stride=2 if n < n_layers else 1, padding=1,
+                              bias=use_bias),
+                       norm(ndf * nf_mult), nn.LeakyReLU(0.2)]
+        layers.append(Conv2d(ndf * nf_mult, 1, 4, stride=1, padding=1))
+        self.main = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.main(x.permute(0, 3, 1, 2).to(self.dtype)).permute(
+            0, 2, 3, 1)

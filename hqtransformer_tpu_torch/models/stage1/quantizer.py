@@ -9,8 +9,12 @@ gives either as a [K, dim] tensor. `forward` quantizes through the
 nearest-code search (`ops/quantize.py::quantize_lookup`, the K3 kernel on
 CUDA tensors); `get_soft_codes` gives the soft code distributions of
 soft-label stage-2 training (`ops/quantize.py::soft_codes`, off K3 as in
-the JAX package). The EMA update belongs to training and is not ported
-yet.
+the JAX package). `EMAVectorQuantizer.forward(z, update_ema=True)`
+(training) searches the old codebook, then updates the buffers in place
+(`ops/quantize.py::ema_update`): decay 0.99, eps 1e-5, restarting unused
+codes from the caller's `torch.Generator` where the stage-1 config asks
+(`restart_unused_codes`), the statistics summed over the data-parallel
+ranks when built with `ema_distributed` (the JAX `ema_axis_name`).
 """
 
 from __future__ import annotations
@@ -81,10 +85,12 @@ class VectorQuantizer(_Quantizer):
     def codebook(self) -> torch.Tensor:
         return self.embedding.weight
 
-    def forward(self, z: torch.Tensor, update_ema: bool = False
+    def forward(self, z: torch.Tensor, update_ema: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """z [..., dim] -> (z_q straight-through [..., dim], loss, codes
-        [...]); `update_ema` is accepted and ignored, as in JAX."""
+        [...]); `update_ema` and `generator` are accepted and ignored, as
+        in JAX."""
         z_q, codes = self._lookup(z)
         loss = q.commitment_loss(z, z_q, self.beta) + \
             torch.mean(torch.square(z_q - z.detach()))
@@ -93,12 +99,18 @@ class VectorQuantizer(_Quantizer):
 
 class EMAVectorQuantizer(_Quantizer):
     def __init__(self, n_embed: int, dim: int, beta: float = 0.25,
-                 use_l2_norm: bool = False):
+                 use_l2_norm: bool = False, decay: float = 0.99,
+                 eps: float = 1e-5, restart_unused_codes: bool = False,
+                 ema_distributed: bool = False):
         super().__init__()
         self.n_embed = n_embed
         self.dim = dim
         self.beta = beta
         self.use_l2_norm = use_l2_norm
+        self.decay = decay
+        self.eps = eps
+        self.restart_unused_codes = restart_unused_codes
+        self.ema_distributed = ema_distributed
         self.register_buffer('embedding', torch.zeros(n_embed, dim))
         self.register_buffer('cluster_size', torch.zeros(n_embed))
         self.register_buffer('embedding_avg', torch.zeros(n_embed, dim))
@@ -107,19 +119,38 @@ class EMAVectorQuantizer(_Quantizer):
     def codebook(self) -> torch.Tensor:
         return self.embedding
 
-    def forward(self, z: torch.Tensor, update_ema: bool = False
+    def forward(self, z: torch.Tensor, update_ema: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """z [..., dim] -> (z_q straight-through [..., dim], commitment
-        loss, codes [...])."""
+        loss, codes [...]), from the codebook as it was; with `update_ema`
+        the buffers then take one EMA step (`generator` draws the
+        restarts)."""
+        flat = self._normalize(z.reshape(-1, z.shape[-1]))
+        codes, z_q = q.quantize_lookup(flat, self.codebook)
+        z_q = z_q.reshape(z.shape)
         if update_ema:
-            raise NotImplementedError('the EMA codebook update is not ported')
-        z_q, codes = self._lookup(z)
+            new = q.ema_update(
+                q.EMAState(self.embedding, self.cluster_size,
+                           self.embedding_avg), flat, codes,
+                decay=self.decay, eps=self.eps, use_l2_norm=self.use_l2_norm,
+                restart_unused_codes=self.restart_unused_codes,
+                generator=generator, distributed=self.ema_distributed)
+            with torch.no_grad():
+                self.embedding.copy_(new.embedding)
+                self.cluster_size.copy_(new.cluster_size)
+                self.embedding_avg.copy_(new.embedding_avg)
         diff = q.commitment_loss(z, z_q, self.beta)
-        return q.straight_through(z, z_q), diff, codes
+        return q.straight_through(z, z_q), diff, codes.reshape(z.shape[:-1])
 
 
-def make_quantizer(ema_update: bool, dim: int, n_embed: int) -> _Quantizer:
-    """The EMA codebook when `ema_update`, else the learned one."""
+def make_quantizer(ema_update: bool, dim: int, n_embed: int,
+                   restart_unused_codes: bool = False,
+                   ema_distributed: bool = False) -> _Quantizer:
+    """The EMA codebook when `ema_update`, else the learned one (which
+    takes neither training option)."""
     if ema_update:
-        return EMAVectorQuantizer(n_embed, dim)
+        return EMAVectorQuantizer(
+            n_embed, dim, restart_unused_codes=restart_unused_codes,
+            ema_distributed=ema_distributed)
     return VectorQuantizer(n_embed, dim)

@@ -51,6 +51,7 @@ from typing import Iterator, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ...config import ModelTypeSpec, Stage2Hparams, parse_embedding_type
@@ -170,9 +171,22 @@ class SpatialDecoding:
     and the 3-level models and the flat baselines share them.
     `depth_int8` says whether `depth_gemms` quantizes the depth blocks and
     the `int8_heads()`: the models whose depth passes JAX runs in its
-    int8 scope."""
+    int8 scope. `remat` (training) recomputes each main block's
+    activations in the backward pass (`torch.utils.checkpoint`), as the
+    JAX model's `nn.remat` blocks do; the gradients are the same."""
 
     depth_int8: bool = True
+    remat: bool = False
+
+    def run_blocks(self, h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The main transformer's blocks over h under `mask`."""
+        for blk in self.blocks:
+            if self.remat and torch.is_grad_enabled():
+                h = torch.utils.checkpoint.checkpoint(blk, h, mask,
+                                                      use_reentrant=False)
+            else:
+                h = blk(h, mask)
+        return h
 
     @contextlib.contextmanager
     def serving(self, int8: Int8Serving = Int8Serving(),
@@ -364,10 +378,7 @@ class HierarchicalGPT(Conditioning, SpatialDecoding, nn.Module):
         positions = torch.arange(Ttop, device=codes_t.device).expand(B, Ttop)
         h = self.embed_cells(codes_t, bot_cells, positions)
         h = torch.cat([self.sos_tokens(B, labels), h[:, :-1]], dim=1)
-        mask = M.causal(h.shape[1], h.device)
-        for blk in self.blocks:
-            h = blk(h, mask)
-        return self.ln_f(h)
+        return self.ln_f(self.run_blocks(h, M.causal(h.shape[1], h.device)))
 
     def forward_depth(self, h, codes_t, codes_b):
         """The depth transformer over every position at once, by the depth

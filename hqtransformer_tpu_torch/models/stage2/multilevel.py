@@ -224,10 +224,7 @@ class MultiLevelHQTransformer(Conditioning, SpatialDecoding, nn.Module):
         positions = torch.arange(L, device=cells[0].device).expand(B, L)
         h = self.embed_cells(cells, positions)
         h = torch.cat([self.sos_tokens(B, labels), h[:, :-1]], dim=1)
-        mask = M.causal(h.shape[1], h.device)
-        for blk in self.blocks:
-            h = blk(h, mask)
-        return self.ln_f(h)
+        return self.ln_f(self.run_blocks(h, M.causal(h.shape[1], h.device)))
 
     def forward_hierarchy(self, h, cells, h_top):
         B, L = cells[0].shape[:2]

@@ -77,11 +77,24 @@ Weights = Dict[str, Dict[str, torch.Tensor]]
 Codes = Tuple[torch.Tensor, torch.Tensor]
 
 
-def build_stage2(config: TwoStageConfig, dtype: torch.dtype = torch.float32
-                 ) -> nn.Module:
+def build_stage2(config: TwoStageConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False) -> nn.Module:
     """Stage-2 model for `stage2.type`: 'top' (IGPT), 'bottom'
     (Transformer1d over a "text" of the image vocabulary, as in JAX),
-    hq-transformer (2-level) and multilevel-hq (3-level)."""
+    hq-transformer (2-level) and multilevel-hq (3-level). `remat`
+    (training) recomputes the main blocks' activations in the backward
+    pass of the hierarchical models; the flat baselines refuse it, as JAX
+    builds them without it."""
+    model = _build_stage2(config, dtype)
+    if remat:
+        if not isinstance(model, (HierarchicalGPT, MultiLevelHQTransformer)):
+            raise ValueError(f'remat is for the hierarchical models, not '
+                             f'{type(model).__name__}')
+        model.remat = True
+    return model
+
+
+def _build_stage2(config: TwoStageConfig, dtype: torch.dtype) -> nn.Module:
     s2 = config.stage2
     spec = parse_model_type(s2.type)
     if spec.family == 'top':
@@ -234,17 +247,19 @@ class TwoStageModel:
 
     `device` defaults to 'cuda' and raises when no card is present; pass
     device='cpu' to run on the CPU, where every kernel takes its plain
-    version. `dtype` is the activation dtype. The modules hold no weights
-    until `load_weights` (which every sampler call does) gives them some."""
+    version. `dtype` is the activation dtype; `remat` is `build_stage2`'s
+    (training). The modules hold no weights until `load_weights` (which
+    every sampler call does) gives them some; a trainer loads them once
+    and then owns the modules' parameters (`train/stage2.py`)."""
 
     def __init__(self, config: TwoStageConfig,
                  dtype: torch.dtype = torch.float32,
-                 device: Optional[str] = None):
+                 device: Optional[str] = None, remat: bool = False):
         self.config = config
         self.device = resolve_device(device)
         with torch.device('meta'):
             stage1 = build_generator(config.stage1, dtype)
-            stage2 = build_stage2(config, dtype)
+            stage2 = build_stage2(config, dtype, remat)
         self.stage1 = stage1.to_empty(device=self.device).eval()
         self.stage2 = stage2.to_empty(device=self.device).eval()
         # top code grid: the stage-1 latent over the bottom-group window (2

@@ -5,6 +5,7 @@ config in f32: the whole generator's weights load strictly; the encoder,
 the tiny config. Codes must be equal, tensors within atol 2e-4 / rtol 1e-3.
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -234,8 +235,11 @@ def test_forward(generators):
     _equal(t_codes[1], codes[1])
     _equal(t_ct, codes[0])
     _equal(t_cb, codes[1])
-    with pytest.raises(NotImplementedError):
-        tg.quantize_t(torch.zeros(1, 2, 2, tg.quantize_t.dim), update_ema=True)
+    # the EMA update (training) is ported: on a copy, so that the shared
+    # generator keeps its codebooks, it moves the buffers
+    q = copy.deepcopy(tg.quantize_t)
+    q(torch.zeros(1, 2, 2, q.dim), update_ema=True)
+    assert not torch.equal(q.cluster_size, tg.quantize_t.cluster_size)
 
 
 def test_forward_topbottom(generators):

@@ -144,13 +144,19 @@ def test_other_tokenizers_vocabulary_and_padding():
 
 
 def test_bpe_dropout_waits_for_training():
-    """A nonzero dropout (training's BPE dropout) raises; None and 0 are
-    JAX's inference settings and build the tokenizer."""
+    """Training's BPE dropout is ported: a nonzero dropout sets it on the
+    BPE tokenizers and is ignored by the others, as JAX passes it to its
+    BPE tokenizers only; None and 0, JAX's inference settings, build the
+    tokenizer without it, encoding as before."""
     for name in OTHER_NAMES + NAMES:
-        with pytest.raises(NotImplementedError, match='A11'):
-            tokenizers.create_tokenizer(name, dropout=0.1)
+        tok = tokenizers.create_tokenizer(name, dropout=0.1)
+        bpe = isinstance(tok, tokenizers.CharBPETokenizer)
+        assert getattr(tok, 'dropout', None) == (0.1 if bpe else None)
         for off in (None, 0, 0.0):
-            tokenizers.create_tokenizer(name, dropout=off)
+            plain = tokenizers.create_tokenizer(name, dropout=off)
+            assert getattr(plain, 'dropout', None) is None
+            assert plain.encode(CAPTIONS[0]) == \
+                tokenizers.create_tokenizer(name).encode(CAPTIONS[0])
 
 
 OTHER_WORDS = st.lists(st.sampled_from(
