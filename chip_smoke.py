@@ -333,6 +333,39 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    line gains `vq_argmin_stage2_train` and `vq_argmin_stage1_train` (f32
    K3 with the timed f32 runs' launches, `dtype` and
    `launches_per_step`).
+17. Tensor parallelism (after phase 16; `parallel/tp.py`): K1 against its
+   plain version at the flagship's per-rank widths, d 768 with 12 heads
+   (tp 2) and d 384 with 6 heads (tp 4), f32 and bf16, batch 128 and
+   1024, pos 1, 33, 63, and timed at pos 33 beside its plain version,
+   SDPA and its bound; the tp-1 flagship sampler (bf16, top-k 2048, T
+   0.95, batch 128, seed 17) in this process, the same call again with
+   every draw's bf16 logits moved one bf16 step at random (the witness
+   of how far a rounding moves the draws), and the tp-1 stage-2 sampler
+   in f32; then four processes of this script (`--tp-worker`) on
+   cuda:0, joined by gloo (NCCL refuses two ranks on one card): each
+   checks the collectives on CUDA tensors (all_reduce over the tp and dp
+   groups in f32 and bf16, the gather, the barrier), runs the flagship's
+   stage-2 sampler at tp 4 for its first 16 positions (180 K1 launches
+   at d 384 and 32 K2 a rank: four ranks' collectives cross the host, so
+   the call is cut in length), the flagship pixel sampler at tp 2 x dp 2
+   on the whole batch (exactly 756 K1 launches at d 768 and 128 K2
+   launches a rank; the tp ranks of a dp group draw the same codes) and
+   its stage-2 sampler at tp 2 x dp 2 in f32 (756 K1, 128 K2), then 3
+   f32 flagship training steps at tp 2 x dp 2 on a global batch of 8 (4
+   a dp rank; exactly 2 K3 launches a step a rank) and saves the whole
+   state (rank 0 writes); the tp-2 ranks also score tp 1's codes. Here:
+   the codes' first-position agreement with tp 1's, held in f32 to >=
+   0.97 a level and in bf16 to the witness's less three standard
+   deviations (top-k 2048 over near-flat random-weight logits moves a
+   draw on a rounding, and every later step with it), the scorer's bf16
+   logits against tp 1's on the same codes (within 4 bf16 steps of the
+   largest logit, argmax equal in >= 90% of rows, the bf16 tests'
+   bounds), the losses (rtol 1e-4) and parameters against tp 1's 3 steps
+   on the whole batch (median 1e-6, 99% within 1e-5), the checkpoint
+   restored at tp 1 and one more step. Wall times are gloo on one card,
+   not TP speed. The JSON line gains `decode_attention_tp2` and
+   `decode_attention_tp4` (launches a rank of the tp 2 and tp 4 sampler
+   calls).
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
@@ -346,6 +379,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -4033,9 +4067,9 @@ def training_model(path, dtype, seed, device='cuda', draw_on=None):
     return cfg, model
 
 
-def stage2_trainer(cfg, model, schedule=None):
+def stage2_trainer(cfg, model, schedule=None, layout=None):
     """(train_step, state, optimizer) on the config's optimizer, one
-    micro-step an update."""
+    micro-step an update (under `layout`'s dp and tp groups, if given)."""
     from hqtransformer_tpu_torch.train import stage2 as ts
     from hqtransformer_tpu_torch.train.scheduler import \
         build_schedule_from_config
@@ -4047,7 +4081,8 @@ def stage2_trainer(cfg, model, schedule=None):
                             mask=ts.decay_mask(model.stage2))
     s2 = cfg.stage2
     step = ts.make_train_step(
-        model.stage2, model.stage1, opt, weight_bottom=s2.weight_bottom or 4.0,
+        model.stage2, model.stage1, opt, layout=layout,
+        weight_bottom=s2.weight_bottom or 4.0,
         weight_img=s2.weight_img, weight_txt=s2.weight_txt,
         temp_soft_labels=s2.temp_soft_labels,
         use_cond=bool(s2.use_cls_cond or s2.use_txt_cond),
@@ -4537,6 +4572,509 @@ def run_stage1_training(vq, da, st):
     return launches, err, fields
 
 
+# ---------------------------------------------- phase 17: tensor parallelism
+
+# The flagship's per-rank attention widths under tensor parallelism:
+# (tp, d / tp, heads / tp), head dim 64.
+TP_WIDTHS = ((2, 768, 12), (4, 384, 6))
+TP_POSITIONS = (1, 33, 63)
+TP_WORLD = 4                  # processes on cuda:0, joined by gloo
+B_TP_TRAIN = 8                # global training batch: 4 a dp rank at tp 2
+N_TP4 = 16                    # spatial positions of the tp-4 sampler call
+TP_TRAIN_STEPS = 3
+TP_DIR = ROOT / 'build' / 'tp_smoke'
+TP_SAMPLER_SEED = 17
+# the scorer's bf16 logits at tp 2 against tp 1 on tp 1's codes: the
+# bounds of the port's bf16 tests against JAX
+TP_LOGIT_STEPS, TP_ARGMAX_AGREEMENT = 4.0, 0.9
+# f32 codes at tp 2 x dp 2 against tp 1, first position: at most 3 of the
+# 128 rows may differ (f32 sums in another order move a draw only where
+# two logits at the top-k edge lie within ~1e-7 relative of each other)
+TP_F32_FIRST = 0.97
+
+
+def k1_tp_case(da, dtype, batch, d, n_heads, pos, seed):
+    """K1 at one sharded width against its plain version: caches
+    bit-equal, y within 1e-5 (f32) / 2e-2 (bf16). Returns max |y - plain|."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device='cuda').to(dtype)
+    kc, vc = randn(2, T, batch, d), randn(2, T, batch, d)
+    q, kn, vn = randn(batch, d), randn(batch, d), randn(batch, d)
+    kc1, vc1 = kc.clone(), vc.clone()
+    layer = pos % 2
+    y1 = da.decode_attention_step(q, kn, vn, kc1, vc1, layer, pos, n_heads)
+    y2 = da.decode_attention_step_plain(q, kn, vn, kc, vc, layer, pos,
+                                        n_heads)
+    torch.cuda.synchronize()
+    require(torch.equal(kc1, kc) and torch.equal(vc1, vc),
+            f'K1 {dtype} cache rows differ at d {d} B {batch} pos {pos}')
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y1.float(), y2.float(), atol=tol, rtol=tol)
+    return (y1.float() - y2.float()).abs().max().item()
+
+
+def check_k1_tp(da):
+    """K1 against its plain version at every sharded width (TP_WIDTHS), f32
+    and bf16, batch 128 and 1024, pos 1, 33, 63. Returns {tp: max |y -
+    plain|} of the bf16 cases."""
+    errs = {}
+    for tp, d, n_heads in TP_WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for batch in (B, B_LARGE):
+                for pos in TP_POSITIONS:
+                    err = k1_tp_case(da, dtype, batch, d, n_heads, pos,
+                                     seed=pos + d + batch)
+                    if dtype == torch.bfloat16:
+                        errs[tp] = max(errs.get(tp, 0.0), err)
+                    print(f'K1 tp {tp}: {str(dtype)[6:]} d={d} heads='
+                          f'{n_heads} B={batch} pos={pos}: caches bit-equal, '
+                          f'max|y - plain| = {err:.3e}')
+        torch.cuda.empty_cache()
+    return errs
+
+
+def check_collectives(layout):
+    """Every collective the port's tensor parallelism uses, on CUDA tensors
+    of processes sharing one card: all_reduce over the tp and the dp group
+    (f32, and bf16 through `tp.all_reduce`'s f32 sum), the tp group's
+    gather of a sharded last dim, the barrier."""
+    from hqtransformer_tpu_torch.parallel.tp import all_reduce
+
+    import torch.distributed as dist
+    tp = layout.tp_group
+    x = torch.full((1024,), float(layout.rank + 1), device='cuda')
+    got = all_reduce(x, tp.group)
+    members = [r for r in layout.order if layout.order.index(r) // layout.tp
+               == layout.dp_rank]
+    require(torch.equal(got, torch.full_like(x, float(sum(r + 1 for r in
+                                                          members)))),
+            f'tp all_reduce gave {got[:4].tolist()}')
+    y = all_reduce(x.bfloat16(), layout.dp_group)
+    require(y.dtype == torch.bfloat16 and y.is_cuda, 'dp all_reduce dtype')
+    require(float(y[0]) == float(sum(r + 1 for r in layout.order[
+        layout.tp_rank::layout.tp])), f'dp all_reduce gave {float(y[0])}')
+    part = torch.arange(4, device='cuda', dtype=torch.float32) + \
+        4 * tp.rank
+    full = tp.gather(part[None])
+    require(torch.equal(full[0], torch.arange(4 * tp.size, device='cuda',
+                                              dtype=torch.float32)),
+            f'gather gave {full[0].tolist()}')
+    layout.barrier()
+    require(dist.get_backend() == 'gloo', 'the group is not gloo')
+    print(f'rank {layout.rank}: all_reduce (tp, dp; f32, bf16), gather and '
+          f'barrier ran on CUDA tensors over gloo')
+
+
+def tp_sampler_call(layout, name, da, st, q8):
+    """The flagship sampler (seeded random bf16 weights, top-k 2048, T
+    0.95) under `layout` on the whole batch of 128 labels, this rank
+    serving its dp shard: one `checked_call` (756 K1 and 128 K2 launches,
+    codes, pixels); then the scorer on tp 1's codes (TP_DIR/ref_codes.pt),
+    whose logits the first tp rank of each dp group writes to
+    TP_DIR/scores<dp rank>.pt. Returns (codes on the CPU, seconds,
+    launches)."""
+    from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.models.twostage import (TwoStageModel,
+                                                         serving_bf16_params)
+    from hqtransformer_tpu_torch.sampling.engine import SamplingParams
+
+    cfg = build_twostage_config(str(FLAGSHIP))
+    model = TwoStageModel(cfg, dtype=torch.bfloat16, layout=layout)
+    weights = {s: serving_bf16_params(w)
+               for s, w in model.init_weights(seed=0).items()}
+    labels = torch.arange(B, device='cuda') % cfg.stage2.hparams.n_classes
+    # four processes decode at once: smaller chunks than phase 3's
+    sampler = model.make_pixel_sampler(
+        params=SamplingParams(**SAMPLING_2048), decode_chunk=32)
+    gen = torch.Generator(device='cuda').manual_seed(TP_SAMPLER_SEED)
+    t0 = time.perf_counter()
+    codes, _ = checked_call(model, lambda: sampler(weights, gen, labels),
+                            layout.rows(labels), name, da, st, q8)
+    seconds = time.perf_counter() - t0
+    launches = (da.decode_attention_step.launches, st.sample_topk.launches)
+    from hqtransformer_tpu_torch.sampling.engine import \
+        make_hierarchical_scorer
+    ref = [c.cuda() for c in torch.load(TP_DIR / 'ref_codes.pt')]
+    t1 = time.perf_counter()
+    scores = make_hierarchical_scorer(model.stage2, T)(labels, *ref)
+    torch.cuda.synchronize()
+    print(f'{name}: the scorer on tp 1\'s codes in '
+          f'{time.perf_counter() - t1:.3f} s')
+    if layout.tp_rank == 0:
+        torch.save([x.cpu() for x in scores],
+                   TP_DIR / f'scores{layout.dp_rank}.pt')
+    del model, weights, sampler, scores
+    torch.cuda.empty_cache()
+    return tuple(c.cpu() for c in codes), seconds, launches
+
+
+def tp_stage2_call(layout, dtype, n, da, st, name):
+    """The flagship's stage-2 sampler (seeded random weights in `dtype`,
+    top-k 2048, T 0.95) under `layout` on 128 labels for its first `n`
+    positions (the AR loop alone), this rank serving its dp shard: exactly
+    12 x (n - 1) K1 launches at the rank's width and 2 x n K2 launches.
+    Returns (codes on the CPU, seconds, launches)."""
+    from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.models.twostage import (TwoStageModel,
+                                                         serving_bf16_params)
+    from hqtransformer_tpu_torch.sampling.engine import (
+        SamplingParams, make_hierarchical_sampler)
+
+    cfg = build_twostage_config(str(FLAGSHIP))
+    model = TwoStageModel(cfg, dtype=dtype, layout=layout)
+    weights = model.init_weights(seed=0)
+    if dtype == torch.bfloat16:
+        weights = {s: serving_bf16_params(w) for s, w in weights.items()}
+    model.load_weights(weights)
+    labels = torch.arange(B, device='cuda') % cfg.stage2.hparams.n_classes
+    sampler = make_hierarchical_sampler(model.stage2, n,
+                                        SamplingParams(**SAMPLING_2048))
+    gen = torch.Generator(device='cuda').manual_seed(TP_SAMPLER_SEED)
+    torch.cuda.synchronize()
+    reset_counts(da.decode_attention_step, st.sample_topk)
+    with k1_positions() as positions:
+        t0 = time.perf_counter()
+        codes = sampler(gen, labels)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = (da.decode_attention_step.launches, st.sample_topk.launches)
+    require(launches == (L * (n - 1), 2 * n) and
+            (min(positions), max(positions)) == (1, n - 1),
+            f'{name}: launches (K1, K2) {launches}')
+    require(codes[0].shape == (B // layout.dp, n) and
+            int(codes[0].max()) < N_CODES and int(codes[1].min()) >= 0,
+            f'{name}: codes')
+    print(f'{name}, {n} positions, batch {B // layout.dp}: {seconds:.3f} s, '
+          f'launches K1={launches[0]} (d {D // layout.tp}, '
+          f'{NH // layout.tp} heads, pos 1..{n - 1}) K2={launches[1]}')
+    del model, weights, sampler
+    torch.cuda.empty_cache()
+    return tuple(c.cpu() for c in codes), seconds, launches
+
+
+def tp_training(layout, vq, da, st):
+    """The flagship's stage 2, f32, TP_TRAIN_STEPS steps under `layout`
+    on this rank's rows of seeded global batches of B_TP_TRAIN: exactly
+    2 K3 launches a step (stage 1 replicated on every tp rank), no K1 or
+    K2; then the whole state saved at TP_DIR/ckpt (rank 0 writes).
+    Returns (the dp-mean losses, seconds of the steps, of the save)."""
+    from hqtransformer_tpu_torch.checkpoint import save_checkpoint
+    from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.models.twostage import TwoStageModel
+    from hqtransformer_tpu_torch.parallel.ddp import all_reduce_mean
+    from hqtransformer_tpu_torch.train import stage2 as ts
+    from hqtransformer_tpu_torch.train.scheduler import build_schedule
+
+    cfg = build_twostage_config(str(FLAGSHIP))
+    model = TwoStageModel(cfg, torch.float32, layout=layout)
+    model.load_weights(model.init_weights(15))
+    model.stage1.requires_grad_(False)
+    step, state, _ = stage2_trainer(
+        cfg, model, build_schedule(1e-3, 2, 10, warmup_epoch=1.0), layout)
+    batches = train_batches(TP_TRAIN_STEPS, B_TP_TRAIN, 170)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+    losses, t0 = [], time.perf_counter()
+    for x, y in batches:
+        state, m = step(state, layout.rows(x), layout.rows(y))
+        losses.append(float(all_reduce_mean(m['loss'], layout.dp_group)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts(vq, da, st)
+    require(counts == (2 * TP_TRAIN_STEPS, 0, 0),
+            f'tp training launches (K3, K1, K2) {counts}, not 2 K3 a step')
+    require(all(math.isfinite(v) for v in losses), f'losses {losses}')
+    t1 = time.perf_counter()
+    save_checkpoint(str(TP_DIR / 'ckpt'), ts.train_state_dict(state, layout),
+                    state.step, layout)
+    saved = time.perf_counter() - t1
+    print(f'rank {layout.rank}: tp 2 x dp 2 flagship f32 training (gloo on '
+          f'one card): {TP_TRAIN_STEPS} steps in {seconds:.2f} s at global '
+          f'batch {B_TP_TRAIN} ({B_TP_TRAIN // layout.dp} a dp rank), '
+          f'{counts[0] // TP_TRAIN_STEPS} K3 launches a step, losses '
+          f'{[round(v, 5) for v in losses]}; whole state saved in '
+          f'{saved:.1f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f}'
+          f' GiB allocated, {torch.cuda.max_memory_reserved() / 2**30:.2f} '
+          f'reserved')
+    return losses, seconds, saved
+
+
+def run_tp_worker(rank: int, port: int) -> int:
+    """One of TP_WORLD processes on cuda:0 (gloo): the collectives, the
+    tp-4 (bf16) and the tp-2 x dp-2 (bf16, and f32 for the stage-2 loop)
+    flagship sampler calls, the tp-2 x dp-2 training and its checkpoint;
+    what it found goes to TP_DIR/rank<r>.pt."""
+    sys.path.insert(0, str(ROOT))
+    from hqtransformer_tpu_torch.ops import decode_attention as da
+    from hqtransformer_tpu_torch.ops import int8 as q8
+    from hqtransformer_tpu_torch.ops import sample_topk as st
+    from hqtransformer_tpu_torch.ops import vq_argmin as vq
+    from hqtransformer_tpu_torch.parallel import ddp
+    from hqtransformer_tpu_torch.parallel.tp import make_layout
+
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # NCCL takes one rank a card: the ranks sharing cuda:0 join over gloo
+    torch.cuda.set_device(0)
+    dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
+                            rank=rank, world_size=TP_WORLD)
+    layout = make_layout(2, 0)
+    gloo = '(gloo on one card)'
+    try:
+        check_collectives(layout)
+        out = {'layout': (layout.dp_rank, layout.tp_rank)}
+        out['tp4'] = tp_stage2_call(make_layout(4, 0), torch.bfloat16,
+                                    N_TP4, da, st, f'rank {rank}: tp 4 '
+                                    f'stage-2 sampler, bf16 {gloo}')
+        out['tp2'] = tp_sampler_call(
+            layout, f'rank {rank}: tp 2 x dp 2 sampler {gloo}', da, st, q8)
+        out['tp2_f32'] = tp_stage2_call(
+            layout, torch.float32, T, da, st,
+            f'rank {rank}: tp 2 x dp 2 stage-2 sampler, f32 {gloo}')
+        out['train'] = tp_training(layout, vq, da, st)
+        torch.save(out, TP_DIR / f'rank{rank}.pt')
+    finally:
+        ddp.cleanup()
+    return 0
+
+
+def spawn_tp_workers():
+    """Run TP_WORLD `--tp-worker` processes of this script on cuda:0 and
+    wait for them; rank 0's log is printed, and a failing rank's tail."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    logs = [open(TP_DIR / f'log{r}.txt', 'w') for r in range(TP_WORLD)]
+    # four processes share the card: let each return what it frees
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF='expandable_segments:True')
+    print(f'tp ranks start; this process holds '
+          f'{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card')
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               '--tp-worker', str(r), str(port)],
+                              stdout=logs[r], stderr=subprocess.STDOUT,
+                              cwd=str(ROOT), env=env)
+             for r in range(TP_WORLD)]
+    t0 = time.perf_counter()
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    print((TP_DIR / 'log0.txt').read_text().rstrip())
+    for r, rc in enumerate(rcs):
+        if rc:
+            print(f'--- tp rank {r} exited {rc}:\n' +
+                  (TP_DIR / f'log{r}.txt').read_text()[-4000:])
+    require(rcs == [0] * TP_WORLD, f'tp ranks exited {rcs}')
+    print(f'{TP_WORLD} tp processes (gloo on one card): '
+          f'{time.perf_counter() - t0:.1f} s of wall time')
+    return [torch.load(TP_DIR / f'rank{r}.pt', weights_only=False)
+            for r in range(TP_WORLD)]
+
+
+def tp_codes(ranks, key, dp, tp):
+    """The whole batch's codes of a tp sampler call (ranks[r][key] =
+    (codes, seconds, launches)): the tp ranks of each dp group hold the
+    same codes (checked), the dp groups' rows in order."""
+    groups = [ranks[d * tp:(d + 1) * tp] for d in range(dp)]
+    for g in groups:
+        for r in g[1:]:
+            require(all(torch.equal(a, b) for a, b in zip(g[0][key][0],
+                                                          r[key][0])),
+                    f'{key}: the tp ranks of a dp group drew differently')
+    return [torch.cat(parts) for parts in zip(*(g[0][key][0]
+                                                for g in groups))]
+
+
+@contextlib.contextmanager
+def logits_one_step_off(seed):
+    """While open, every draw of the samplers takes its bf16 logits each
+    moved one bf16 step up or down in magnitude, at random (seeded; zeros
+    stay): the witness of how far a rounding of the logits moves the draws
+    (a spy on the name `engine.sample_from_logits`)."""
+    from hqtransformer_tpu_torch.sampling import engine
+    real = engine.sample_from_logits
+    g = torch.Generator(device='cuda').manual_seed(seed)
+
+    def moved(generator, logits, **kwargs):
+        require(logits.dtype == torch.bfloat16, 'the witness moves bf16')
+        bits = logits.contiguous().view(torch.int16)
+        step = torch.randint(0, 2, bits.shape, generator=g,
+                             device=bits.device, dtype=torch.int16) * 2 - 1
+        step = torch.where((bits & 0x7fff) == 0, torch.zeros_like(step),
+                           step)
+        return real(generator, (bits + step).view(torch.bfloat16), **kwargs)
+    engine.sample_from_logits = moved
+    try:
+        yield
+    finally:
+        engine.sample_from_logits = real
+
+
+def first_agreement(codes, ref):
+    """The share of equal codes at the first position, a level each (top
+    [n], bottoms [n, 4])."""
+    return [float((a[:, 0].cpu() == b[:, 0].cpu()).float().mean())
+            for a, b in zip(codes, ref)]
+
+
+def witness_bound(p):
+    """The least first-position agreement that a sampler whose logits move
+    as much as the witness's would show: the witness's `p` less three
+    standard deviations of the difference of two shares of B rows."""
+    return p - 3 * math.sqrt(2 * p * (1 - p) / B)
+
+
+def run_tensor_parallel(da, st, vq):
+    """Phase 17. Returns {tp: (launches a rank, K1 max err, K1 times)} for
+    the JSON line's decode_attention_tp2 and _tp4."""
+    from hqtransformer_tpu_torch.checkpoint import restore_checkpoint
+    from hqtransformer_tpu_torch.ops import int8 as q8
+    from hqtransformer_tpu_torch.parallel.tp import ParallelLayout
+    from hqtransformer_tpu_torch.sampling.engine import (
+        SamplingParams, make_hierarchical_scorer)
+    from hqtransformer_tpu_torch.train import stage2 as ts
+    from hqtransformer_tpu_torch.train.scheduler import build_schedule
+
+    t0 = time.perf_counter()
+    errs = check_k1_tp(da)
+    times = {tp: time_k1_shape(da, T, d, n_heads, TIMED_POS, f'tp {tp} '
+                               f'width')
+             for tp, d, n_heads in TP_WIDTHS}
+    # tp 1 references: the sampler in this process, before the ranks start
+    model, weights, labels = bf16_model(
+        FLAGSHIP, lambda cfg: torch.arange(B) % cfg.stage2.hparams.n_classes)
+    sampler = model.make_pixel_sampler(params=SamplingParams(**SAMPLING_2048))
+    gen = torch.Generator(device='cuda').manual_seed(TP_SAMPLER_SEED)
+    ref, _ = sampler_call(model, weights, sampler, gen, labels,
+                          'tp 1 reference sampler', da, st, q8)
+    ref_scores = make_hierarchical_scorer(model.stage2, T)(labels, *ref)
+    ref = [c.cpu() for c in ref]
+    # the witness: the same call with every draw's logits one step off
+    with logits_one_step_off(TP_SAMPLER_SEED + 1):
+        gen = torch.Generator(device='cuda').manual_seed(TP_SAMPLER_SEED)
+        _, moved = sampler(weights, gen, labels)
+    moved_first = first_agreement(moved, ref)
+    moved_all = [float((a.cpu() == b).float().mean())
+                 for a, b in zip(moved, ref)]
+    print(f'witness: tp 1 with every bf16 logit moved one step at random '
+          f'against tp 1 (same weights, seed): codes equal at the first '
+          f'position top {moved_first[0]:.4f}, bottom {moved_first[1]:.4f}, '
+          f'over the {T} positions top {moved_all[0]:.4f}, bottom '
+          f'{moved_all[1]:.4f}')
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    torch.save(ref, TP_DIR / 'ref_codes.pt')
+    del model, weights, sampler, moved
+    torch.cuda.empty_cache()
+    ref_f32 = tp_stage2_call(ParallelLayout(), torch.float32, T, da, st,
+                             'tp 1 stage-2 sampler, f32')[0]
+    ranks = spawn_tp_workers()
+    require([r['layout'] for r in ranks] == [(0, 0), (0, 1), (1, 0), (1, 1)],
+            f'layouts {[r["layout"] for r in ranks]}')
+    launches = {}
+    bounds = [witness_bound(p) for p in moved_first]
+    for tp, key, n, want in ((2, 'tp2', T, ref), (4, 'tp4', N_TP4, ref),
+                             (2, 'tp2_f32', T, ref_f32)):
+        per_rank = {r[key][2] for r in ranks}
+        require(per_rank == {(L * (n - 1), 2 * n)},
+                f'{key}: K1, K2 launches a rank {per_rank}')
+        launches.setdefault(tp, L * (n - 1))
+        codes = tp_codes(ranks, key, TP_WORLD // tp, tp)
+        agree = [float((a == b[:, :n]).float().mean())
+                 for a, b in zip(codes, want)]
+        first = first_agreement(codes, want)
+        wall = max(r[key][1] for r in ranks)
+        if key == 'tp2_f32':
+            least, why = [TP_F32_FIRST] * 2, 'f32'
+        else:
+            least, why = bounds, 'bf16; bound: the witness less 3 sd'
+        print(f'tp {tp} sampler against tp 1 (same weights, seed, batch '
+              f'{B}; {why}): codes equal at the first position top '
+              f'{first[0]:.4f} (bound {least[0]:.4f}), bottom '
+              f'{first[1]:.4f} (bound {least[1]:.4f}), over its {n} '
+              f'positions top {agree[0]:.4f}, bottom {agree[1]:.4f} (a '
+              f'moved draw changes every later step of its row); '
+              f'{L * (n - 1)} K1 (d {D // tp}, {NH // tp} heads) and '
+              f'{2 * n} K2 launches a rank; {wall:.2f} s a call (gloo on '
+              f'one card, first call)')
+        require(all(f >= b for f, b in zip(first, least)),
+                f'{key}: first-position agreement {first}, bounds {least}')
+    # the scorer's logits at tp 2 x dp 2 against tp 1's, on tp 1's codes
+    got = [torch.cat(parts) for parts in zip(*(
+        torch.load(TP_DIR / f'scores{d}.pt') for d in range(TP_WORLD // 2)))]
+    for level, g, w in zip(('top', 'bottom'), got, ref_scores):
+        w = w.float().cpu()
+        g = g.float()
+        steps = float((g - w).abs().max()) / (float(w.abs().max()) * 2 ** -7)
+        agree = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+        print(f'tp 2 x dp 2 scorer against tp 1 on tp 1\'s codes, {level} '
+              f'logits (bf16): max |d| {steps:.2f} bf16 steps of the largest '
+              f'logit (bound {TP_LOGIT_STEPS}), argmax equal in {agree:.4f} '
+              f'of rows (bound {TP_ARGMAX_AGREEMENT})')
+        require(steps <= TP_LOGIT_STEPS and agree >= TP_ARGMAX_AGREEMENT,
+                f'tp scorer {level}: {steps} steps, agreement {agree}')
+    del ref_scores, got
+    # tp 1 training on the whole batches, against the tp-2 x dp-2 state
+    cfg, model = training_model(FLAGSHIP, torch.float32, 15)
+    step, state, opt = stage2_trainer(
+        cfg, model, build_schedule(1e-3, 2, 10, warmup_epoch=1.0))
+    losses = []
+    for x, y in train_batches(TP_TRAIN_STEPS, B_TP_TRAIN, 170):
+        state, m = step(state, x, y)
+        losses.append(float(m['loss']))
+    tp_losses = ranks[0]['train'][0]
+    tree = restore_checkpoint(str(TP_DIR / 'ckpt'), TP_TRAIN_STEPS)
+    d = param_diffs(tree['params'], state.params)
+    median, p99 = (float(torch.kthvalue(d, max(1, int(q * d.numel())))[0])
+                   for q in (0.5, 0.99))
+    # no bound on the largest difference: two Adam runs move a parameter
+    # whose gradient is zero but for rounding by up to +-lr a step, so it
+    # could not exceed the sum of the learning rates anyway
+    print(f'tp 2 x dp 2 against tp 1, flagship f32, {TP_TRAIN_STEPS} steps '
+          f'at batch {B_TP_TRAIN} (lr 5e-4, 1e-3, 9.6e-4): losses '
+          f'{[round(v, 5) for v in tp_losses]} against '
+          f'{[round(v, 5) for v in losses]} (rtol 1e-4); parameters differ '
+          f'by median {median:.2e} (bound 1e-6), 99% within {p99:.2e} '
+          f'(bound 1e-5), at most {float(d.max()):.2e}')
+    require(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(tp_losses,
+                                                              losses)),
+            f'tp losses {tp_losses}, tp 1 {losses}')
+    require(bool(torch.isfinite(d).all()) and median <= 1e-6 and
+            p99 <= 1e-5, 'tp 2 parameters against tp 1')
+    # the tp-2 checkpoint restored at tp 1, and one more step from it
+    state = ts.load_train_state(state, tree)
+    require(all(torch.equal(p.detach().cpu(), tree['params'][k])
+                for k, p in state.params.items()),
+            'restored parameters differ from the checkpoint')
+    require(state.step == TP_TRAIN_STEPS and
+            state.opt_state.count == TP_TRAIN_STEPS, 'restored counts')
+    x, y = train_batches(1, B_TP_TRAIN, 171)[0]
+    state, m = step(state, x, y)
+    require(math.isfinite(float(m['loss'])), 'step after the restore')
+    print(f'tp-2 checkpoint restored at tp 1: parameters equal the saved '
+          f'ones, step {state.step} loss {float(m["loss"]):.4f}; save '
+          f'{ranks[0]["train"][2]:.1f} s, tp-2 steps '
+          f'{ranks[0]["train"][1]:.2f} s (gloo on one card)')
+    del model, state, step, opt, tree, d
+    torch.cuda.empty_cache()
+    shutil.rmtree(TP_DIR / 'ckpt', ignore_errors=True)
+    print(f'phase 17 (tensor parallelism): {time.perf_counter() - t0:.1f} s')
+    return {tp: (launches[tp], errs[tp], times[tp]) for tp in (2, 4)}
+
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(
         description='Smoke test of the PyTorch/CUDA port on one GPU; with '
@@ -4544,6 +5082,9 @@ def parse_args(argv):
     ap.add_argument('--k1-only', action='store_true',
                     help='build the kernels, run the K1 checks, timings and '
                     'sweep, and stop (no result line)')
+    ap.add_argument('--tp-worker', nargs=2, type=int, metavar=('RANK', 'PORT'),
+                    help='run as one rank of phase 17 (started by the '
+                    'script itself)')
     return ap.parse_args(argv)
 
 
@@ -4564,6 +5105,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
         return 1
+    if args.tp_worker:
+        return run_tp_worker(*args.tp_worker)
     sys.path.insert(0, str(ROOT))
     from hqtransformer_tpu_torch.ops import cuda_build
     from hqtransformer_tpu_torch.ops import decode_attention as da
@@ -4625,6 +5168,7 @@ def main(argv=None) -> int:
     k3e_launches = run_eval_pipeline(vq, da, st)
     k3t2_launches, k3t2_err, k3t2_times = run_stage2_training(vq, da, st)
     k3t1_launches, k3t1_err, k3t1_times = run_stage1_training(vq, da, st)
+    k1_tp = run_tensor_parallel(da, st, vq)
     require(k3_shapes[K3_D256][5] == 0 and k3f_shapes[K3_D256][5] == 0,
             'K3 at the avgpool / conv2 top differs from plain')
     check_small_reference(vq)
@@ -4650,6 +5194,10 @@ def main(argv=None) -> int:
             ('decode_attention_int8_t320', source + 'decode_attention.cu',
              'hqtransformer_tpu/ops/pallas_attention.py:200', k1ft_launches,
              k1ft_err, k1ft_times),
+            ('decode_attention_tp2', source + 'decode_attention.cu',
+             'hqtransformer_tpu/ops/pallas_attention.py:200', *k1_tp[2]),
+            ('decode_attention_tp4', source + 'decode_attention.cu',
+             'hqtransformer_tpu/ops/pallas_attention.py:200', *k1_tp[4]),
             ('sample_topk', source + 'sample_topk.cu',
              'hqtransformer_tpu/ops/pallas_sample.py:236', launches[1],
              k2_err, k2_times),

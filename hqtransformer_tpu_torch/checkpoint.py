@@ -23,14 +23,19 @@ train_state_dict`, `train/stage1.py::stage1_state_dict`) saved with
 stage-2 run (`save_reference_bundle`) is a reference-layout `.ckpt`, its
 state dict under 'stage1.' and 'stage2.' keys, which
 `TwoStageModel.load_reference_checkpoint` and the sampling CLIs read.
+Under a parallel layout (`parallel/tp.py`) both hold whole tensors (the
+stage-2 shards gathered over the tp group), rank 0 writes them, and every
+rank waits on a barrier until the file is there.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import torch
+
+from .parallel.tp import ParallelLayout, gather_state
 
 REFERENCE_SUFFIXES = ('.ckpt', '.pth', '.pt')
 STAGES = ('stage1', 'stage2')
@@ -81,9 +86,12 @@ def split_reference_state(sd: Mapping[str, torch.Tensor]
 STATE_FILE = 'state.pt'
 
 
-def save_checkpoint(path: str, tree: Any, step: int = 0) -> str:
+def save_checkpoint(path: str, tree: Any, step: int = 0,
+                    layout: Optional[ParallelLayout] = None) -> str:
     """Save a training state's tree (tensors moved to the CPU) as
-    `<path>/<step>/state.pt`; returns that file."""
+    `<path>/<step>/state.pt`; returns that file. Under `layout` (whose
+    tree holds whole tensors: `train_state_dict(state, layout)`) rank 0
+    writes and every rank waits for it."""
     def cpu(x):
         if isinstance(x, torch.Tensor):
             return x.detach().cpu()
@@ -91,10 +99,13 @@ def save_checkpoint(path: str, tree: Any, step: int = 0) -> str:
             return {k: cpu(v) for k, v in x.items()}
         return x
     d = os.path.join(os.path.abspath(path), str(step))
-    os.makedirs(d, exist_ok=True)
     out = os.path.join(d, STATE_FILE)
-    torch.save(cpu(tree), out + '.tmp')
-    os.replace(out + '.tmp', out)
+    if layout is None or layout.rank == 0:
+        os.makedirs(d, exist_ok=True)
+        torch.save(cpu(tree), out + '.tmp')
+        os.replace(out + '.tmp', out)
+    if layout is not None:
+        layout.barrier()
     return out
 
 
@@ -121,13 +132,19 @@ def latest_step(path: str) -> int:
 
 def save_reference_bundle(path: str, stage1: Mapping[str, torch.Tensor],
                           stage2: Mapping[str, torch.Tensor],
-                          step: int = 0) -> str:
+                          step: int = 0,
+                          layout: Optional[ParallelLayout] = None) -> str:
     """Write both stages' state dicts as one reference-layout `.ckpt` at
     `path`: {'state_dict': {'stage1.<k>' | 'stage2.<k>': f32 tensor},
-    'global_step': step}."""
-    sd = {f'{stage}.{k}': v.detach().float().cpu()
-          for stage, state in (('stage1', stage1), ('stage2', stage2))
-          for k, v in state.items()}
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save({'state_dict': sd, 'global_step': step}, path)
+    'global_step': step}. Under `layout` `stage2` is this rank's shards:
+    every rank calls it, the shards are gathered, rank 0 writes."""
+    stage2 = gather_state(stage2, layout)
+    if layout is None or layout.rank == 0:
+        sd = {f'{stage}.{k}': v.detach().float().cpu()
+              for stage, state in (('stage1', stage1), ('stage2', stage2))
+              for k, v in state.items()}
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        torch.save({'state_dict': sd, 'global_step': step}, path)
+    if layout is not None:
+        layout.barrier()
     return path

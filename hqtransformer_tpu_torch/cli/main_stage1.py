@@ -70,7 +70,8 @@ def parse_args(argv=None):
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    device, rank, world = setup(args)
+    device, layout = setup(args)
+    rank, world = layout.rank, layout.world
     cfg = build_stage1_config(args.config_path)
     run_dir = run_dir_of(args)
     logger = RunLogger(run_dir, cfg, enabled=rank == 0,

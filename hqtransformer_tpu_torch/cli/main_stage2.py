@@ -7,6 +7,8 @@ behaviour, on the card unless `--device` says otherwise.
       [--remat] [--max-steps N] [--resume results/.../ckpt]
   torchrun --nproc-per-node 4 -m hqtransformer_tpu_torch.cli.main_stage2 \\
       ... --multihost      # data-parallel over 4 cards
+  torchrun --nproc-per-node 4 -m hqtransformer_tpu_torch.cli.main_stage2 \\
+      ... --multihost --tp 2   # tp 2 x dp 2 (`parallel/tp.py`)
 
 A run writes <result path>/<config stem>/<date_time>/: `train.log`,
 `config.yaml`, `ckpt/<step>/state.pt` (the step, the stage-2 parameters
@@ -18,7 +20,13 @@ layout, for `cli.sampling_hqmodel -m`). `--stage1-ckpt` takes a reference
 training directory of the port (`<run>/ckpt`); without it stage 1 is
 random. Validation (the teacher-forced losses on up to 8 batches of the
 'val' split, when there is one) runs at the end of every `test_freq`-th
-epoch. `--tp` above 1 (tensor parallelism) is not ported and raises.
+epoch. `--tp N` shards stage 2 over groups of N processes of one host
+(Megatron rules, `parallel/tp.py`), as the JAX script's mesh does: dp is
+the world over N, the global batch `local_batch_size` x dp, each dp rank
+loads its shard (the tp ranks of a dp group the same one), the schedule
+reads the world size (every process, as JAX passes its device count),
+and rank 0 logs and writes whole tensors. A tp that does not divide the
+world, the heads, a width or a vocabulary raises ValueError.
 """
 
 from __future__ import annotations
@@ -38,8 +46,9 @@ from ..checkpoint import (latest_step, load_torch_checkpoint,
 from ..config import build_twostage_config
 from ..data.datasets import DataLoader, LoaderConfig, build_dataset
 from ..data.tokenizers import create_tokenizer
-from ..models.twostage import TwoStageModel
-from ..parallel.ddp import check_tp, cleanup
+from ..models.twostage import TwoStageModel, build_stage2
+from ..parallel.ddp import cleanup
+from ..parallel.tp import check_tp_sizes
 from ..train.scheduler import build_schedule_from_config
 from ..train.stage2 import (decay_mask, init_train_state, load_train_state,
                             make_optimizer, make_train_step,
@@ -56,7 +65,8 @@ def parse_args(argv=None):
                     help='stage-1 weights: a reference .ckpt or a stage-1 '
                          'training directory of the port')
     ap.add_argument('--tp', type=int, default=1,
-                    help='tensor-parallel size (only 1 is ported)')
+                    help='tensor-parallel size: processes (of one host) '
+                         'sharing one replica of stage 2')
     ap.add_argument('--vocab-dir', type=str, default=None)
     ap.add_argument('--resume', type=str, default=None,
                     help='ckpt directory of a previous stage-2 run')
@@ -84,15 +94,19 @@ def stage1_state(path: str) -> Dict[str, torch.Tensor]:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    check_tp(args.tp)
-    device, rank, world = setup(args)
     cfg = build_twostage_config(args.config_path)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    with torch.device('meta'):
+        check_tp_sizes(build_stage2(cfg, dtype), args.tp)
+    device, layout = setup(args, args.tp)
+    rank, world, dp = layout.rank, layout.world, layout.dp
     run_dir = run_dir_of(args)
     logger = RunLogger(run_dir, cfg, enabled=rank == 0)
-    logger.line(f'device: {device}, {world} process(es)')
+    logger.line(f'device: {device}, {world} process(es), dp {dp} tp '
+                f'{layout.tp}')
 
-    dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = TwoStageModel(cfg, dtype, device=str(device), remat=args.remat)
+    model = TwoStageModel(cfg, dtype, device=str(device), remat=args.remat,
+                          layout=layout)
     weights = model.init_weights(args.seed)
     if args.stage1_ckpt:
         weights['stage1'] = stage1_state(args.stage1_ckpt)
@@ -113,19 +127,19 @@ def main(argv: Optional[List[str]] = None) -> int:
         tokenizer = create_tokenizer(cfg.dataset.tokenizer_type,
                                      vocab_dir=args.vocab_dir,
                                      dropout=cfg.dataset.bpe_pdrop,
-                                     generator=random.Random(args.seed +
-                                                             rank))
+                                     generator=random.Random(
+                                         args.seed + layout.dp_rank))
     res = cfg.dataset.image_resolution
     name = cfg.dataset.dataset or 'imagenet'
     local_bs = cfg.experiment.local_batch_size
-    global_bs = local_bs * world
+    global_bs = local_bs * dp
     train_ds = build_dataset(name, args.data_root, 'train', tokenizer,
                              cfg.dataset.context_length)
     steps_per_epoch = max(1, len(train_ds) // global_bs)
     total_steps = args.max_steps or steps_per_epoch * cfg.experiment.epochs
     logger.line(f'{len(train_ds)} images, {steps_per_epoch} steps/epoch, '
                 f'{total_steps} steps, global batch {global_bs}, '
-                f'data-parallel {world}')
+                f'dp {dp} tp {layout.tp}')
     if len(train_ds) < global_bs:
         raise ValueError(f'dataset ({len(train_ds)} images) smaller than '
                          f'one global batch ({global_bs}); reduce '
@@ -146,13 +160,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                        temp_soft_labels=s2.temp_soft_labels,
                        use_cond=bool(s2.use_cls_cond or use_txt),
                        multilevel=multilevel)
-    train_step = make_train_step(stage2, stage1, opt,
-                                 distributed=world > 1, **loss_kwargs)
+    train_step = make_train_step(stage2, stage1, opt, layout=layout,
+                                 **loss_kwargs)
     state = init_train_state(stage2, opt)
     start_step = 0
     if args.resume:
         start_step = latest_step(args.resume)
-        load_train_state(state, restore_checkpoint(args.resume, start_step))
+        load_train_state(state, restore_checkpoint(args.resume, start_step),
+                         layout)
         logger.line(f'resumed from {args.resume} @ step {start_step}')
 
     def to_device(x_np, labels_np):
@@ -184,13 +199,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             logger.scalars(means, step, 'valid')
 
     def save(step: int) -> None:
-        if rank == 0:
-            save_checkpoint(os.path.join(run_dir, 'ckpt'),
-                            train_state_dict(state), step)
+        save_checkpoint(os.path.join(run_dir, 'ckpt'),
+                        train_state_dict(state, layout), step, layout)
 
     loader_cfg = LoaderConfig(batch_size=local_bs, resolution=res,
                               dataset_name=name, train=True, seed=args.seed,
-                              shard_index=rank, shard_count=world)
+                              shard_index=layout.dp_rank, shard_count=dp)
     if start_step % steps_per_epoch:
         logger.line(f'resume mid-epoch: skipping '
                     f'{start_step % steps_per_epoch} consumed batches')
@@ -205,19 +219,19 @@ def main(argv: Optional[List[str]] = None) -> int:
             log(step, metrics)
             if step >= total_steps:
                 break
+            # the first dp group (rank 0 and its tp ranks) validates
             if last and (epoch + 1) % cfg.experiment.test_freq == 0 \
-                    and rank == 0:
+                    and layout.dp_rank == 0:
                 run_validation(step)
             if last and (epoch + 1) % cfg.experiment.save_ckpt_freq == 0:
                 save(step)
                 logger.line(f'checkpoint saved @ step {step}')
 
     save(step)
-    if rank == 0:
-        bundle = save_reference_bundle(
-            os.path.join(run_dir, 'ckpt_full', f'{step}.ckpt'),
-            stage1.state_dict(), stage2.state_dict(), step)
-        logger.line(f'sampler-ready checkpoint {bundle}')
+    bundle = save_reference_bundle(
+        os.path.join(run_dir, 'ckpt_full', f'{step}.ckpt'),
+        stage1.state_dict(), stage2.state_dict(), step, layout)
+    logger.line(f'sampler-ready checkpoint {bundle}')
     logger.line(f'final checkpoint saved @ step {step}')
     logger.close()
     if args.multihost:

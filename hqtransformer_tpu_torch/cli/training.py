@@ -15,6 +15,7 @@ import torch
 from ..data.datasets import DataLoader, LoaderConfig, PrefetchLoader
 from ..device import resolve_device
 from ..parallel.ddp import init_distributed
+from ..parallel.tp import ParallelLayout, make_layout
 
 
 def add_common_args(ap) -> None:
@@ -39,16 +40,18 @@ def add_common_args(ap) -> None:
                          'kernels\' plain versions)')
 
 
-def setup(args) -> Tuple[torch.device, int, int]:
-    """(device, rank, world size): the card (or `--device`), and under
-    `--multihost` the process group and this process's card."""
+def setup(args, tp: int = 1) -> Tuple[torch.device, ParallelLayout]:
+    """(device, layout): the card (or `--device`), and under `--multihost`
+    the process group, this process's card and the ('dp', 'tp') layout
+    with tensor-parallel size `tp` (ValueError if tp does not divide the
+    world; without `--multihost` the world is this one process)."""
     device = resolve_device(args.device)
     if not args.multihost:
-        return device, 0, 1
-    rank, world, local_rank = init_distributed(device.type)
+        return device, make_layout(tp)
+    layout = init_distributed(device.type, tp=tp)
     if device.type == 'cuda':
-        device = torch.device('cuda', local_rank)
-    return device, rank, world
+        device = torch.device('cuda', layout.local_rank)
+    return device, layout
 
 
 def run_dir_of(args) -> str:

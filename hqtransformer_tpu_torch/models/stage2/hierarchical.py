@@ -125,7 +125,11 @@ class Conditioning:
             raise ValueError(hp.position_embedding)
 
     def _emb(self, table: nn.Embedding, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx, table.weight).to(self.dtype)
+        """table(idx) in the activation dtype; a feature-sharded token
+        table's rows gathered to full width (tensor parallelism)."""
+        x = F.embedding(idx, table.weight)
+        tp = getattr(table, 'tp', None)
+        return (x if tp is None else tp.gather(x)).to(self.dtype)
 
     @property
     def sos_len(self) -> int:
@@ -202,8 +206,16 @@ class SpatialDecoding:
         `int8_embedding()` gemms too; with `int8.kv_cache` the spatial
         layers' cache scales from `scales['stage2/kv_scales']`. Raises on a
         missing scale before any module changes, and on int8 gemms for
-        activations that are not bf16."""
+        activations that are not bf16. Under tensor parallelism the int8
+        switches raise NotImplementedError (ROADMAP A17)."""
         scales = scales or {}
+        layout = getattr(self, 'layout', None)
+        if layout is not None and layout.tp > 1 and (
+                int8.kv_cache or int8.spatial_gemms or int8.depth_gemms):
+            raise NotImplementedError(
+                f'int8 serving of stage 2 under tensor parallelism (tp '
+                f'{layout.tp}) is not ported (ROADMAP A17): serve bf16 '
+                f'under tp, or int8 at tp 1')
         if (int8.spatial_gemms or int8.depth_gemms) and \
                 self.dtype != torch.bfloat16:
             raise ValueError(f'int8 gemms run on bf16 activations; this '
@@ -458,11 +470,11 @@ class HierarchicalGPT(Conditioning, SpatialDecoding, nn.Module):
         for blk in self.depths:
             a = blk.attn
             xn = blk.ln1(x)
-            k, v = a.fused_kv(xn).split(xn.shape[-1], dim=-1)
+            k, v = a.fused_kv(xn).split(a.width, dim=-1)
             k = split_heads(k, a.n_heads)
             v = split_heads(v, a.n_heads)
             x = x + a.proj(merge_heads(v))
-            x = x + blk.mlp(blk.ln2(x))
+            x = x + blk.mlp_forward(blk.ln2(x))
             ks.append(k)
             vs.append(v)
         return self.head_top(self.ln_top(x[:, 0])), (ks, vs)
@@ -483,8 +495,8 @@ class HierarchicalGPT(Conditioning, SpatialDecoding, nn.Module):
         new_ks, new_vs = [], []
         for i, blk in enumerate(self.depths):
             a = blk.attn
-            C = x.shape[-1]
-            q, k_new, v_new = a.fused_qkv(blk.ln1(x), int8).split(C, dim=-1)
+            q, k_new, v_new = a.fused_qkv(blk.ln1(x), int8).split(a.width,
+                                                                  dim=-1)
             k = torch.cat([merge_heads(ks[i]), k_new], dim=1)
             v = torch.cat([merge_heads(vs[i]), v_new], dim=1)
             x = x + a.proj(tiny_attention(q, k, v, a.n_heads), int8)
@@ -509,10 +521,11 @@ class HierarchicalGPT(Conditioning, SpatialDecoding, nn.Module):
     def depth_caches(self, batch: int, device: torch.device
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Zeroed per-head K and V caches of the causal depth chain,
-        [Ld, B, nh, len_seq_depth, hd] in the activation dtype."""
+        [Ld, B, nh, len_seq_depth, hd] in the activation dtype (nh the
+        rank's heads under tensor parallelism)."""
         hpd = self.hpd
-        shape = (hpd.n_layers, batch, hpd.n_heads, self.len_seq_depth,
-                 hpd.embed_dim // hpd.n_heads)
+        shape = (hpd.n_layers, batch, self.depths[0].attn.n_heads,
+                 self.len_seq_depth, hpd.embed_dim // hpd.n_heads)
         kc = torch.zeros(shape, dtype=self.dtype, device=device)
         return kc, torch.zeros_like(kc)
 

@@ -32,6 +32,15 @@ int8max serving (the JAX package's `QuantizableDense`, the A8W8 branch of
 The serving state (`SelfAttention.serving`, `QuantizableLinear.q8`) also
 hoists the per-call weight concatenations out of the decode loop; outside a
 serving call the float paths concatenate on the fly.
+
+Tensor parallelism (`parallel/tp.py::shard_module` sets it up on a model
+built at full size): a SelfAttention holds its rank's heads (`n_heads` is
+the local count, `width` the local q width, and its fused QKV concatenates
+the rank's q, k and v shards) and passes its input through `tp.copy`;
+`mlp.0` holds the rank's part of the MLP; `proj` and `mlp.2` are
+row-parallel (`tp_mode` 'row': the partial products all-reduced, then the
+bias), the heads vocabulary-sharded (`tp_mode` 'vocab': the logits
+gathered). Without it (`tp` None) every path is unchanged.
 """
 
 from __future__ import annotations
@@ -68,10 +77,21 @@ def linear(x: torch.Tensor, w: torch.Tensor,
 
 
 class Linear(nn.Linear):
-    """nn.Linear that computes in its input's dtype (see `linear`)."""
+    """nn.Linear that computes in its input's dtype (see `linear`); under
+    tensor parallelism row-parallel (`tp_mode` 'row') or
+    vocabulary-sharded ('vocab': its replicated input through `tp.copy`,
+    its logits gathered)."""
+
+    tp = None
+    tp_mode: str = ''
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(x, self.weight.to(x.dtype), self.bias)
+        w = self.weight.to(x.dtype)
+        if self.tp is None:
+            return linear(x, w, self.bias)
+        if self.tp_mode == 'row':
+            return self.tp.row_linear(x, w, self.bias)
+        return self.tp.gather(linear(self.tp.copy(x), w, self.bias))
 
 
 class QuantizableLinear(Linear):
@@ -198,6 +218,7 @@ class SelfAttention(nn.Module):
     single-token entry points sharing one set of weights."""
 
     serving: Optional[AttnServing] = None
+    tp = None
 
     def __init__(self, embed_dim: int, n_heads: int, attn_bias: bool = True):
         super().__init__()
@@ -207,11 +228,19 @@ class SelfAttention(nn.Module):
         self.value = QuantizableLinear(embed_dim, embed_dim, bias=attn_bias)
         self.proj = QuantizableLinear(embed_dim, embed_dim, bias=attn_bias)
 
+    @property
+    def width(self) -> int:
+        """The width of q (and of k and v): the rank's heads' under tensor
+        parallelism."""
+        return self.query.weight.shape[0]
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 int8: bool = False) -> torch.Tensor:
         """Full-sequence attention; with `int8` the query, key, value and
         output projections each run A8W8 with their own scales, as the JAX
         `SelfAttention.__call__` does in its int8 scope."""
+        if self.tp is not None:
+            x = self.tp.copy(x)
         q = split_heads(self.query(x, int8), self.n_heads)
         k = split_heads(self.key(x, int8), self.n_heads)
         v = split_heads(self.value(x, int8), self.n_heads)
@@ -280,8 +309,8 @@ class SelfAttention(nn.Module):
         in place and attend among the new tokens (causal unless `mask`).
         An int8 cache gets the rows quantized; the attention uses the float
         k and v."""
-        B, T_new, C = x.shape
-        q, k, v = self.fused_qkv(x, int8).split(C, dim=-1)
+        q, k, v = self.fused_qkv(x, int8).split(self.width, dim=-1)
+        T_new = x.shape[1]
         if k_caches.dtype == torch.int8:
             _, _, inv_k, inv_v = self._int8_cache_scales()
             k_rows, v_rows = quantize_rows(k, inv_k), quantize_rows(v, inv_v)
@@ -304,8 +333,8 @@ class SelfAttention(nn.Module):
         int8 cache, q is multiplied by K's scales, the new rows are
         quantized by 1 / scale, and the output is multiplied by V's
         scales."""
-        C = x.shape[-1]
-        q, k_new, v_new = self.fused_qkv(x[:, 0], int8).split(C, dim=-1)
+        q, k_new, v_new = self.fused_qkv(x[:, 0], int8).split(self.width,
+                                                               dim=-1)
         v_scale = None
         if k_caches.dtype == torch.int8:
             k_scale, v_scale, inv_k, inv_v = self._int8_cache_scales()
@@ -325,8 +354,7 @@ class SelfAttention(nn.Module):
         rows 0..pos: the fused QKV, then scores and softmax in f32 as
         `masked_attention` (rows past pos, which the JAX function masks to
         a -1e10 score, have weight 0 and are not read)."""
-        C = x.shape[-1]
-        q, k, v = self.fused_qkv(x).split(C, dim=-1)
+        q, k, v = self.fused_qkv(x).split(self.width, dim=-1)
         k_cache[:, :, pos:pos + 1] = split_heads(k, self.n_heads).to(
             k_cache.dtype)
         v_cache[:, :, pos:pos + 1] = split_heads(v, self.n_heads).to(
@@ -353,6 +381,8 @@ class Block(nn.Module):
 
     def mlp_forward(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
         fc1, act, fc2 = self.mlp
+        if self.attn.tp is not None:
+            x = self.attn.tp.copy(x)
         return fc2(act(fc1(x, int8)), int8)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,

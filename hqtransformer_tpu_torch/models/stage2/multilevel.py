@@ -376,7 +376,7 @@ class MultiLevelHQTransformer(Conditioning, SpatialDecoding, nn.Module):
             x = self._phase_inputs(h, None, None, 0)
             ks, vs = [], []
             for blk in self.depths:
-                k, v = blk.attn.fused_kv(blk.ln1(x)).split(x.shape[-1],
+                k, v = blk.attn.fused_kv(blk.ln1(x)).split(blk.attn.width,
                                                            dim=-1)
                 x = x + blk.attn.proj(v, int8)
                 x = x + blk.mlp_forward(blk.ln2(x), int8)
@@ -392,7 +392,7 @@ class MultiLevelHQTransformer(Conditioning, SpatialDecoding, nn.Module):
         for i, blk in enumerate(self.depths):
             a = blk.attn
             q, k_new, v_new = a.fused_qkv(blk.ln1(x), int8).split(
-                x.shape[-1], dim=-1)
+                a.width, dim=-1)
             k = torch.cat([ks[i], k_new], dim=1)
             v = torch.cat([vs[i], v_new], dim=1)
             x = x + a.proj(tiny_attention(q, k, v, a.n_heads, mask), int8)

@@ -43,6 +43,14 @@ calibrates with the same three functions (their arguments per family as in
 the JAX package); `extract_codes`, `forward` and the two 2-level samplers
 are the 2-level HQ family's only, as in the JAX package, and raise for the
 other families.
+
+Tensor parallelism: `TwoStageModel(cfg, layout=...)` (a
+`parallel/tp.py::ParallelLayout`) holds this rank's shards of stage 2
+(`shard_module`) and stage 1 whole. Weights stay full, reference-layout
+state dicts: `init_weights` and `load_reference_checkpoint` work on the
+full shapes, `load_weights` cuts stage 2 with `shard_state`. The samplers
+take the whole batch's labels and return this rank's dp shard of the
+codes and pixels (`sampling/engine.py`).
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from ..config import TwoStageConfig, parse_model_type
 from ..convert import convert_scales, export_scales
 from ..device import resolve_device
 from ..ops.int8 import Int8Serving, recording_absmax, scale_from_absmax
+from ..parallel.tp import ParallelLayout, shard_module, shard_state
 from ..sampling.engine import (LevelSampling, SamplingParams, Scales,
                                _flat_sampler, make_hierarchical_sampler,
                                make_igpt_sampler, make_multilevel_sampler)
@@ -250,16 +259,25 @@ class TwoStageModel:
     version. `dtype` is the activation dtype; `remat` is `build_stage2`'s
     (training). The modules hold no weights until `load_weights` (which
     every sampler call does) gives them some; a trainer loads them once
-    and then owns the modules' parameters (`train/stage2.py`)."""
+    and then owns the modules' parameters (`train/stage2.py`). With a
+    `layout` stage 2 holds this rank's tensor-parallel shards (the module
+    docstring)."""
 
     def __init__(self, config: TwoStageConfig,
                  dtype: torch.dtype = torch.float32,
-                 device: Optional[str] = None, remat: bool = False):
+                 device: Optional[str] = None, remat: bool = False,
+                 layout: Optional[ParallelLayout] = None):
         self.config = config
         self.device = resolve_device(device)
+        self.layout = layout
         with torch.device('meta'):
             stage1 = build_generator(config.stage1, dtype)
             stage2 = build_stage2(config, dtype, remat)
+            # the full shapes, for seeded weights and checkpoint checks
+            self.full_stage2 = build_stage2(config, dtype, remat) \
+                if layout is not None and layout.tp > 1 else stage2
+        if layout is not None:
+            shard_module(stage2, layout)
         self.stage1 = stage1.to_empty(device=self.device).eval()
         self.stage2 = stage2.to_empty(device=self.device).eval()
         # top code grid: the stage-1 latent over the bottom-group window (2
@@ -284,7 +302,7 @@ class TwoStageModel:
         """Seeded random f32 weights on the model's device."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return {'stage1': random_state(self.stage1, gen),
-                'stage2': random_state(self.stage2, gen)}
+                'stage2': random_state(self.full_stage2, gen)}
 
     def load_reference_checkpoint(self, path_or_sd: Union[
             str, Mapping[str, torch.Tensor]]) -> Weights:
@@ -301,7 +319,7 @@ class TwoStageModel:
         weights = split_reference_state(sd)
         problems = []
         for name, module in (('stage1', self.stage1),
-                             ('stage2', self.stage2)):
+                             ('stage2', self.full_stage2)):
             want = {k: t.shape for k, t in module.state_dict().items()}
             got = weights[name]
             unmatched = sorted(f'{name}.{k}' for k in got
@@ -321,10 +339,14 @@ class TwoStageModel:
 
     def load_weights(self, weights: Weights) -> None:
         """Make `weights` the modules' tensors (strict key match, no copy
-        for tensors already on the model's device)."""
+        for tensors already on the model's device; stage 2 cut to this
+        rank's shards under tensor parallelism)."""
         for name, module in (('stage1', self.stage1),
                              ('stage2', self.stage2)):
-            state = {k: v.to(self.device) for k, v in weights[name].items()}
+            state = weights[name]
+            if name == 'stage2':
+                state = shard_state(state, self.layout)
+            state = {k: v.to(self.device) for k, v in state.items()}
             module.load_state_dict(state, strict=True, assign=True)
 
     @torch.inference_mode()

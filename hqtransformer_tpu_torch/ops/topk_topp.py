@@ -24,7 +24,7 @@ from log(probs + 1e-20), which leaves a removed token a weight of about
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -88,17 +88,27 @@ def sample_from_logits(generator: torch.Generator, logits: torch.Tensor, *,
                        temperature: float = 1.0,
                        top_k: Optional[int] = None,
                        top_p: Optional[float] = None,
-                       bisect3: bool = False) -> torch.Tensor:
+                       bisect3: bool = False,
+                       shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """temperature -> top-k -> [softmax -> top-p] -> categorical draw over
     logits [..., V]. Draws one uniform per row from `generator` (on the
     logits' device). Without `top_p`, the sampling kernel (`bisect3`: its
     quartile search for the top-k threshold, see `sample_topk`); with it,
-    the plain ops of the module docstring. Returns int32 codes [...]."""
+    the plain ops of the module docstring. Returns int32 codes [...].
+
+    `shard` = (index, count): the logits are shard `index` of `count`
+    equal, batch-major shards of the whole batch's rows (data
+    parallelism); the uniforms of every shard are drawn and this one's
+    taken, so the codes do not depend on how the batch is split."""
     shape = logits.shape[:-1]
     V = logits.shape[-1]
     flat = logits.reshape(-1, V)
-    u = torch.rand(flat.shape[0], generator=generator, dtype=torch.float32,
+    n = flat.shape[0]
+    index, count = shard
+    u = torch.rand(n * count, generator=generator, dtype=torch.float32,
                    device=logits.device)
+    if count > 1:
+        u = u[index * n:(index + 1) * n]
     if top_p is not None:
         probs = nucleus_probs(flat, temperature, top_k, top_p)
         return inverse_cdf_draw(probs, u).reshape(shape)

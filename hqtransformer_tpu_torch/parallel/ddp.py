@@ -13,35 +13,34 @@ and codebooks, those of one process on the whole batch.
 `init_distributed` starts the process group: NCCL on cards, gloo on the
 CPU; by default from the environment `torchrun` gives each process (RANK,
 WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), or from an explicit
-address, rank and world size. The 'tp' axis (tensor parallelism, Megatron
-rules of `mesh.py`) is not ported (ROADMAP A16): `check_tp` refuses it.
+address, rank and world size. It returns the ('dp', 'tp') layout
+(`parallel/tp.py`): with tensor parallelism the gradients are averaged
+over the dp group only (`average_gradients(grads, layout.dp_group)`), the
+tp ranks of a dp group holding the shards of one replica. Stage 1 stays data-parallel over the
+whole world (`main_stage1.py`).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
 
-
-def check_tp(tp: int) -> None:
-    """Raise for tensor parallelism, which the port does not have."""
-    if tp > 1:
-        raise NotImplementedError(
-            f'--tp {tp}: tensor parallelism is not ported (ROADMAP A16); '
-            f'every reference model fits one card, so train with --tp 1 on '
-            f'one card or data-parallel over several (torchrun)')
+from .tp import ParallelLayout, make_layout
 
 
 def init_distributed(device_type: str, init_method: Optional[str] = None,
                      rank: Optional[int] = None,
-                     world_size: Optional[int] = None) -> Tuple[int, int, int]:
+                     world_size: Optional[int] = None,
+                     tp: int = 1) -> ParallelLayout:
     """Start the default process group (NCCL for 'cuda', gloo otherwise)
-    and return (rank, world size, local rank). Without `init_method`, the
-    rank, world size and rendezvous come from torchrun's environment; a
-    process on a card takes card LOCAL_RANK."""
+    and return its layout with tensor-parallel size `tp`
+    (`parallel/tp.py::make_layout`: ValueError if tp does not divide the
+    world). Without `init_method`, the rank, world size and rendezvous
+    come from torchrun's environment; a process on a card takes card
+    LOCAL_RANK (with an explicit address, its rank)."""
     env = init_method is None
     if env:
         rank = int(os.environ['RANK'])
@@ -55,19 +54,21 @@ def init_distributed(device_type: str, init_method: Optional[str] = None,
         torch.cuda.set_device(local_rank)
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size)
-    return rank, world_size, local_rank
+    return make_layout(tp, local_rank)
 
 
-def average_gradients(grads: Dict[str, torch.Tensor]) -> None:
-    """Replace every gradient by its mean over the ranks: one all-reduce of
-    a flat buffer per dtype."""
-    n = dist.get_world_size()
+def average_gradients(grads: Dict[str, torch.Tensor],
+                      group=None) -> None:
+    """Replace every gradient by its mean over the ranks of `group` (the
+    default group when None): one all-reduce of a flat buffer per
+    dtype."""
+    n = dist.get_world_size(group)
     by_dtype: Dict[torch.dtype, List[str]] = {}
     for k, g in grads.items():
         by_dtype.setdefault(g.dtype, []).append(k)
     for names in by_dtype.values():
         flat = torch.cat([grads[k].reshape(-1) for k in names])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         flat /= torch.tensor(float(n), dtype=flat.dtype, device=flat.device)
         offset = 0
         for k in names:
@@ -76,12 +77,12 @@ def average_gradients(grads: Dict[str, torch.Tensor]) -> None:
             offset += size
 
 
-def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of `x` over the ranks (a new tensor)."""
+def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of `x` over the ranks of `group` (a new tensor)."""
     x = x.clone()
-    dist.all_reduce(x)
-    return x / torch.tensor(float(dist.get_world_size()), dtype=x.dtype,
-                            device=x.device)
+    dist.all_reduce(x, group=group)
+    return x / torch.tensor(float(dist.get_world_size(group)),
+                            dtype=x.dtype, device=x.device)
 
 
 def cleanup() -> None:

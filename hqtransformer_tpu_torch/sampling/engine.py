@@ -36,6 +36,15 @@ Random numbers: every draw takes one uniform per row from the caller's
 `torch.Generator`, in depth order: the top codes' first, then the bottom
 group's (2 levels), or the mids' and then the bottoms' (3 levels).
 
+Parallel serving: on a model with a `layout` (`parallel/tp.py::
+shard_module`), every sampler and the scorer take the whole batch's
+labels (and given codes) and serve this process's dp shard of them,
+returning its rows. Each draw takes the uniforms of the whole batch from
+the generator and uses its shard's (`sample_from_logits(shard=)`), so,
+for one generator seed, the codes do not depend on dp or tp; the tp ranks
+of a dp group draw the same codes from the same gathered logits, so
+their caches stay in step.
+
 `bisect3` (in `SamplingParams` and per level in `LevelSampling`) has the
 sampling kernel find its top-k threshold by the TPU kernel's quartile
 search instead of its binary one; it is off by default, as in JAX.
@@ -88,12 +97,25 @@ class LevelSampling:
     temperature: float = 1.0
     bisect3: bool = False
 
-    def draw(self, generator: torch.Generator,
-             logits: torch.Tensor) -> torch.Tensor:
+    def draw(self, generator: torch.Generator, logits: torch.Tensor,
+             shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
         return sample_from_logits(generator, logits,
                                   temperature=self.temperature,
                                   top_k=self.top_k, top_p=self.top_p,
-                                  bisect3=self.bisect3)
+                                  bisect3=self.bisect3, shard=shard)
+
+
+def _shard(model) -> Tuple[int, int]:
+    """(dp rank, dp size) of a model's layout; (0, 1) without one."""
+    layout = getattr(model, 'layout', None)
+    return (0, 1) if layout is None else (layout.dp_rank, layout.dp)
+
+
+def _rows(model, x: torch.Tensor) -> torch.Tensor:
+    """This process's dp shard of a whole batch x [B, ...] (x without a
+    layout)."""
+    layout = getattr(model, 'layout', None)
+    return x if layout is None else layout.rows(x)
 
 
 def _depth_chain(model: HierarchicalGPT, h: torch.Tensor,
@@ -118,44 +140,49 @@ def _depth_chain(model: HierarchicalGPT, h: torch.Tensor,
 
 
 def _draw(generator: torch.Generator, sp: SamplingParams, level: str,
-          logits: torch.Tensor) -> torch.Tensor:
+          logits: torch.Tensor,
+          shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """One draw with the knobs of `level` ('top' or 'bot')."""
     if level == 'top':
         return sample_from_logits(generator, logits,
                                   temperature=sp.temperature_top,
                                   top_k=sp.top_k_top, top_p=sp.top_p_top,
-                                  bisect3=sp.bisect3)
+                                  bisect3=sp.bisect3, shard=shard)
     return sample_from_logits(generator, logits,
                               temperature=sp.temperature_bot,
                               top_k=sp.top_k_bot, top_p=sp.top_p_bot,
-                              bisect3=sp.bisect3)
+                              bisect3=sp.bisect3, shard=shard)
 
 
 def _draws(generator: torch.Generator, sp: SamplingParams,
-           given_top: Optional[torch.Tensor] = None) -> Callable:
+           given_top: Optional[torch.Tensor] = None,
+           shard: Tuple[int, int] = (0, 1)) -> Callable:
     """The sampler's `pick` for `_depth_chain`: one draw per depth step
     from `generator`; step 0's with the top's knobs, then replaced by
     `given_top` where given."""
     def pick(step: int, logits: torch.Tensor) -> torch.Tensor:
-        codes = _draw(generator, sp, 'bot' if step else 'top', logits)
+        codes = _draw(generator, sp, 'bot' if step else 'top', logits,
+                      shard)
         return given_top if step == 0 and given_top is not None else codes
     return pick
 
 
 def _depth_sample_parallel(model: HierarchicalGPT, h: torch.Tensor,
                            generator: torch.Generator, sp: SamplingParams,
-                           given_top: Optional[torch.Tensor], int8: bool
+                           given_top: Optional[torch.Tensor], int8: bool,
+                           shard: Tuple[int, int] = (0, 1)
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The `parallel` depth draws: (top [B], bottoms [B, ratio])."""
-    top, bot, _ = _depth_chain(model, h, _draws(generator, sp, given_top),
-                               int8)
+    top, bot, _ = _depth_chain(model, h, _draws(generator, sp, given_top,
+                                                shard), int8)
     return top, bot
 
 
 def _depth_sample_bidirectional(model: HierarchicalGPT, h: torch.Tensor,
                                 generator: torch.Generator,
                                 sp: SamplingParams,
-                                given_top: Optional[torch.Tensor], int8: bool
+                                given_top: Optional[torch.Tensor], int8: bool,
+                                shard: Tuple[int, int] = (0, 1)
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The `bidirectional` depth pass and its one joint draw of the top
     and the r bottoms ([B (1 + r), V] rows), all with `top_k_bot`,
@@ -164,13 +191,14 @@ def _depth_sample_bidirectional(model: HierarchicalGPT, h: torch.Tensor,
     outs = sample_from_logits(generator, logits,
                               temperature=sp.temperature_top,
                               top_k=sp.top_k_bot, top_p=sp.top_p_bot,
-                              bisect3=sp.bisect3)
+                              bisect3=sp.bisect3, shard=shard)
     return (outs[:, 0] if given_top is None else given_top), outs[:, 1:]
 
 
 def _depth_sample_top2bot(model: HierarchicalGPT, h: torch.Tensor,
                           generator: torch.Generator, sp: SamplingParams,
-                          given_top: Optional[torch.Tensor], int8: bool
+                          given_top: Optional[torch.Tensor], int8: bool,
+                          shard: Tuple[int, int] = (0, 1)
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The `top2bot` causal depth chain: sos_depth + h, then the previous
     code's embedding (the top's by `tok_emb_top_depth`, a bottom's by
@@ -179,7 +207,8 @@ def _depth_sample_top2bot(model: HierarchicalGPT, h: torch.Tensor,
     kc, vc = model.depth_caches(h.shape[0], h.device)
     x = model.depth_causal_step(h[:, None] + model.sos_depth.to(h.dtype),
                                 kc, vc, 0)
-    top = _draw(generator, sp, 'top', model.head_top(model.ln_top(x[:, 0])))
+    top = _draw(generator, sp, 'top', model.head_top(model.ln_top(x[:, 0])),
+                shard)
     codes = [top if given_top is None else given_top]
     pos = model.pos_emb_depth.weight
     for step in range(1, model.len_seq_depth):
@@ -188,7 +217,7 @@ def _depth_sample_top2bot(model: HierarchicalGPT, h: torch.Tensor,
         x = model._emb(table, codes[-1]) + pos[step - 1].to(h.dtype)
         x = model.depth_causal_step(x[:, None], kc, vc, step)
         codes.append(_draw(generator, sp, 'bot',
-                           model.head_bot(model.ln_bot(x[:, 0]))))
+                           model.head_bot(model.ln_bot(x[:, 0])), shard))
     return codes[0], torch.stack(codes[1:], dim=1)
 
 
@@ -204,10 +233,11 @@ Model = Union[HierarchicalGPT, MultiLevelHQTransformer, IGPT, Transformer1d]
 def _caches(model: Model, sos: torch.Tensor, max_seq_len: int,
             int8: Int8Serving) -> Tuple[torch.Tensor, torch.Tensor]:
     """The packed [L, T, B, D] caches (T = sos_len + N - 1, sos_len the
-    prefix's length), int8 or in the activation dtype."""
+    prefix's length; D the rank's heads' width under tensor parallelism),
+    int8 or in the activation dtype."""
     hp = model.hparams
     shape = (hp.n_layers, sos.shape[1] + max_seq_len - 1, sos.shape[0],
-             hp.embed_dim)
+             model.blocks[0].attn.width)
     dtype = torch.int8 if int8.kv_cache else sos.dtype
     kc = torch.zeros(shape, dtype=dtype, device=sos.device)
     return kc, torch.zeros_like(kc)
@@ -271,6 +301,7 @@ def make_hierarchical_sampler(model: HierarchicalGPT, max_seq_len: int = 64,
     static-shape compute of the TPU kernel, while the CUDA kernel's loop
     already stops at the current position."""
     depth_fn = _DEPTH_SAMPLERS[model.depth_mode]
+    shard = _shard(model)
 
     @torch.inference_mode()
     def sample(generator: torch.Generator, labels: torch.Tensor,
@@ -278,13 +309,15 @@ def make_hierarchical_sampler(model: HierarchicalGPT, max_seq_len: int = 64,
         if use_given_top != (given_top_codes is not None):
             raise ValueError('given_top_codes go with use_given_top, and '
                              'only with it')
+        labels = _rows(model, labels)
         if use_given_top:
-            given_top_codes = given_top_codes.to(labels.device, torch.int32)
+            given_top_codes = _rows(model, given_top_codes).to(
+                labels.device, torch.int32)
 
         def depth(i, h):
             given = given_top_codes[:, i] if use_given_top else None
             top, bot = depth_fn(model, h, generator, params, given,
-                                int8.depth_gemms)
+                                int8.depth_gemms, shard)
             return (top, bot), (top, bot)
 
         outs, caches = _serving_loop(model, labels, max_seq_len, int8,
@@ -317,6 +350,9 @@ def make_hierarchical_scorer(model: HierarchicalGPT, max_seq_len: int = 64,
     @torch.inference_mode()
     def score(labels: torch.Tensor, codes_t: torch.Tensor,
               codes_b_cells: torch.Tensor):
+        labels, codes_t, codes_b_cells = (
+            _rows(model, x) for x in (labels, codes_t, codes_b_cells))
+
         def depth(i, h):
             def given(step, _):
                 return codes_t[:, i] if step == 0 else \
@@ -361,19 +397,22 @@ def make_multilevel_sampler(model: MultiLevelHQTransformer,
     if model.is_causal_depth:
         raise ValueError(NO_PHASES)
     depth8 = int8.depth_gemms
+    shard = _shard(model)
 
     @torch.inference_mode()
     def sample(generator: torch.Generator, labels: torch.Tensor):
+        labels = _rows(model, labels)
+
         def depth(i, h):
             logits, kv = model.depth_phase_cached(h, None, None, None, 0,
                                                   depth8)
-            top = params[0].draw(generator, logits)
+            top = params[0].draw(generator, logits, shard)
             logits, kv = model.depth_phase_cached(None, top, None, kv, 1,
                                                   depth8)
-            mids = params[1].draw(generator, logits)
+            mids = params[1].draw(generator, logits, shard)
             logits, _ = model.depth_phase_cached(None, top, mids, kv, 2,
                                                  depth8)
-            codes = (top, mids, params[2].draw(generator, logits))
+            codes = (top, mids, params[2].draw(generator, logits, shard))
             return codes, codes
 
         outs, caches = _serving_loop(model, labels, max_seq_len, int8,
@@ -401,12 +440,16 @@ def _flat_sampler(model: Union[IGPT, Transformer1d], max_seq_len: int,
                          f'the int8 KV cache alone (Int8Serving(kv_cache='
                          f'True)), not int8 gemms')
 
+    shard = _shard(model)
+
     @torch.inference_mode()
     def sample(generator: torch.Generator, labels: torch.Tensor):
+        labels = _rows(model, labels)
+
         def depth(i, h):
             code = sample_from_logits(generator, model.image_logits(h),
                                       temperature=temperature, top_k=top_k,
-                                      top_p=top_p)
+                                      top_p=top_p, shard=shard)
             return (code,), code
 
         outs, caches = _serving_loop(model, labels, max_seq_len, int8,

@@ -20,7 +20,11 @@ One update, per parameter (optax's order of operations):
        (+ weight_decay * p where the mask picks p);
   p <- p + u * (-lr).
 Parameters move in place under `torch.no_grad()`; the trainers' `step`
-counts micro-steps, this state's `count` the updates applied.
+counts micro-steps, this state's `count` the updates applied. Under
+tensor parallelism each rank holds its shards' moments and accumulator,
+and `update(..., sum_squares=)` makes the clip's norm global (the sharded
+gradients' squares summed over the tp group, the replicated ones counted
+once: `ParallelLayout.sum_squares`).
 """
 
 from __future__ import annotations
@@ -86,10 +90,12 @@ class Optimizer:
                         0, acc)
 
     def update(self, grads: Mapping[str, torch.Tensor], state: OptState,
-               params: Mapping[str, torch.Tensor]) -> bool:
+               params: Mapping[str, torch.Tensor],
+               sum_squares: Optional[Callable] = None) -> bool:
         """Fold `grads` (name -> f32 gradient) into `state` and, on the
         last micro-step of an update, move `params`. Returns whether the
-        parameters moved."""
+        parameters moved. `sum_squares(names, squares)` sums the squared
+        gradients for the clip's norm (by default, stacked and summed)."""
         names = list(params)
         with torch.no_grad():
             g = [grads[k].float() for k in names]
@@ -103,21 +109,24 @@ class Optimizer:
                 if state.mini_step < self.accum_steps - 1:
                     state.mini_step += 1
                     return False
-                self._apply(names, acc, state, params)
+                self._apply(names, acc, state, params, sum_squares)
                 for a in acc:
                     a.zero_()
                 state.mini_step = 0
             else:
-                self._apply(names, g, state, params)
+                self._apply(names, g, state, params, sum_squares)
         return True
 
     def _apply(self, names: List[str], g: List[torch.Tensor],
-               state: OptState, params: Mapping[str, torch.Tensor]) -> None:
+               state: OptState, params: Mapping[str, torch.Tensor],
+               sum_squares: Optional[Callable] = None) -> None:
         """One update from gradients `g` (read, not written)."""
         ref = g[0]
         if self.clip_norm is not None:
-            norm = torch.sqrt(torch.stack([torch.sum(x * x)
-                                           for x in g]).sum())
+            squares = [torch.sum(x * x) for x in g]
+            norm = torch.sqrt(torch.stack(squares).sum()
+                              if sum_squares is None
+                              else sum_squares(names, squares))
             clipped = torch._foreach_mul(
                 torch._foreach_div(g, norm), _scalar(self.clip_norm, ref))
             keep = norm < self.clip_norm

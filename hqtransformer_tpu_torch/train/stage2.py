@@ -16,10 +16,16 @@ on the Linear and convolution weights only.
 The trainer owns the modules' parameters (`TrainState.params`, the
 stage-2 model's `named_parameters`); `train_step(state, images, labels)`
 moves them in place and returns the state with its micro-step count
-advanced, and the step's metrics as device tensors. Under data
-parallelism (`distributed`) the gradients are averaged over the ranks
-before the update (`parallel/ddp.py`). Like the JAX step, it runs the
-stage-2 model deterministic: no dropout.
+advanced, and the step's metrics as device tensors. Under a parallel
+layout (`parallel/tp.py::ParallelLayout`) the gradients are averaged over
+the dp group before the update (`parallel/ddp.py`); under tensor
+parallelism the parameters, gradients and moments are this rank's shards
+(the losses read the gathered logits, so they are unchanged), the clip's
+norm is summed over the tp group, and `train_state_dict` /
+`load_train_state` gather and cut them, so a checkpoint holds whole
+tensors and resumes at any tp size. Stage 1 is replicated: every tp rank
+encodes its dp shard. Like the JAX step, it runs the stage-2 model
+deterministic: no dropout.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.ddp import average_gradients
+from ..parallel.tp import (ParallelLayout, gather_state, shard_state,
+                           sharded_names)
 from .optim import OptState, Optimizer, decayed, grads_of, named_trainable
 from .scheduler import Schedule
 
@@ -199,21 +207,29 @@ def make_loss_fn(model2: nn.Module, stage1: nn.Module, *,
 
 
 def make_train_step(model2: nn.Module, stage1: nn.Module,
-                    optimizer: Optimizer, *, distributed: bool = False,
+                    optimizer: Optimizer, *,
+                    layout: Optional[ParallelLayout] = None,
                     **loss_kwargs) -> Callable:
     """train_step(state, images, labels) -> (state, metrics): one
-    micro-step (`make_loss_fn`'s keyword arguments), the gradients
-    averaged over the ranks under `distributed`. `train_step.loss_fn` is
-    the loss function it differentiates."""
+    micro-step (`make_loss_fn`'s keyword arguments) on this rank's images
+    and labels (its dp shard), the gradients averaged over the dp group of
+    `layout` and the clip's norm summed over its tp group (the module
+    docstring). `train_step.loss_fn` is the loss function it
+    differentiates."""
     loss_fn = make_loss_fn(model2, stage1, **loss_kwargs)
+    dp_group = layout.dp_group if layout is not None and layout.dp > 1 \
+        else None
+    sum_squares = None
+    if layout is not None and layout.tp > 1:
+        sum_squares = layout.sum_squares(sharded_names(model2))
 
     def train_step(state: TrainState, images: torch.Tensor,
                    labels: torch.Tensor):
         loss, metrics = loss_fn(images, labels)
         grads = grads_of(loss, state.params)
-        if distributed:
-            average_gradients(grads)
-        optimizer.update(grads, state.opt_state, state.params)
+        if dp_group is not None:
+            average_gradients(grads, dp_group)
+        optimizer.update(grads, state.opt_state, state.params, sum_squares)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
@@ -221,24 +237,40 @@ def make_train_step(model2: nn.Module, stage1: nn.Module,
     return train_step
 
 
-def train_state_dict(state: TrainState) -> dict:
+def _per_param(opt: Mapping, fn: Callable) -> dict:
+    """An optimizer state dict with `fn` applied to its per-parameter
+    dicts (mu, nu and the accumulator)."""
+    return {k: fn(v) if k in ('mu', 'nu', 'acc') and v is not None else v
+            for k, v in opt.items()}
+
+
+def train_state_dict(state: TrainState,
+                     layout: Optional[ParallelLayout] = None) -> dict:
     """The training checkpoint's tree: the step, the parameters and the
-    optimizer state."""
+    optimizer state, whole tensors under tensor parallelism (gathered
+    over the tp group: every rank calls it)."""
+    params = {k: p.detach() for k, p in state.params.items()}
     return {'step': state.step,
-            'params': {k: p.detach() for k, p in state.params.items()},
-            'opt_state': state.opt_state.state_dict()}
+            'params': gather_state(params, layout),
+            'opt_state': _per_param(state.opt_state.state_dict(),
+                                    lambda d: gather_state(d, layout))}
 
 
-def load_train_state(state: TrainState, tree: Mapping) -> TrainState:
-    """Restore `train_state_dict`'s tree into `state` (parameters copied
-    in place; the names must be the same)."""
+def load_train_state(state: TrainState, tree: Mapping,
+                     layout: Optional[ParallelLayout] = None) -> TrainState:
+    """Restore `train_state_dict`'s tree (whole tensors, saved at any tp
+    size) into `state`, cut to this rank's shards (parameters copied in
+    place; the names must be the same)."""
     if set(tree['params']) != set(state.params):
         raise KeyError(f'checkpoint parameters differ from the model\'s: '
                        f'{sorted(set(tree["params"]) ^ set(state.params))[:10]}')
+    params = shard_state(tree['params'], layout)
     with torch.no_grad():
         for k, p in state.params.items():
-            p.copy_(tree['params'][k])
+            p.copy_(params[k])
     device = next(iter(state.params.values())).device
-    state.opt_state = OptState.from_state_dict(tree['opt_state'], device)
+    state.opt_state = OptState.from_state_dict(
+        _per_param(tree['opt_state'], lambda d: shard_state(d, layout)),
+        device)
     state.step = int(tree['step'])
     return state

@@ -4,7 +4,8 @@ steps with a mid-epoch skip, bit-equal to 4 uninterrupted ones; the
 sampler-ready bundle loading strictly; stage 2 reading a stage-1 run's
 checkpoint directory), two gloo processes on half batches equal to one on
 the whole batch, `RunLogger`'s config.yaml read back equal, and the
-refusal of tensor parallelism.
+refusal of tensor-parallel sizes that do not divide the world, the heads
+or a vocabulary (tensor parallelism itself: `test_torch_tp.py`).
 
 These hold the port to itself (bit for bit) where a JAX run cannot be
 reproduced: the JAX scripts train through Orbax and their own key
@@ -259,7 +260,20 @@ def test_run_logger_config_reads_back_equal(path, tmp_path):
     assert 'hello' in open(tmp_path / 'train.log').read()
 
 
-def test_tensor_parallelism_is_refused(tree, tmp_path):
-    with pytest.raises(NotImplementedError, match='A16'):
-        main_stage2.main(['-c', STAGE2, '-r', str(tmp_path), '--data-root',
-                          tree, '--device', 'cpu', '--tp', '2'])
+def test_tensor_parallel_sizes_are_refused(tree, tmp_path):
+    """--tp that does not divide the world (one process without
+    --multihost), the 4 heads (3) or the vocabulary (255, at tp 2) raises
+    ValueError naming the size, before any run directory is made."""
+    args = ['-c', STAGE2, '-r', str(tmp_path / 'runs'), '--data-root', tree,
+            '--device', 'cpu']
+    with pytest.raises(ValueError, match='world of 1 process'):
+        main_stage2.main(args + ['--tp', '2'])
+    with pytest.raises(ValueError, match='4 heads'):
+        main_stage2.main(args + ['--tp', '3'])
+    text = open(STAGE2).read().replace('vocab_size_img: 256',
+                                       'vocab_size_img: 255')
+    odd = tmp_path / 'odd-vocab.yaml'
+    odd.write_text(text)
+    with pytest.raises(ValueError, match='vocabulary 255'):
+        main_stage2.main(['-c', str(odd)] + args[2:] + ['--tp', '2'])
+    assert not (tmp_path / 'runs').exists()

@@ -16,10 +16,11 @@ def batches(res, n, batch, seed):
              rng.randint(0, 10, (batch,))) for _ in range(n)]
 
 
-def train(kind, rank, world, out, steps=2, batch=4):
+def train(kind, rank, world, out, steps=2, batch=4, layout=None):
     """Train `kind` ('stage1' or 'stage2', tiny configs) for `steps` steps
     on rows rank::world of each seeded batch and save the parameters and
-    EMA buffers to `out` (rank 0)."""
+    EMA buffers to `out` (rank 0). `layout`: the process group's
+    (`init_distributed`), None for one process."""
     torch.manual_seed(0)
     torch.set_num_threads(1)
     if kind == 'stage2':
@@ -33,8 +34,7 @@ def train(kind, rank, world, out, steps=2, batch=4):
         tm.stage1.requires_grad_(False)
         opt = ts.make_optimizer(cfg.optimizer, build_schedule(1e-3, 2, 10),
                                 mask=ts.decay_mask(tm.stage2))
-        step = ts.make_train_step(tm.stage2, tm.stage1, opt,
-                                  distributed=world > 1)
+        step = ts.make_train_step(tm.stage2, tm.stage1, opt, layout=layout)
         state = ts.init_train_state(tm.stage2, opt)
         for x, y in batches(32, steps, batch, 5):
             state, _ = step(state, torch.from_numpy(x[rank::world]),
@@ -71,9 +71,9 @@ def train(kind, rank, world, out, steps=2, batch=4):
 def main(argv):
     kind, rank, world, port, out = argv
     rank, world = int(rank), int(world)
-    init_distributed('cpu', f'tcp://127.0.0.1:{port}', rank, world)
+    layout = init_distributed('cpu', f'tcp://127.0.0.1:{port}', rank, world)
     try:
-        train(kind, rank, world, out)
+        train(kind, rank, world, out, layout=layout)
     finally:
         cleanup()
 
