@@ -337,35 +337,54 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    plain version at the flagship's per-rank widths, d 768 with 12 heads
    (tp 2) and d 384 with 6 heads (tp 4), f32 and bf16, batch 128 and
    1024, pos 1, 33, 63, and timed at pos 33 beside its plain version,
-   SDPA and its bound; the tp-1 flagship sampler (bf16, top-k 2048, T
-   0.95, batch 128, seed 17) in this process, the same call again with
-   every draw's bf16 logits moved one bf16 step at random (the witness
-   of how far a rounding moves the draws), and the tp-1 stage-2 sampler
-   in f32; then four processes of this script (`--tp-worker`) on
-   cuda:0, joined by gloo (NCCL refuses two ranks on one card): each
-   checks the collectives on CUDA tensors (all_reduce over the tp and dp
-   groups in f32 and bf16, the gather, the barrier), runs the flagship's
-   stage-2 sampler at tp 4 for its first 16 positions (180 K1 launches
-   at d 384 and 32 K2 a rank: four ranks' collectives cross the host, so
-   the call is cut in length), the flagship pixel sampler at tp 2 x dp 2
-   on the whole batch (exactly 756 K1 launches at d 768 and 128 K2
-   launches a rank; the tp ranks of a dp group draw the same codes) and
-   its stage-2 sampler at tp 2 x dp 2 in f32 (756 K1, 128 K2), then 3
-   f32 flagship training steps at tp 2 x dp 2 on a global batch of 8 (4
-   a dp rank; exactly 2 K3 launches a step a rank) and saves the whole
-   state (rank 0 writes); the tp-2 ranks also score tp 1's codes. Here:
-   the codes' first-position agreement with tp 1's, held in f32 to >=
-   0.97 a level and in bf16 to the witness's less three standard
-   deviations (top-k 2048 over near-flat random-weight logits moves a
-   draw on a rounding, and every later step with it), the scorer's bf16
-   logits against tp 1's on the same codes (within 4 bf16 steps of the
-   largest logit, argmax equal in >= 90% of rows, the bf16 tests'
-   bounds), the losses (rtol 1e-4) and parameters against tp 1's 3 steps
-   on the whole batch (median 1e-6, 99% within 1e-5), the checkpoint
-   restored at tp 1 and one more step. Wall times are gloo on one card,
-   not TP speed. The JSON line gains `decode_attention_tp2` and
-   `decode_attention_tp4` (launches a rank of the tp 2 and tp 4 sampler
-   calls).
+   SDPA and its bound; K1's int8 kernel likewise at both widths (f32 and
+   bf16 q, batch 64, 128 and 1024, pos 1, 33, 63; caches bit-equal, y
+   within phase 7's tolerance), timed at pos 33, batch 128 beside its
+   plain version and its bytes bound; the tp-1 flagship sampler (bf16,
+   top-k 2048, T 0.95, batch 128, seed 17) in this process, the same
+   call again with every draw's bf16 logits moved one bf16 step at
+   random (the witness of how far a rounding moves the draws); the
+   int8max scales calibrated (`calibrate_int8max`, the artifact the
+   ranks serve), the tp-1 int8max sampler, that witness, and the one its
+   codes are held to: the same call with every float row-parallel
+   layer's bf16 output moved one step at random (under int8max tp adds
+   roundings only there, and the int8 quantizers after them carry them
+   further than a logit's rounding); the
+   calibration on one batch (a short sampling run whose draws are
+   recorded, the activation scales on 32 samples' codes); the tp-1
+   stage-2 sampler in f32, with a float and with an int8 KV cache. Then
+   four processes of this script (`--tp-worker`) on cuda:0, joined by
+   gloo (NCCL refuses two ranks on one card): each checks the
+   collectives on CUDA tensors (all_reduce over the tp and dp groups in
+   f32 and bf16, the exact int32 sum, the max, the gather, the
+   barrier), runs the flagship's stage-2 sampler at tp 4 for its first
+   16 positions in bf16 and in int8max (180 K1 launches at d 384, on the
+   int8 kernel in int8max, and 32 K2 a rank: four ranks' collectives
+   cross the host, so the call is cut in length), the flagship pixel
+   sampler at tp 2 x dp 2 on the whole batch in bf16 and in int8max
+   (exactly 756 K1 launches at d 768, all int8 in int8max, and 128 K2
+   launches a rank; the tp ranks of a dp group draw the same codes), its
+   stage-2 sampler at tp 2 x dp 2 in f32 (756 K1, 128 K2) and in f32
+   with the int8 KV cache for 16 positions, the calibration on tp 1's
+   draws and codes, then 3 f32 flagship training steps at tp 2 x dp 2 on
+   a global batch of 8 (4 a dp rank; exactly 2 K3 launches a step a
+   rank) and saves the whole state (rank 0 writes); the tp-2 ranks also
+   score tp 1's codes in bf16 and in int8max. Here: the codes'
+   first-position agreement with tp 1's, held in f32 (float and int8
+   cache) to >= 0.97 a level and in bf16 and int8max to their
+   witnesses' less three standard deviations (top-k 2048 over near-flat
+   random-weight logits moves a draw on a rounding, and every later step
+   with it), the scorers' logits against tp 1's on the same codes
+   (within 4 bf16 steps of the largest logit, argmax equal in >= 90% of
+   rows, the bf16 tests' bounds), the tp-2 calibration against tp 1's
+   (every rank the same; each scale within 4 bf16 steps, the bf16
+   row-parallel sums before it rounding otherwise), the losses (rtol
+   1e-4) and parameters against tp 1's 3 steps on the whole batch
+   (median 1e-6, 99% within 1e-5), the checkpoint restored at tp 1 and
+   one more step. Wall times are gloo on one card, not TP speed. The
+   JSON line gains `decode_attention_tp2`, `decode_attention_tp4`,
+   `decode_attention_int8_tp2` and `decode_attention_int8_tp4` (launches
+   a rank of the tp 2 and tp 4 sampler calls).
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
@@ -4591,6 +4610,16 @@ TP_LOGIT_STEPS, TP_ARGMAX_AGREEMENT = 4.0, 0.9
 # 128 rows may differ (f32 sums in another order move a draw only where
 # two logits at the top-k edge lie within ~1e-7 relative of each other)
 TP_F32_FIRST = 0.97
+# int8 serving under tp: K1-int8 at the sharded widths also at the tp-2 x
+# dp-2 rank's 64 rows; the f32 int8-cache loop's positions (its check is
+# the first position's); the tp-2 calibration on tp 1's draws and codes:
+# a short KV run and the activation scales on B_TP_CALIB samples, each
+# scale within TP_SCALE_STEPS bf16 steps of tp 1's (the bf16 row-parallel
+# sums before it round otherwise)
+TP_INT8_BATCHES = (64, B, B_LARGE)
+N_TP_F32_INT8 = 16
+N_TP_CALIB, B_TP_CALIB = 8, 32
+TP_SCALE_STEPS = 4.0
 
 
 def k1_tp_case(da, dtype, batch, d, n_heads, pos, seed):
@@ -4635,6 +4664,83 @@ def check_k1_tp(da):
     return errs
 
 
+def k1_int8_tp_case(da, dtype, batch, d, n_heads, pos, seed):
+    """K1's int8 kernel at one sharded width against its plain version:
+    int8 caches and new rows over -128..127, an f32 or bf16 q; caches
+    bit-equal, y in units of 1/127 within check_decode_attention_int8's
+    tolerance. Returns max |y - plain| / 127."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+
+    def randint8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device='cuda',
+                             dtype=torch.int8)
+    kc, vc = randint8(2, T, batch, d), randint8(2, T, batch, d)
+    kn, vn = randint8(batch, d), randint8(batch, d)
+    q = (torch.randn((batch, d), generator=g, device='cuda') *
+         0.02).to(dtype)
+    kc1, vc1 = kc.clone(), vc.clone()
+    layer = pos % 2
+    y1 = da.decode_attention_step(q, kn, vn, kc1, vc1, layer, pos, n_heads)
+    y2 = da.decode_attention_step_plain(q, kn, vn, kc, vc, layer, pos,
+                                        n_heads)
+    torch.cuda.synchronize()
+    require(torch.equal(kc1, kc) and torch.equal(vc1, vc),
+            f'K1 int8 cache rows differ at d {d} B {batch} pos {pos}')
+    y1, y2 = y1.float() / 127, y2.float() / 127
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y1, y2, atol=tol, rtol=tol)
+    return (y1 - y2).abs().max().item()
+
+
+def check_k1_int8_tp(da):
+    """K1's int8 kernel against its plain version at every sharded width
+    (TP_WIDTHS), f32 and bf16 q, batch 64, 128 and 1024, pos 1, 33, 63.
+    Returns {tp: max |y - plain| / 127 of the bf16 cases}."""
+    errs = {}
+    for tp, d, n_heads in TP_WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for batch in TP_INT8_BATCHES:
+                for pos in TP_POSITIONS:
+                    err = k1_int8_tp_case(da, dtype, batch, d, n_heads, pos,
+                                          seed=pos + d + batch + 1)
+                    if dtype == torch.bfloat16:
+                        errs[tp] = max(errs.get(tp, 0.0), err)
+                    print(f'K1 int8 tp {tp}: {str(dtype)[6:]} q d={d} heads='
+                          f'{n_heads} B={batch} pos={pos}: caches bit-equal, '
+                          f'max|y - plain| / 127 = {err:.3e}')
+        torch.cuda.empty_cache()
+    return errs
+
+
+def time_k1_int8_shape(da, d, n_heads, label):
+    """K1's int8 kernel at pos 33, batch 128, width d (bf16 q) beside its
+    plain version and its bytes bound; the calls rotate over enough
+    layers to hold K1_ROTATE_BYTES. No PyTorch call attends over an int8
+    cache: no library time. Returns (kernel, plain, None, bound)."""
+    pos = TIMED_POS
+    layer_bytes = 2 * (pos + 1) * B * d
+    n_layers = max(4, -(-K1_ROTATE_BYTES // layer_bytes))
+    g = torch.Generator(device='cuda').manual_seed(pos + d + 2)
+    kc, vc = (torch.randint(-128, 128, (n_layers, T, B, d), generator=g,
+                            device='cuda', dtype=torch.int8)
+              for _ in range(2))
+    kn, vn = (torch.randint(-128, 128, (B, d), generator=g, device='cuda',
+                            dtype=torch.int8) for _ in range(2))
+    q = (torch.randn((B, d), generator=g, device='cuda') * 0.02).bfloat16()
+    kernel = time_ms(lambda i: da.decode_attention_step(
+        q, kn, vn, kc, vc, i % n_layers, pos, n_heads), 240)
+    plain = time_ms(lambda i: da.decode_attention_step_plain(
+        q, kn, vn, kc, vc, i % n_layers, pos, n_heads), 24)
+    bnd = bound(k1_bytes(pos, B, True, d), k1_flops(pos, B, d))
+    print(f'K1 int8 {label}, bf16 q, pos {pos} B {B} d {d} heads {n_heads}: '
+          f'kernel {kernel:.5f} ms, plain {plain:.5f} ms, bound '
+          f'{bnd[0]:.5f} ms ({bnd[1]}; kernel {kernel / bnd[0]:.2f}x); no '
+          f'library call attends over an int8 cache')
+    del kc, vc
+    torch.cuda.empty_cache()
+    return kernel, plain, None, bnd
+
+
 def check_collectives(layout):
     """Every collective the port's tensor parallelism uses, on CUDA tensors
     of processes sharing one card: all_reduce over the tp and the dp group
@@ -4661,97 +4767,197 @@ def check_collectives(layout):
     require(torch.equal(full[0], torch.arange(4 * tp.size, device='cuda',
                                               dtype=torch.float32)),
             f'gather gave {full[0].tolist()}')
+    # int8 serving's: the exact int32 sum (values past f32's mantissa)
+    # and the max of scales
+    big = torch.tensor([2 ** 28 + 7 * (tp.rank + 1)], dtype=torch.int32,
+                       device='cuda')
+    got = tp.sum_int32(big)
+    require(got.dtype == torch.int32 and int(got) == sum(
+        2 ** 28 + 7 * (r + 1) for r in range(tp.size)),
+        f'tp sum_int32 gave {int(got)}')
+    top = tp.max(torch.tensor([float(tp.rank), -float(tp.rank)],
+                              device='cuda'))
+    require(top.tolist() == [float(tp.size - 1), 0.0], f'tp max gave '
+            f'{top.tolist()}')
     layout.barrier()
     require(dist.get_backend() == 'gloo', 'the group is not gloo')
-    print(f'rank {layout.rank}: all_reduce (tp, dp; f32, bf16), gather and '
-          f'barrier ran on CUDA tensors over gloo')
+    print(f'rank {layout.rank}: all_reduce (tp, dp; f32, bf16), the int32 '
+          f'sum, the max, gather and barrier ran on CUDA tensors over gloo')
 
 
-def tp_sampler_call(layout, name, da, st, q8):
-    """The flagship sampler (seeded random bf16 weights, top-k 2048, T
-    0.95) under `layout` on the whole batch of 128 labels, this rank
-    serving its dp shard: one `checked_call` (756 K1 and 128 K2 launches,
-    codes, pixels); then the scorer on tp 1's codes (TP_DIR/ref_codes.pt),
-    whose logits the first tp rank of each dp group writes to
-    TP_DIR/scores<dp rank>.pt. Returns (codes on the CPU, seconds,
-    launches)."""
+def tp_flagship(layout, dtype=torch.bfloat16):
+    """The flagship TwoStageModel under `layout` with the seeded random
+    weights of every phase-17 call (bf16 serving weights in bf16), its
+    128 labels on the card, and its config."""
     from hqtransformer_tpu_torch.config import build_twostage_config
     from hqtransformer_tpu_torch.models.twostage import (TwoStageModel,
                                                          serving_bf16_params)
-    from hqtransformer_tpu_torch.sampling.engine import SamplingParams
-
-    cfg = build_twostage_config(str(FLAGSHIP))
-    model = TwoStageModel(cfg, dtype=torch.bfloat16, layout=layout)
-    weights = {s: serving_bf16_params(w)
-               for s, w in model.init_weights(seed=0).items()}
-    labels = torch.arange(B, device='cuda') % cfg.stage2.hparams.n_classes
-    # four processes decode at once: smaller chunks than phase 3's
-    sampler = model.make_pixel_sampler(
-        params=SamplingParams(**SAMPLING_2048), decode_chunk=32)
-    gen = torch.Generator(device='cuda').manual_seed(TP_SAMPLER_SEED)
-    t0 = time.perf_counter()
-    codes, _ = checked_call(model, lambda: sampler(weights, gen, labels),
-                            layout.rows(labels), name, da, st, q8)
-    seconds = time.perf_counter() - t0
-    launches = (da.decode_attention_step.launches, st.sample_topk.launches)
-    from hqtransformer_tpu_torch.sampling.engine import \
-        make_hierarchical_scorer
-    ref = [c.cuda() for c in torch.load(TP_DIR / 'ref_codes.pt')]
-    t1 = time.perf_counter()
-    scores = make_hierarchical_scorer(model.stage2, T)(labels, *ref)
-    torch.cuda.synchronize()
-    print(f'{name}: the scorer on tp 1\'s codes in '
-          f'{time.perf_counter() - t1:.3f} s')
-    if layout.tp_rank == 0:
-        torch.save([x.cpu() for x in scores],
-                   TP_DIR / f'scores{layout.dp_rank}.pt')
-    del model, weights, sampler, scores
-    torch.cuda.empty_cache()
-    return tuple(c.cpu() for c in codes), seconds, launches
-
-
-def tp_stage2_call(layout, dtype, n, da, st, name):
-    """The flagship's stage-2 sampler (seeded random weights in `dtype`,
-    top-k 2048, T 0.95) under `layout` on 128 labels for its first `n`
-    positions (the AR loop alone), this rank serving its dp shard: exactly
-    12 x (n - 1) K1 launches at the rank's width and 2 x n K2 launches.
-    Returns (codes on the CPU, seconds, launches)."""
-    from hqtransformer_tpu_torch.config import build_twostage_config
-    from hqtransformer_tpu_torch.models.twostage import (TwoStageModel,
-                                                         serving_bf16_params)
-    from hqtransformer_tpu_torch.sampling.engine import (
-        SamplingParams, make_hierarchical_sampler)
 
     cfg = build_twostage_config(str(FLAGSHIP))
     model = TwoStageModel(cfg, dtype=dtype, layout=layout)
     weights = model.init_weights(seed=0)
     if dtype == torch.bfloat16:
         weights = {s: serving_bf16_params(w) for s, w in weights.items()}
-    model.load_weights(weights)
     labels = torch.arange(B, device='cuda') % cfg.stage2.hparams.n_classes
+    return model, weights, labels
+
+
+def tp_sampler_call(layout, name, da, st, q8, int8=None, scales=None,
+                    tag=''):
+    """The flagship sampler (seeded random bf16 weights, top-k 2048, T
+    0.95; int8 serving by `int8` and `scales`) under `layout` on the
+    whole batch of 128 labels, this rank serving its dp shard: one
+    `checked_call` (756 K1 and 128 K2 launches, every K1 on the int8
+    kernel and int8 gemms and convs counted with `int8`; codes, pixels);
+    then the scorer in the same serving mode on tp 1's codes
+    (TP_DIR/ref_codes<tag>.pt), whose logits the first tp rank of each dp
+    group writes to TP_DIR/scores<tag><dp rank>.pt. Returns (codes on the
+    CPU, seconds, launches)."""
+    from hqtransformer_tpu_torch.sampling.engine import (
+        SamplingParams, make_hierarchical_scorer)
+
+    int8 = int8 or q8.Int8Serving()
+    model, weights, labels = tp_flagship(layout)
+    # four processes decode at once: smaller chunks than phase 3's
+    sampler = model.make_pixel_sampler(
+        params=SamplingParams(**SAMPLING_2048), decode_chunk=32, int8=int8,
+        scales=scales)
+    gen = torch.Generator(device='cuda').manual_seed(TP_SAMPLER_SEED)
+    t0 = time.perf_counter()
+    codes, _ = checked_call(model, lambda: sampler(weights, gen, labels),
+                            layout.rows(labels), name, da, st, q8,
+                            int8=int8.kv_cache)
+    seconds = time.perf_counter() - t0
+    launches = (da.decode_attention_step.launches, st.sample_topk.launches)
+    ref = [c.cuda() for c in torch.load(TP_DIR / f'ref_codes{tag}.pt')]
+    t1 = time.perf_counter()
+    scores = make_hierarchical_scorer(model.stage2, T, int8, scales)(
+        labels, *ref)
+    torch.cuda.synchronize()
+    print(f'{name}: the scorer on tp 1\'s codes in '
+          f'{time.perf_counter() - t1:.3f} s')
+    if layout.tp_rank == 0:
+        torch.save([x.cpu() for x in scores],
+                   TP_DIR / f'scores{tag}{layout.dp_rank}.pt')
+    del model, weights, sampler, scores
+    torch.cuda.empty_cache()
+    return tuple(c.cpu() for c in codes), seconds, launches
+
+
+def tp_stage2_call(layout, dtype, n, da, st, name, int8=None, scales=None):
+    """The flagship's stage-2 sampler (seeded random weights in `dtype`,
+    top-k 2048, T 0.95; int8 serving by `int8` and `scales`) under
+    `layout` on 128 labels for its first `n` positions (the AR loop
+    alone), this rank serving its dp shard: exactly 12 x (n - 1) K1
+    launches at the rank's width (all on the int8 kernel with the int8
+    cache) and 2 x n K2 launches. Returns (codes on the CPU, seconds,
+    launches)."""
+    from hqtransformer_tpu_torch.ops.int8 import Int8Serving
+    from hqtransformer_tpu_torch.sampling.engine import (
+        SamplingParams, make_hierarchical_sampler)
+
+    int8 = int8 or Int8Serving()
+    model, weights, labels = tp_flagship(layout, dtype)
+    model.load_weights(weights)
     sampler = make_hierarchical_sampler(model.stage2, n,
-                                        SamplingParams(**SAMPLING_2048))
+                                        SamplingParams(**SAMPLING_2048),
+                                        int8, scales)
     gen = torch.Generator(device='cuda').manual_seed(TP_SAMPLER_SEED)
     torch.cuda.synchronize()
     reset_counts(da.decode_attention_step, st.sample_topk)
+    da.decode_attention_step.int8_launches = 0
     with k1_positions() as positions:
         t0 = time.perf_counter()
         codes = sampler(gen, labels)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = (da.decode_attention_step.launches, st.sample_topk.launches)
+    k1_int8 = da.decode_attention_step.int8_launches
     require(launches == (L * (n - 1), 2 * n) and
+            k1_int8 == (launches[0] if int8.kv_cache else 0) and
             (min(positions), max(positions)) == (1, n - 1),
-            f'{name}: launches (K1, K2) {launches}')
+            f'{name}: launches (K1, K2) {launches}, K1 int8 {k1_int8}')
     require(codes[0].shape == (B // layout.dp, n) and
             int(codes[0].max()) < N_CODES and int(codes[1].min()) >= 0,
             f'{name}: codes')
     print(f'{name}, {n} positions, batch {B // layout.dp}: {seconds:.3f} s, '
-          f'launches K1={launches[0]} (d {D // layout.tp}, '
+          f'launches K1={launches[0]} (int8 {k1_int8}; d {D // layout.tp}, '
           f'{NH // layout.tp} heads, pos 1..{n - 1}) K2={launches[1]}')
     del model, weights, sampler
     torch.cuda.empty_cache()
     return tuple(c.cpu() for c in codes), seconds, launches
+
+
+@contextlib.contextmanager
+def draws_kept(record=None, replay=None, layout=None):
+    """While open, every draw of the samplers is appended (on the CPU) to
+    `record`, or replaced by the next of the `replay` draws (whole
+    batches, cut to `layout`'s dp rows); the kernel still draws, so the
+    launches and the generator's stream stay as they were (a spy on the
+    name `engine.sample_from_logits`)."""
+    from hqtransformer_tpu_torch.sampling import engine
+    real = engine.sample_from_logits
+    given = iter(replay or ())
+
+    def spy(generator, logits, **kwargs):
+        out = real(generator, logits, **kwargs)
+        if replay is not None:
+            whole = next(given)
+            out = (whole if layout is None else layout.rows(whole)).to(
+                out.device, out.dtype)
+        if record is not None:
+            record.append(out.cpu())
+        return out
+    engine.sample_from_logits = spy
+    try:
+        yield
+    finally:
+        engine.sample_from_logits = real
+
+
+def tp_calibration(model, weights, labels, inputs, layout=None):
+    """The int8 calibrations under `layout` (None: tp 1) on one batch:
+    the KV scales of an N_TP_CALIB-position bf16 sampling run (seed 7)
+    whose draws are tp 1's (`inputs['draws']`; at tp 1 they are recorded
+    there), and the activation scales of the teacher-forced forward on
+    `inputs`' B_TP_CALIB codes. Returns the scales on the CPU and the
+    seconds."""
+    from hqtransformer_tpu_torch.sampling.engine import SamplingParams
+
+    t0 = time.perf_counter()
+    tp1 = layout is None
+    if tp1:
+        inputs['draws'] = []
+    with draws_kept(inputs['draws'] if tp1 else None,
+                    None if tp1 else inputs['draws'], layout):
+        scales = model.calibrate_kv_scales(
+            weights, torch.Generator(device='cuda').manual_seed(7), labels,
+            SamplingParams(**SAMPLING_2048), max_seq_len=N_TP_CALIB)
+    scales.update(model.calibrate_stage2_int8(
+        weights, inputs['codes_t'], inputs['codes_b'],
+        labels[:B_TP_CALIB]))
+    torch.cuda.synchronize()
+    return ({k: {n: t.cpu() for n, t in c.items()}
+             for k, c in scales.items()}, time.perf_counter() - t0)
+
+
+def scale_steps(got, want):
+    """(scale values, the bit-equal ones, the largest |got - want| in bf16
+    steps of want (2^-7 |want|)) of two calibrations, which must name the
+    same scales of the same shapes."""
+    n = same = 0
+    worst = 0.0
+    require(sorted(got) == sorted(want), f'collections {sorted(got)}')
+    for key, coll in want.items():
+        require(sorted(got[key]) == sorted(coll), f'{key} names differ')
+        for name, w in coll.items():
+            g = got[key][name]
+            require(g.shape == w.shape, f'{name}: shape {tuple(g.shape)}')
+            n += w.numel()
+            same += int((g == w).sum())
+            worst = max(worst, float(((g - w).abs() /
+                                      (w.abs() * 2 ** -7)).max()))
+    return n, same, worst
 
 
 def tp_training(layout, vq, da, st):
@@ -4805,10 +5011,14 @@ def tp_training(layout, vq, da, st):
 
 def run_tp_worker(rank: int, port: int) -> int:
     """One of TP_WORLD processes on cuda:0 (gloo): the collectives, the
-    tp-4 (bf16) and the tp-2 x dp-2 (bf16, and f32 for the stage-2 loop)
-    flagship sampler calls, the tp-2 x dp-2 training and its checkpoint;
-    what it found goes to TP_DIR/rank<r>.pt."""
+    tp-4 (bf16 and int8max) and the tp-2 x dp-2 (bf16 and int8max, and
+    f32 for the stage-2 loop, with a float and with an int8 KV cache)
+    flagship sampler calls, the tp-2 x dp-2 calibration on tp 1's draws
+    and codes, the training and its checkpoint; the int8 calls serve tp
+    1's scales artifact (SCALES_PATH); what it found goes to
+    TP_DIR/rank<r>.pt."""
     sys.path.insert(0, str(ROOT))
+    from hqtransformer_tpu_torch.models.twostage import load_serving_scales
     from hqtransformer_tpu_torch.ops import decode_attention as da
     from hqtransformer_tpu_torch.ops import int8 as q8
     from hqtransformer_tpu_torch.ops import sample_topk as st
@@ -4824,18 +5034,38 @@ def run_tp_worker(rank: int, port: int) -> int:
     dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
                             rank=rank, world_size=TP_WORLD)
     layout = make_layout(2, 0)
+    tp4 = make_layout(4, 0)
     gloo = '(gloo on one card)'
+    scales = load_serving_scales(str(SCALES_PATH))
     try:
         check_collectives(layout)
         out = {'layout': (layout.dp_rank, layout.tp_rank)}
-        out['tp4'] = tp_stage2_call(make_layout(4, 0), torch.bfloat16,
-                                    N_TP4, da, st, f'rank {rank}: tp 4 '
-                                    f'stage-2 sampler, bf16 {gloo}')
+        out['tp4'] = tp_stage2_call(tp4, torch.bfloat16, N_TP4, da, st,
+                                    f'rank {rank}: tp 4 stage-2 sampler, '
+                                    f'bf16 {gloo}')
+        out['tp4_int8'] = tp_stage2_call(
+            tp4, torch.bfloat16, N_TP4, da, st, f'rank {rank}: tp 4 '
+            f'stage-2 sampler, int8max {gloo}', q8.INT8MAX, scales)
         out['tp2'] = tp_sampler_call(
             layout, f'rank {rank}: tp 2 x dp 2 sampler {gloo}', da, st, q8)
+        out['tp2_int8'] = tp_sampler_call(
+            layout, f'rank {rank}: tp 2 x dp 2 int8max sampler {gloo}', da,
+            st, q8, q8.INT8MAX, scales, tag='_int8')
         out['tp2_f32'] = tp_stage2_call(
             layout, torch.float32, T, da, st,
             f'rank {rank}: tp 2 x dp 2 stage-2 sampler, f32 {gloo}')
+        out['tp2_f32_int8'] = tp_stage2_call(
+            layout, torch.float32, N_TP_F32_INT8, da, st,
+            f'rank {rank}: tp 2 x dp 2 stage-2 sampler, f32, int8 KV cache '
+            f'{gloo}', q8.Int8Serving(kv_cache=True), scales)
+        model, weights, labels = tp_flagship(layout)
+        inputs = {k: v.cuda() if torch.is_tensor(v) else v for k, v in
+                  torch.load(TP_DIR / 'calib_inputs.pt').items()}
+        out['calib'] = tp_calibration(model, weights, labels, inputs, layout)
+        print(f'rank {rank}: tp 2 x dp 2 calibration {gloo}: '
+              f'{out["calib"][1]:.2f} s')
+        del model, weights
+        torch.cuda.empty_cache()
         out['train'] = tp_training(layout, vq, da, st)
         torch.save(out, TP_DIR / f'rank{rank}.pt')
     finally:
@@ -4897,6 +5127,17 @@ def tp_codes(ranks, key, dp, tp):
                                                 for g in groups))]
 
 
+def one_step_off(x, g):
+    """bf16 x with each value moved one bf16 step up or down in magnitude,
+    at random (generator g; zeros stay)."""
+    require(x.dtype == torch.bfloat16, 'the witness moves bf16')
+    bits = x.contiguous().view(torch.int16)
+    step = torch.randint(0, 2, bits.shape, generator=g, device=bits.device,
+                         dtype=torch.int16) * 2 - 1
+    step = torch.where((bits & 0x7fff) == 0, torch.zeros_like(step), step)
+    return (bits + step).view(torch.bfloat16)
+
+
 @contextlib.contextmanager
 def logits_one_step_off(seed):
     """While open, every draw of the samplers takes its bf16 logits each
@@ -4908,18 +5149,38 @@ def logits_one_step_off(seed):
     g = torch.Generator(device='cuda').manual_seed(seed)
 
     def moved(generator, logits, **kwargs):
-        require(logits.dtype == torch.bfloat16, 'the witness moves bf16')
-        bits = logits.contiguous().view(torch.int16)
-        step = torch.randint(0, 2, bits.shape, generator=g,
-                             device=bits.device, dtype=torch.int16) * 2 - 1
-        step = torch.where((bits & 0x7fff) == 0, torch.zeros_like(step),
-                           step)
-        return real(generator, (bits + step).view(torch.bfloat16), **kwargs)
+        return real(generator, one_step_off(logits, g), **kwargs)
     engine.sample_from_logits = moved
     try:
         yield
     finally:
         engine.sample_from_logits = real
+
+
+@contextlib.contextmanager
+def float_row_outputs_one_step_off(stage2, seed):
+    """While open, the bf16 output of every float call of a row-parallel
+    layer of `stage2` (`attn.proj`, `mlp.2`) moves one bf16 step up or
+    down in magnitude at random (seeded; zeros stay); its A8W8 calls stay
+    as they are. The witness of what tp changes under int8max: there tp
+    leaves the A8W8 products bit-equal, and the only roundings it adds
+    are those of the float row-parallel layers' partial sums (the
+    depth-first step's, the cell embedding's), at most about a step each,
+    which the int8 quantizers after them carry further than a logit's
+    rounding (forward hooks)."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+
+    def moved(module, args, kwargs, out):
+        int8 = kwargs.get('int8', args[1] if len(args) > 1 else False)
+        return out if int8 else one_step_off(out, g)
+    handles = [m.register_forward_hook(moved, with_kwargs=True)
+               for name, m in stage2.named_modules()
+               if name.endswith(('attn.proj', 'mlp.2'))]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
 
 
 def first_agreement(codes, ref):
@@ -4936,14 +5197,87 @@ def witness_bound(p):
     return p - 3 * math.sqrt(2 * p * (1 - p) / B)
 
 
-def run_tensor_parallel(da, st, vq):
-    """Phase 17. Returns {tp: (launches a rank, K1 max err, K1 times)} for
-    the JSON line's decode_attention_tp2 and _tp4."""
-    from hqtransformer_tpu_torch.checkpoint import restore_checkpoint
-    from hqtransformer_tpu_torch.ops import int8 as q8
-    from hqtransformer_tpu_torch.parallel.tp import ParallelLayout
+def tp1_references(model, weights, labels, name, da, st, q8, int8=None,
+                   scales=None, tag=''):
+    """tp 1's flagship pixel sampler call (seed TP_SAMPLER_SEED; int8
+    serving by `int8` and `scales`) in this process, its scorer's logits
+    on its codes in the same mode, and the witness: the same call with
+    every draw's bf16 logits one step off. The codes go to
+    TP_DIR/ref_codes<tag>.pt for the ranks' scorers. Returns (codes on the
+    CPU, the scorer's logits, the first-position agreement a level of the
+    witness its codes are held to: the logits' in bf16, the float
+    row-parallel outputs' under int8 gemms)."""
     from hqtransformer_tpu_torch.sampling.engine import (
         SamplingParams, make_hierarchical_scorer)
+
+    int8 = int8 or q8.Int8Serving()
+    sampler = model.make_pixel_sampler(params=SamplingParams(**SAMPLING_2048),
+                                       int8=int8, scales=scales)
+    gen = torch.Generator(device='cuda').manual_seed(TP_SAMPLER_SEED)
+    ref, _ = sampler_call(model, weights, sampler, gen, labels,
+                          f'tp 1 {name} reference sampler', da, st, q8,
+                          int8=int8.kv_cache)
+    ref_scores = make_hierarchical_scorer(model.stage2, T, int8, scales)(
+        labels, *ref)
+    ref = [c.cpu() for c in ref]
+    # the witnesses: the same call with every draw's logits one step off;
+    # under int8 serving also with the float row-parallel layers' outputs
+    # one step off, the witness its codes are held to
+    witnesses = [('every bf16 logit', logits_one_step_off(
+        TP_SAMPLER_SEED + 1))]
+    if int8.depth_gemms:
+        witnesses.append(('every float row-parallel output',
+                          float_row_outputs_one_step_off(
+                              model.stage2, TP_SAMPLER_SEED + 2)))
+    for what, witness in witnesses:
+        with witness:
+            gen = torch.Generator(device='cuda').manual_seed(TP_SAMPLER_SEED)
+            _, moved = sampler(weights, gen, labels)
+        moved_first = first_agreement(moved, ref)
+        moved_all = [float((a.cpu() == b).float().mean())
+                     for a, b in zip(moved, ref)]
+        print(f'witness ({name}): tp 1 with {what} moved one bf16 step at '
+              f'random against tp 1 (same weights, seed): codes equal at '
+              f'the first position top {moved_first[0]:.4f}, bottom '
+              f'{moved_first[1]:.4f}, over the {T} positions top '
+              f'{moved_all[0]:.4f}, bottom {moved_all[1]:.4f}')
+    torch.save(ref, TP_DIR / f'ref_codes{tag}.pt')
+    del sampler, moved
+    torch.cuda.empty_cache()
+    return ref, ref_scores, moved_first
+
+
+def check_tp_scores(ref_scores, tag, name):
+    """The tp-2 x dp-2 scorer's logits (TP_DIR/scores<tag><dp>.pt)
+    against tp 1's on tp 1's codes: within TP_LOGIT_STEPS bf16 steps of
+    the largest logit, argmax equal in TP_ARGMAX_AGREEMENT of rows."""
+    got = [torch.cat(parts) for parts in zip(*(
+        torch.load(TP_DIR / f'scores{tag}{d}.pt')
+        for d in range(TP_WORLD // 2)))]
+    for level, g, w in zip(('top', 'bottom'), got, ref_scores):
+        w = w.float().cpu()
+        g = g.float()
+        steps = float((g - w).abs().max()) / (float(w.abs().max()) * 2 ** -7)
+        agree = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+        print(f'tp 2 x dp 2 scorer against tp 1 on tp 1\'s codes, {level} '
+              f'logits ({name}): max |d| {steps:.2f} bf16 steps of the '
+              f'largest logit (bound {TP_LOGIT_STEPS}), argmax equal in '
+              f'{agree:.4f} of rows (bound {TP_ARGMAX_AGREEMENT})')
+        require(steps <= TP_LOGIT_STEPS and agree >= TP_ARGMAX_AGREEMENT,
+                f'tp scorer {name} {level}: {steps} steps, agreement '
+                f'{agree}')
+
+
+def run_tensor_parallel(da, st, vq):
+    """Phase 17. Returns {name: (launches a rank, K1 max err, K1 times)}
+    for the JSON line's decode_attention_tp2, _tp4, decode_attention_int8
+    _tp2 and _int8_tp4."""
+    from hqtransformer_tpu_torch.checkpoint import restore_checkpoint
+    from hqtransformer_tpu_torch.models.stage2.hierarchical import \
+        cells_to_raster
+    from hqtransformer_tpu_torch.ops import int8 as q8
+    from hqtransformer_tpu_torch.parallel.tp import ParallelLayout
+    from hqtransformer_tpu_torch.sampling.engine import SamplingParams
     from hqtransformer_tpu_torch.train import stage2 as ts
     from hqtransformer_tpu_torch.train.scheduler import build_schedule
 
@@ -4952,57 +5286,71 @@ def run_tensor_parallel(da, st, vq):
     times = {tp: time_k1_shape(da, T, d, n_heads, TIMED_POS, f'tp {tp} '
                                f'width')
              for tp, d, n_heads in TP_WIDTHS}
-    # tp 1 references: the sampler in this process, before the ranks start
-    model, weights, labels = bf16_model(
-        FLAGSHIP, lambda cfg: torch.arange(B) % cfg.stage2.hparams.n_classes)
-    sampler = model.make_pixel_sampler(params=SamplingParams(**SAMPLING_2048))
-    gen = torch.Generator(device='cuda').manual_seed(TP_SAMPLER_SEED)
-    ref, _ = sampler_call(model, weights, sampler, gen, labels,
-                          'tp 1 reference sampler', da, st, q8)
-    ref_scores = make_hierarchical_scorer(model.stage2, T)(labels, *ref)
-    ref = [c.cpu() for c in ref]
-    # the witness: the same call with every draw's logits one step off
-    with logits_one_step_off(TP_SAMPLER_SEED + 1):
-        gen = torch.Generator(device='cuda').manual_seed(TP_SAMPLER_SEED)
-        _, moved = sampler(weights, gen, labels)
-    moved_first = first_agreement(moved, ref)
-    moved_all = [float((a.cpu() == b).float().mean())
-                 for a, b in zip(moved, ref)]
-    print(f'witness: tp 1 with every bf16 logit moved one step at random '
-          f'against tp 1 (same weights, seed): codes equal at the first '
-          f'position top {moved_first[0]:.4f}, bottom {moved_first[1]:.4f}, '
-          f'over the {T} positions top {moved_all[0]:.4f}, bottom '
-          f'{moved_all[1]:.4f}')
+    errs8 = check_k1_int8_tp(da)
+    times8 = {tp: time_k1_int8_shape(da, d, n_heads, f'tp {tp} width')
+              for tp, d, n_heads in TP_WIDTHS}
+    # tp 1 references in this process, before the ranks start: bf16, then
+    # int8max with freshly calibrated scales (the artifact the ranks serve)
     shutil.rmtree(TP_DIR, ignore_errors=True)
     TP_DIR.mkdir(parents=True)
-    torch.save(ref, TP_DIR / 'ref_codes.pt')
-    del model, weights, sampler, moved
+    model, weights, labels = bf16_model(
+        FLAGSHIP, lambda cfg: torch.arange(B) % cfg.stage2.hparams.n_classes)
+    ref, ref_scores, moved_first = tp1_references(model, weights, labels,
+                                                  'bf16', da, st, q8)
+    scales = calibrate_int8max(model, weights,
+                               SamplingParams(**SAMPLING_2048), labels)
+    ref8, ref8_scores, moved8_first = tp1_references(
+        model, weights, labels, 'int8max', da, st, q8, q8.INT8MAX, scales,
+        tag='_int8')
+    # the calibration at tp 1 on one batch: its draws and codes go to the
+    # ranks, which calibrate on the same
+    codes_t = ref[0][:B_TP_CALIB].cuda()
+    codes_b = cells_to_raster(ref[1][:B_TP_CALIB].cuda(), model.top_res,
+                              model.cell_win).reshape(B_TP_CALIB, -1)
+    calib_inputs = {'codes_t': codes_t, 'codes_b': codes_b}
+    calib_ref, calib_s = tp_calibration(model, weights, labels, calib_inputs)
+    torch.save({k: v.cpu() if torch.is_tensor(v) else v
+                for k, v in calib_inputs.items()}, TP_DIR / 'calib_inputs.pt')
+    print(f'tp 1 calibration on {B_TP_CALIB} samples\' codes and a '
+          f'{N_TP_CALIB}-position sampling run: {calib_s:.2f} s '
+          f'({len(calib_inputs["draws"])} draws recorded)')
+    del model, weights
     torch.cuda.empty_cache()
     ref_f32 = tp_stage2_call(ParallelLayout(), torch.float32, T, da, st,
                              'tp 1 stage-2 sampler, f32')[0]
+    ref_f32_int8 = tp_stage2_call(
+        ParallelLayout(), torch.float32, N_TP_F32_INT8, da, st,
+        'tp 1 stage-2 sampler, f32, int8 KV cache',
+        q8.Int8Serving(kv_cache=True), scales)[0]
     ranks = spawn_tp_workers()
     require([r['layout'] for r in ranks] == [(0, 0), (0, 1), (1, 0), (1, 1)],
             f'layouts {[r["layout"] for r in ranks]}')
     launches = {}
-    bounds = [witness_bound(p) for p in moved_first]
-    for tp, key, n, want in ((2, 'tp2', T, ref), (4, 'tp4', N_TP4, ref),
-                             (2, 'tp2_f32', T, ref_f32)):
+    bounds = {'bf16': [witness_bound(p) for p in moved_first],
+              'int8max': [witness_bound(p) for p in moved8_first]}
+    for tp, key, n, want, kind in (
+            (2, 'tp2', T, ref, 'bf16'), (4, 'tp4', N_TP4, ref, 'bf16'),
+            (2, 'tp2_f32', T, ref_f32, 'f32'),
+            (2, 'tp2_int8', T, ref8, 'int8max'),
+            (4, 'tp4_int8', N_TP4, ref8, 'int8max'),
+            (2, 'tp2_f32_int8', N_TP_F32_INT8, ref_f32_int8, 'f32')):
         per_rank = {r[key][2] for r in ranks}
         require(per_rank == {(L * (n - 1), 2 * n)},
                 f'{key}: K1, K2 launches a rank {per_rank}')
-        launches.setdefault(tp, L * (n - 1))
+        launches.setdefault((tp, kind == 'int8max'), L * (n - 1))
         codes = tp_codes(ranks, key, TP_WORLD // tp, tp)
         agree = [float((a == b[:, :n]).float().mean())
                  for a, b in zip(codes, want)]
         first = first_agreement(codes, want)
         wall = max(r[key][1] for r in ranks)
-        if key == 'tp2_f32':
+        if kind == 'f32':
             least, why = [TP_F32_FIRST] * 2, 'f32'
         else:
-            least, why = bounds, 'bf16; bound: the witness less 3 sd'
+            least, why = bounds[kind], f'{kind}; bound: its witness less 3 sd'
+        cache = 'int8' if key.endswith('int8') else 'float'
         print(f'tp {tp} sampler against tp 1 (same weights, seed, batch '
-              f'{B}; {why}): codes equal at the first position top '
-              f'{first[0]:.4f} (bound {least[0]:.4f}), bottom '
+              f'{B}; {why}; {cache} KV cache): codes equal at the first '
+              f'position top {first[0]:.4f} (bound {least[0]:.4f}), bottom '
               f'{first[1]:.4f} (bound {least[1]:.4f}), over its {n} '
               f'positions top {agree[0]:.4f}, bottom {agree[1]:.4f} (a '
               f'moved draw changes every later step of its row); '
@@ -5011,21 +5359,24 @@ def run_tensor_parallel(da, st, vq):
               f'one card, first call)')
         require(all(f >= b for f, b in zip(first, least)),
                 f'{key}: first-position agreement {first}, bounds {least}')
-    # the scorer's logits at tp 2 x dp 2 against tp 1's, on tp 1's codes
-    got = [torch.cat(parts) for parts in zip(*(
-        torch.load(TP_DIR / f'scores{d}.pt') for d in range(TP_WORLD // 2)))]
-    for level, g, w in zip(('top', 'bottom'), got, ref_scores):
-        w = w.float().cpu()
-        g = g.float()
-        steps = float((g - w).abs().max()) / (float(w.abs().max()) * 2 ** -7)
-        agree = float((g.argmax(-1) == w.argmax(-1)).float().mean())
-        print(f'tp 2 x dp 2 scorer against tp 1 on tp 1\'s codes, {level} '
-              f'logits (bf16): max |d| {steps:.2f} bf16 steps of the largest '
-              f'logit (bound {TP_LOGIT_STEPS}), argmax equal in {agree:.4f} '
-              f'of rows (bound {TP_ARGMAX_AGREEMENT})')
-        require(steps <= TP_LOGIT_STEPS and agree >= TP_ARGMAX_AGREEMENT,
-                f'tp scorer {level}: {steps} steps, agreement {agree}')
-    del ref_scores, got
+    # the scorers' logits at tp 2 x dp 2 against tp 1's, on tp 1's codes
+    check_tp_scores(ref_scores, '', 'bf16')
+    check_tp_scores(ref8_scores, '_int8', 'int8max')
+    del ref_scores, ref8_scores
+    # the calibration at tp 2 x dp 2 against tp 1's, on the same batch
+    first_calib = ranks[0]['calib'][0]
+    for r in ranks[1:]:
+        require(scale_steps(r['calib'][0], first_calib)[2] == 0.0,
+                'the ranks calibrated different scales')
+    n_scales, same, worst = scale_steps(first_calib, calib_ref)
+    print(f'tp 2 x dp 2 calibration against tp 1 (the same {N_TP_CALIB}-'
+          f'position draws, the same {B_TP_CALIB} samples\' codes; bf16): '
+          f'{n_scales} scale values, every rank\'s the same, {same} '
+          f'bit-equal to tp 1\'s, all within {worst:.2f} bf16 steps (bound '
+          f'{TP_SCALE_STEPS}); {max(r["calib"][1] for r in ranks):.2f} s '
+          f'(gloo on one card)')
+    require(worst <= TP_SCALE_STEPS, f'tp calibration {worst} bf16 steps '
+            f'off tp 1\'s')
     # tp 1 training on the whole batches, against the tp-2 x dp-2 state
     cfg, model = training_model(FLAGSHIP, torch.float32, 15)
     step, state, opt = stage2_trainer(
@@ -5071,7 +5422,11 @@ def run_tensor_parallel(da, st, vq):
     torch.cuda.empty_cache()
     shutil.rmtree(TP_DIR / 'ckpt', ignore_errors=True)
     print(f'phase 17 (tensor parallelism): {time.perf_counter() - t0:.1f} s')
-    return {tp: (launches[tp], errs[tp], times[tp]) for tp in (2, 4)}
+    out = {f'decode_attention_tp{tp}': (launches[tp, False], errs[tp],
+                                        times[tp]) for tp in (2, 4)}
+    out.update({f'decode_attention_int8_tp{tp}': (
+        launches[tp, True], errs8[tp], times8[tp]) for tp in (2, 4)})
+    return out
 
 
 
@@ -5194,10 +5549,9 @@ def main(argv=None) -> int:
             ('decode_attention_int8_t320', source + 'decode_attention.cu',
              'hqtransformer_tpu/ops/pallas_attention.py:200', k1ft_launches,
              k1ft_err, k1ft_times),
-            ('decode_attention_tp2', source + 'decode_attention.cu',
-             'hqtransformer_tpu/ops/pallas_attention.py:200', *k1_tp[2]),
-            ('decode_attention_tp4', source + 'decode_attention.cu',
-             'hqtransformer_tpu/ops/pallas_attention.py:200', *k1_tp[4]),
+            *((name, source + 'decode_attention.cu',
+               'hqtransformer_tpu/ops/pallas_attention.py:200', *entry)
+              for name, entry in k1_tp.items()),
             ('sample_topk', source + 'sample_topk.cu',
              'hqtransformer_tpu/ops/pallas_sample.py:236', launches[1],
              k2_err, k2_times),

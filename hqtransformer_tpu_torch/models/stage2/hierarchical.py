@@ -40,7 +40,8 @@ included, as the JAX package's `int8_stage2_scope` does around them.
 `depth_first_logits`, `embed_cell_step` (its `emb_blocks` too) and
 `head_txt` stay float, as in JAX. In the `bidirectional` and `top2bot`
 modes only the spatial side runs int8 (cache and gemms); their depth
-passes and both heads stay float (`depth_int8`), as in JAX.
+passes and both heads stay float (`depth_int8`), as in JAX. Every switch
+runs under tensor parallelism too (`SpatialDecoding.serving`).
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ from torch import nn
 
 from ...config import ModelTypeSpec, Stage2Hparams, parse_embedding_type
 from ...ops import masks as M
-from ...ops.int8 import Int8Serving, Int8Weight
+from ...ops.int8 import Int8Serving
 from .layers import (Block, LayerNorm, Linear, QuantizableLinear, act_scale,
                      merge_heads, split_heads, tiny_attention)
 
@@ -206,16 +207,13 @@ class SpatialDecoding:
         `int8_embedding()` gemms too; with `int8.kv_cache` the spatial
         layers' cache scales from `scales['stage2/kv_scales']`. Raises on a
         missing scale before any module changes, and on int8 gemms for
-        activations that are not bf16. Under tensor parallelism the int8
-        switches raise NotImplementedError (ROADMAP A17)."""
+        activations that are not bf16. Under tensor parallelism every
+        switch runs: the scales are whole (the tp-1 layout, one artifact
+        for every tp), each attention layer takes its heads' span of the
+        cache scales, and the row-parallel weights' scales are maxed over
+        the tp group, the only collectives here, made after every scale
+        was found (so a rank raises before any of them)."""
         scales = scales or {}
-        layout = getattr(self, 'layout', None)
-        if layout is not None and layout.tp > 1 and (
-                int8.kv_cache or int8.spatial_gemms or int8.depth_gemms):
-            raise NotImplementedError(
-                f'int8 serving of stage 2 under tensor parallelism (tp '
-                f'{layout.tp}) is not ported (ROADMAP A17): serve bf16 '
-                f'under tp, or int8 at tp 1')
         if (int8.spatial_gemms or int8.depth_gemms) and \
                 self.dtype != torch.bfloat16:
             raise ValueError(f'int8 gemms run on bf16 activations; this '
@@ -240,8 +238,8 @@ class SpatialDecoding:
             quantized += self.int8_embedding()
         if depth8:
             quantized += self.int8_heads()
-        q8 = [Int8Weight.from_float(lin.weight, lin.bias, act_scale(act, name))
-              for name, lin in quantized]
+        x_scales = [act_scale(act, name) for name, _ in quantized]
+        q8 = [lin.quantize(x) for (_, lin), x in zip(quantized, x_scales)]
         # every scale was found: only now does any module change
         try:
             for blk, state in zip((*self.blocks, *self.depths), attn):

@@ -40,7 +40,9 @@ the rank's q, k and v shards) and passes its input through `tp.copy`;
 `mlp.0` holds the rank's part of the MLP; `proj` and `mlp.2` are
 row-parallel (`tp_mode` 'row': the partial products all-reduced, then the
 bias), the heads vocabulary-sharded (`tp_mode` 'vocab': the logits
-gathered). Without it (`tp` None) every path is unchanged.
+gathered). Without it (`tp` None) every path is unchanged. int8 serving
+keeps these roles (`QuantizableLinear.forward`), and each attention layer
+takes the span of its heads of the whole int8 cache scales.
 """
 
 from __future__ import annotations
@@ -98,16 +100,32 @@ class QuantizableLinear(Linear):
     """Linear with the A8W8 path of int8max serving: forward(x, int8=True)
     quantizes x by its static (calibrated) scale and multiplies by the
     weight quantized per output channel, both from `q8`, which a serving
-    call sets. Without `q8`, int8=True raises."""
+    call sets (`quantize`). Without `q8`, int8=True raises. Under tensor
+    parallelism it keeps Linear's roles: row-parallel, the int32 partial
+    products summed exactly over the group before the dequantization and
+    the bias; vocabulary-sharded, the logits gathered."""
 
     q8: Optional[Int8Weight] = None
+
+    def quantize(self, x_scale: torch.Tensor) -> Int8Weight:
+        """The weight (this rank's shard) quantized for a serving call with
+        the static activation scale `x_scale`; a row-parallel shard's
+        per-output-channel scales are the whole input dim's (a max over
+        the tp group: a collective)."""
+        group_max = self.tp.max if self.tp_mode == 'row' else None
+        return Int8Weight.from_float(self.weight, self.bias, x_scale,
+                                     group_max)
 
     def forward(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
         if not int8:
             return super().forward(x)
         if self.q8 is None:
             raise ValueError(ACT_SCALES_NEEDED)
-        return self.q8.linear(x)
+        if self.tp is None:
+            return self.q8.linear(x)
+        if self.tp_mode == 'row':
+            return self.q8.linear(x, self.tp.sum_int32)
+        return self.tp.gather(self.q8.linear(self.tp.copy(x)))
 
 
 def act_scale(scales: Mapping[str, torch.Tensor], name: str) -> torch.Tensor:
@@ -253,15 +271,40 @@ class SelfAttention(nn.Module):
             b = torch.cat([m.bias for m in linears]).to(dtype)
         return w, b
 
+    def _cache_scale(self, kv_scales: Mapping[str, torch.Tensor],
+                     key: str) -> torch.Tensor:
+        """The per-channel int8 cache scale `key` (whole, [C]) cut to this
+        rank's K / V channels: the span of its heads under tensor
+        parallelism. Raises ValueError if it is missing or not [C]."""
+        if key not in kv_scales:
+            raise ValueError(f'{KV_SCALES_NEEDED} ({key!r} has none)')
+        s = kv_scales[key]
+        size, rank = (1, 0) if self.tp is None else (self.tp.size,
+                                                     self.tp.rank)
+        if s.dim() != 1 or s.shape[0] != self.width * size:
+            why = (f'tp {size} does not divide it' if s.shape[-1] % size
+                   else f'the layer has {self.width * size}')
+            raise ValueError(f'the int8 cache scale {key!r} has shape '
+                             f'{tuple(s.shape)}: {why} (scales are whole, '
+                             f'in the tp-1 layout, whatever the tp)')
+        s = s[rank * self.width:(rank + 1) * self.width]
+        return s.to(self.query.weight.device, torch.float32)
+
     def prepare_serving(self, dtype: torch.dtype,
                         act_scales: Optional[Mapping[str, torch.Tensor]],
                         kv_scales: Optional[Mapping[str, torch.Tensor]],
                         name: str) -> AttnServing:
         """The hoisted state of one serving call: int8 QKV when
-        `act_scales` is given (the query's scale, `<name>.query`), int8
-        cache scales when `kv_scales` is (`<name>.k`, `<name>.v`)."""
+        `act_scales` is given (the query's scale, `<name>.query`, for the
+        rank's q, k and v rows: column-parallel, their scales do not
+        depend on the cut), int8 cache scales when `kv_scales` is
+        (`<name>.k`, `<name>.v`, whole, cut to the rank's channels). No
+        collective."""
         qkv = self._concat((self.query, self.key, self.value), dtype)
         q8 = kv = None
+        if kv_scales is not None:
+            k, v = (self._cache_scale(kv_scales, f'{name}.{c}') for c in 'kv')
+            kv = (k, v, 1.0 / k, 1.0 / v)
         if act_scales is not None:
             q8 = Int8Weight.from_float(
                 torch.cat([self.query.weight, self.key.weight,
@@ -269,13 +312,6 @@ class SelfAttention(nn.Module):
                 None if qkv[1] is None else torch.cat(
                     [self.query.bias, self.key.bias, self.value.bias]),
                 act_scale(act_scales, f'{name}.query'))
-        if kv_scales is not None:
-            if f'{name}.k' not in kv_scales:
-                raise ValueError(KV_SCALES_NEEDED)
-            dev = self.query.weight.device
-            k = kv_scales[f'{name}.k'].to(dev, torch.float32)
-            v = kv_scales[f'{name}.v'].to(dev, torch.float32)
-            kv = (k, v, 1.0 / k, 1.0 / v)
         return AttnServing(qkv, self._concat((self.key, self.value), dtype),
                            q8, kv)
 

@@ -50,7 +50,9 @@ Tensor parallelism: `TwoStageModel(cfg, layout=...)` (a
 state dicts: `init_weights` and `load_reference_checkpoint` work on the
 full shapes, `load_weights` cuts stage 2 with `shard_state`. The samplers
 take the whole batch's labels and return this rank's dp shard of the
-codes and pixels (`sampling/engine.py`).
+codes and pixels (`sampling/engine.py`). int8 serving runs under it with
+the same scales: the calibrations return whole scales in the tp-1 layout
+on every rank, and the serving call cuts them to the rank's shards.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from typing import (Any, Callable, Dict, Mapping, Optional, Sequence, Tuple,
                     Union)
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..checkpoint import (check_reference_path, load_torch_checkpoint,
@@ -70,7 +73,8 @@ from ..config import TwoStageConfig, parse_model_type
 from ..convert import convert_scales, export_scales
 from ..device import resolve_device
 from ..ops.int8 import Int8Serving, recording_absmax, scale_from_absmax
-from ..parallel.tp import ParallelLayout, shard_module, shard_state
+from ..parallel.tp import (ParallelLayout, all_reduce, shard_module,
+                           shard_state)
 from ..sampling.engine import (LevelSampling, SamplingParams, Scales,
                                _flat_sampler, make_hierarchical_sampler,
                                make_igpt_sampler, make_multilevel_sampler)
@@ -175,20 +179,37 @@ def load_serving_scales(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
         return convert_scales(pickle.load(f))
 
 
-def _kv_scales(caches: Tuple[torch.Tensor, torch.Tensor]) -> Scales:
+def _kv_scales(caches: Tuple[torch.Tensor, torch.Tensor],
+               layout: Optional[ParallelLayout] = None) -> Scales:
     """The int8 KV-cache scales of a float sampling run's final packed
     caches [L, T, B, D]: each layer's per-channel absmax over (T, B), a
     prefix's rows included, as max(m, 1e-6) / 127 (the JAX function's
-    default margin of 1). Returns {'stage2/kv_scales':
+    default margin of 1). Under a `layout` the caches are the rank's
+    [L, T, B / dp, D / tp]: the absmax is gathered over the tp group on
+    the channel dim and maxed over the dp group, so every rank returns the
+    whole batch's scales in the tp-1 layout. Returns {'stage2/kv_scales':
     {'blocks.<l>.attn.k' | '.v': [D]}}."""
     out = {}
     for which, c in zip('kv', caches):
         m = torch.maximum(c.amax(dim=(1, 2)), -c.amin(dim=(1, 2)))
-        m = torch.clamp_min(m.float(), 1e-6)
+        m = torch.clamp_min(_whole_absmax(m.float(), layout), 1e-6)
         s = m / torch.tensor(127.0, device=m.device)
         for i in range(s.shape[0]):
             out[f'blocks.{i}.attn.{which}'] = s[i]
     return {'stage2/kv_scales': out}
+
+
+def _whole_absmax(m: torch.Tensor, layout: Optional[ParallelLayout]
+                  ) -> torch.Tensor:
+    """Per-channel absmax m [..., D / tp] of this rank's shard of the
+    rows -> the whole batch's [..., D] (a collective under a layout)."""
+    if layout is None:
+        return m
+    if layout.tp_group is not None:
+        m = layout.tp_group.gather(m)
+    if layout.dp > 1:
+        m = all_reduce(m, layout.dp_group, dist.ReduceOp.MAX)
+    return m
 
 
 @torch.inference_mode()
@@ -205,7 +226,7 @@ def _flat_kv_scales(model: Union[IGPT, Transformer1d],
     sampler = _flat_sampler(model, max_seq_len, top_k, None, 1.0,
                             Int8Serving(), None, return_caches=True)
     _, caches = sampler(generator, labels)
-    return _kv_scales(caches)
+    return _kv_scales(caches, getattr(model, 'layout', None))
 
 
 def random_state(module: nn.Module, generator: torch.Generator
@@ -394,7 +415,9 @@ class TwoStageModel:
         on `labels` in the model's own depth mode (`params`: the family's
         sampling knobs, by default the JAX function's, no top-k at
         temperature 1), whose final caches `_kv_scales` reduces as JAX
-        does. The flat baselines raise, as in JAX.
+        does. The flat baselines raise, as in JAX. Under a layout every
+        rank returns the whole batch's scales in the tp-1 layout (a
+        collective: `_kv_scales`).
         Returns {'stage2/kv_scales': {'blocks.<l>.attn.k' | '.v': [D]}}."""
         if not isinstance(self.stage2, MultiLevelHQTransformer):
             self._two_levels('calibrate_kv_scales')
@@ -409,7 +432,7 @@ class TwoStageModel:
                 self.stage2, n_top, params or (LevelSampling(),) * 3,
                 return_caches=True)
         _, caches = sampler(generator, labels.to(self.device))
-        return _kv_scales(caches)
+        return _kv_scales(caches, self.layout)
 
     @torch.inference_mode()
     def calibrate_stage2_int8(self, weights: Weights, *forward_args) -> Scales:
@@ -422,11 +445,20 @@ class TwoStageModel:
         samples (64 for 2 levels). The 2-level forward runs the model's
         own depth mode. A text model's forward also runs
         `head_txt`, which is not quantizable, so no scale is recorded for
-        it. Returns {'stage2/act_scales': {name: scale}}."""
+        it. Under tensor parallelism every rank runs the whole batch and
+        the absmaxes are maxed over the tp group (one collective), so the
+        sharded inputs' (`proj`, `mlp.2`) are the whole inputs' and every
+        rank returns tp 1's layout. Returns {'stage2/act_scales': {name:
+        scale}}."""
         self.load_weights(weights)
         args = _on_device(forward_args, self.device)
         with recording_absmax(self.stage2, QuantizableLinear) as found:
             self.stage2(*args)
+        tp = None if self.layout is None else self.layout.tp_group
+        if tp is not None and found:
+            names = sorted(found)
+            found = dict(zip(names, tp.max(torch.stack(
+                [found[n] for n in names]))))
         return {'stage2/act_scales': {n: scale_from_absmax(m)
                                       for n, m in found.items()}}
 

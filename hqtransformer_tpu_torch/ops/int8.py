@@ -19,6 +19,15 @@ convolution in PyTorch on CUDA, so a convolution is an `_int_mm` over an
 im2col of the quantized input, built from per-tap shifted copies, in
 bands of whole images that bound its extra memory.
 
+Under tensor parallelism (`parallel/tp.py`) a row-parallel weight's
+per-output-channel scale is the max over its whole input dim, which the
+ranks share out (`quant_weight(group_max=...)`), so each rank's shard is
+quantized as at tp 1; its product is the rank's int32 partial sum, summed
+exactly over the group before the dequantization adds the bias once
+(`int8_matmul(reduce=...)`), which makes it bit-equal to tp 1's. A
+column-parallel or vocabulary-sharded weight's scales do not depend on the
+cut.
+
 `int8_matmul.launches` and `int8_conv2d.launches` count the products, so a
 run can show that the int8 path was taken.
 """
@@ -27,7 +36,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -140,14 +149,21 @@ def quantize_rows(x: torch.Tensor, inv_scale: torch.Tensor) -> torch.Tensor:
     return _round_clip(x.float() * inv_scale)
 
 
-def quant_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+Reduce = Callable[[torch.Tensor], torch.Tensor]
+
+
+def quant_weight(w: torch.Tensor, group_max: Optional[Reduce] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel symmetric int8 of a weight [O, ...] (a Linear's
     [O, I] or a conv's OIHW): (wq, w_scale [O] f32), the scale over every
-    dim but the first."""
+    dim but the first. `group_max` (a row-parallel shard's: the max over
+    the tp group) makes the absmax that of the whole input dim."""
     wf = w.float()
     dims = tuple(range(1, w.dim()))
-    w_scale = torch.clamp_min(wf.abs().amax(dim=dims), 1e-8) / \
-        _const(QMAX, w)
+    m = wf.abs().amax(dim=dims)
+    if group_max is not None:
+        m = group_max(m)
+    w_scale = torch.clamp_min(m, 1e-8) / _const(QMAX, w)
     shape = (-1,) + (1,) * (w.dim() - 1)
     return _round_clip(wf / w_scale.reshape(shape)), w_scale
 
@@ -180,14 +196,18 @@ def _dequant(acc: torch.Tensor, out_scale: torch.Tensor,
     return y.to(dtype)
 
 
-def int8_matmul(xq: torch.Tensor, w: 'Int8Weight', dtype: torch.dtype
-                ) -> torch.Tensor:
+def int8_matmul(xq: torch.Tensor, w: 'Int8Weight', dtype: torch.dtype,
+                reduce: Optional[Reduce] = None) -> torch.Tensor:
     """[..., I] int8 activations times a quantized weight -> [..., O] in
-    `dtype`."""
+    `dtype`. `reduce` (a row-parallel shard's: the exact int32 sum over
+    the tp group) sums the int32 partial products before the
+    dequantization."""
     lead = xq.shape[:-1]
     a = _pad_cols(xq.reshape(-1, xq.shape[-1]), w.wq.shape[1])
-    y = _dequant(int_mm(a, w.wq)[:, :w.out_features], w.out_scale, w.bias,
-                 dtype)
+    acc = int_mm(a, w.wq)[:, :w.out_features]
+    if reduce is not None:
+        acc = reduce(acc)
+    y = _dequant(acc, w.out_scale, w.bias, dtype)
     int8_matmul.launches += 1
     return y.reshape(*lead, w.out_features)
 
@@ -212,8 +232,10 @@ class Int8Weight:
 
     @classmethod
     def from_float(cls, weight: torch.Tensor, bias: Optional[torch.Tensor],
-                   x_scale: Optional[torch.Tensor]) -> 'Int8Weight':
-        wq, w_scale = quant_weight(weight)
+                   x_scale: Optional[torch.Tensor],
+                   group_max: Optional[Reduce] = None) -> 'Int8Weight':
+        """`group_max`: a row-parallel shard's (see `quant_weight`)."""
+        wq, w_scale = quant_weight(weight, group_max)
         if wq.dim() == 4:   # OIHW -> [O, kh * kw * I]
             wq = wq.permute(0, 2, 3, 1).reshape(wq.shape[0], -1)
         O, I = wq.shape
@@ -225,9 +247,12 @@ class Int8Weight:
         return cls(wq, w_scale, x_scale, out_scale,
                    None if bias is None else bias.float(), O)
 
-    def linear(self, x: torch.Tensor) -> torch.Tensor:
-        """A8W8 Linear of x [..., I] with the static activation scale."""
-        return int8_matmul(quant_per_tensor(x, self.x_scale), self, x.dtype)
+    def linear(self, x: torch.Tensor, reduce: Optional[Reduce] = None
+               ) -> torch.Tensor:
+        """A8W8 Linear of x [..., I] with the static activation scale;
+        `reduce` as `int8_matmul`'s."""
+        return int8_matmul(quant_per_tensor(x, self.x_scale), self, x.dtype,
+                           reduce)
 
 
 def int8_conv2d(x: torch.Tensor, w: Int8Weight, kernel: Tuple[int, int],

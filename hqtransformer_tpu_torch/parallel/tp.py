@@ -27,10 +27,12 @@ collectives themselves (Megatron's "f" and "g"):
 `shard_dim` is that rule, parameter by parameter (the tests hold it to
 `_spec_for_path` through the JAX export names); `shard_module` cuts a
 model built at full size into a rank's shards, `shard_state` and
-`gather_state` do the same for state dicts. Only `all_reduce` (and
-`new_group`, once) is used, so the same code runs on NCCL across cards
-and on gloo, with CPU tensors or with CUDA tensors of several processes
-on one card. NCCL sums bf16 in bf16; gloo sums it in f32 (`all_reduce`).
+`gather_state` do the same for state dicts. Only `all_reduce` (a sum, or a
+max for int8 scales; and `new_group`, once) is used, so the same code runs
+on NCCL across cards and on gloo, with CPU tensors or with CUDA tensors of
+several processes on one card. NCCL sums bf16 in bf16; gloo sums it in
+f32 (`all_reduce`); int32 is summed as int32, exactly, by both
+(`TPGroup.sum_int32`, the row-parallel A8W8 product's partial sums).
 
 `ParallelLayout` orders the ranks host-major and puts each run of `tp`
 consecutive ranks in one tp group, which must stay within one host; the
@@ -123,11 +125,14 @@ def _sums_in_f32(x: torch.Tensor, group) -> bool:
     return x.dtype in HALF and dist.get_backend(group) == 'gloo'
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of `x` over `group`, as a new tensor in x's dtype (under
-    gloo, f16 and bf16 summed in f32 and rounded once)."""
-    y = x.float() if _sums_in_f32(x, group) else x.clone()
-    dist.all_reduce(y, group=group)
+def all_reduce(x: torch.Tensor, group,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or `op`) of `x` over `group`, as a new contiguous tensor in
+    x's dtype (under gloo, f16 and bf16 reduced in f32 and rounded once;
+    every other dtype, int32 included, reduced in its own)."""
+    y = x.float() if _sums_in_f32(x, group) else \
+        x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=op, group=group)
     return y.to(x.dtype)
 
 
@@ -197,6 +202,18 @@ class TPGroup:
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """[..., n] shards -> [..., n * size] on every rank."""
         return _Gather.apply(x, self.group, self.rank, self.size)
+
+    def sum_int32(self, x: torch.Tensor) -> torch.Tensor:
+        """The exact sum over the group of int32 partial products (the
+        row-parallel A8W8 gemm's), in int32 under gloo and NCCL alike."""
+        if x.dtype != torch.int32:
+            raise TypeError(f'sum_int32 takes int32, not {x.dtype}')
+        return all_reduce(x, self.group)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the group (int8 scales: a row-parallel
+        weight's per-output-channel absmax, a sharded input's)."""
+        return all_reduce(x, self.group, dist.ReduceOp.MAX)
 
     def row_linear(self, x: torch.Tensor, w: torch.Tensor,
                    b: Optional[torch.Tensor]) -> torch.Tensor:

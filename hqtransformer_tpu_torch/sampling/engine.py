@@ -58,7 +58,9 @@ include the text prefix's prefill and the 3-level cell embedding's
 `emb_blocks`. The 2-level `bidirectional` and `top2bot` modes take every
 switch, and run their depth passes in float, as JAX does. The flat
 baselines take the int8 KV cache alone: JAX's flat samplers enter no int8
-scope, and the port refuses a gemm switch for them.
+scope, and the port refuses a gemm switch for them. Every switch runs on a
+model with a layout too, with the same whole scales as at tp 1: each rank
+serves with its heads' span of them (an int8 cache [L, T, B / dp, D / tp]).
 """
 
 from __future__ import annotations

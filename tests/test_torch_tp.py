@@ -6,7 +6,9 @@ CPU.
   stage-2 parameter of the tiny 2-level, 3-level and flat models, through
   the JAX export names (no processes).
 - One spawn of four gloo processes, tp 2 x dp 2 (`torch_tp_worker.py`),
-  holds the rest, each test reading what the ranks saved:
+  holds the rest, each test reading what the ranks saved (the int8
+  serving inputs are written after the spawn, and the ranks wait for
+  them):
   - training `tests/test_parallel.py`'s tiny HierarchicalGPT with a clip
     that binds: the loss and the gathered parameters after 2 steps against
     JAX's `make_mesh(dp=2, tp=2)` sharded step, and after 2 and 3 steps
@@ -20,9 +22,16 @@ CPU.
   - the tp-2 checkpoint of step 2 resumed at tp 1 against the
     uninterrupted tp-1 run;
   - `cli.main_stage2 --tp 2`: 2 steps, then `--resume` to 3, and its
-    sampler-ready bundle loading strictly.
+    sampler-ready bundle loading strictly;
+  - int8 serving: every sampler's codes with f32 activations and the
+    int8 KV cache (scales from tp-1 artifacts) against tp 1's, bit for
+    bit; a row-parallel and a vocabulary-sharded bf16 A8W8 product
+    against tp 1's, bit for bit; the calibrations at tp 2 against tp 1's;
+    the bf16 int8max scorer against JAX's on `make_mesh(dp=2, tp=2)`
+    (tp-1 scales, bounds of `test_torch_int8.py::_assert_near_jax`).
 Bounds are `tests/test_parallel.py`'s: loss rtol 1e-5, parameters atol
 1e-5, rtol 1e-4; logits atol 2e-4. Each test prints what it measured.
+Without processes, bad int8 scales under tp raise before any collective.
 """
 
 import copy
@@ -47,6 +56,7 @@ from hqtransformer_tpu.models.twostage import \
     TwoStageModel as JaxTwoStage  # noqa: E402
 from hqtransformer_tpu.parallel.mesh import (_spec_for_path,  # noqa: E402
                                              batch_sharding, make_mesh,
+                                             replicated,
                                              stage2_param_sharding)
 from hqtransformer_tpu.sampling.engine import \
     make_hierarchical_scorer as jax_scorer  # noqa: E402
@@ -65,6 +75,7 @@ from hqtransformer_tpu_torch.train import stage2 as ts  # noqa: E402
 
 import test_parallel  # noqa: E402
 import torch_tp_worker as worker  # noqa: E402
+from test_torch_int8 import _assert_near_jax  # noqa: E402
 from test_torch_flat import config as flat_config  # noqa: E402
 from test_torch_flat import inputs as flat_inputs  # noqa: E402
 from test_torch_multilevel import tiny_config  # noqa: E402
@@ -243,6 +254,67 @@ def _port_tp1(sd, batches, labels):
     return losses, params, norm, tree2
 
 
+def _int8_scorer_inputs(out, score_labels):
+    """The tiny two-stage config in bf16: JAX's stage-2 variables (seeded
+    init, bf16 serving weights) and the port's weights converted from
+    them; the port's tp-1 int8 scales (the KV scales of a bf16 sampling
+    run, the activation scales on seeded codes) written to
+    `out/scores8.pkl`; the scorer's codes. Returns (JAX's stage 2, its
+    variables with the artifact's scales, the port's weights, the codes
+    [B, 16] and cells [B, 16, 4])."""
+    jm = jax_twostage.TwoStageModel(build_twostage_config(worker.TINY2),
+                                    dtype=jnp.bfloat16)
+    v2 = jax_twostage.serving_bf16_params({'stage2': jax.jit(
+        jm.stage2.init)(jax.random.PRNGKey(3), jnp.zeros((1, 16), jnp.int32),
+                        jnp.zeros((1, 64), jnp.int32),
+                        jnp.zeros((1,), jnp.int32))})['stage2']
+    tm = twostage.TwoStageModel(twostage_config(worker.TINY2),
+                                dtype=torch.bfloat16, device='cpu')
+    weights = {'stage1': tm.init_weights(0)['stage1'],
+               'stage2': twostage.serving_bf16_params(convert_variables(v2))}
+    rng = np.random.RandomState(5)
+    top = torch.from_numpy(rng.randint(0, 256, (B, 16))).long()
+    cells = torch.from_numpy(rng.randint(0, 256, (B, 16, 4))).long()
+    labels = torch.from_numpy(np.asarray(score_labels)).long()
+    scales = tm.calibrate_kv_scales(
+        weights, torch.Generator().manual_seed(2), labels,
+        SamplingParams(top_k_top=16, top_k_bot=16, temperature_top=0.95,
+                       temperature_bot=0.95))
+    raster = twostage.cells_to_raster(cells, 4, 2).reshape(B, -1)
+    scales.update(tm.calibrate_stage2_int8(weights, top, raster, labels))
+    path = str(out / 'scores8.pkl')
+    twostage.save_serving_scales(scales, path)
+    variables = jax_twostage.load_serving_scales(
+        {'stage1': {}, 'stage2': v2}, path)['stage2']
+    return jm.stage2, variables, weights, top, cells
+
+
+def _jax_scores_sharded(jmodel, variables, labels, top, cells):
+    """JAX's scorer on make_mesh(dp=2, tp=2) (4 of the virtual devices),
+    params sharded by `stage2_param_sharding`, the scale collections
+    replicated, the batch over 'dp': the bf16 logits, then int8max's
+    (HQT_INT8_STAGE2 and HQT_INT8_SPATIAL set, the int8 KV cache) as f32
+    numpy (top, bottom)."""
+    mesh = make_mesh(dp=2, tp=2, devices=jax.devices()[:4])
+    out = []
+    with mesh, pytest.MonkeyPatch.context() as mp:
+        v = {k: jax.device_put(t, stage2_param_sharding(mesh, t)
+                               if k == 'params' else replicated(mesh))
+             for k, t in variables.items()}
+        args = [jax.device_put(jnp.asarray(np.asarray(a), jnp.int32),
+                               batch_sharding(mesh))
+                for a in (labels, top, cells)]
+        for int8 in (False, True):
+            if int8:
+                mp.setenv('HQT_INT8_STAGE2', '1')
+                mp.setenv('HQT_INT8_SPATIAL', '1')
+            fn = jax_scorer(jmodel, 16, attention='packed',
+                            cache_dtype=jnp.int8 if int8 else None)
+            out.append([np.asarray(jnp.asarray(x).astype(jnp.float32))
+                        for x in fn(v, *args)])
+    return out
+
+
 @pytest.fixture(scope='module')
 def run(tmp_path_factory):
     """Spawn the four ranks; meanwhile compute JAX's and the port's tp-1
@@ -276,6 +348,14 @@ def run(tmp_path_factory):
          '4', *map(str, ports), str(out)], env=env, stdout=logs[r],
         stderr=subprocess.STDOUT) for r in range(4)]
     try:
+        # int8 serving's tp-1 artifacts, which the ranks wait for
+        kv = worker.kv_scales_tp1(sd)
+        for kind, scales in kv.items():
+            twostage.save_serving_scales(scales, str(out / f'kv_{kind}.pkl'))
+        jm8, v8, weights8, top8, cells8 = _int8_scorer_inputs(out, score[0])
+        torch.save({'bf16_weights': weights8, 'score8_top': top8,
+                    'score8_cells': cells8}, out / 'int8_inputs.tmp')
+        os.replace(out / 'int8_inputs.tmp', out / worker.INT8_INPUTS)
         ref = {'jax_train': _jax_train(variables, batches[:2], labels),
                'tp1': _port_tp1(sd, batches,
                                 torch.from_numpy(labels).long()),
@@ -283,7 +363,12 @@ def run(tmp_path_factory):
                'text': worker.text_step(None),
                'jax_scores': jax_scorer(jmodel, 16, attention='packed')(
                    variables, jnp.asarray(score[0]), jnp.asarray(score[1]),
-                   jnp.asarray(score[2]))}
+                   jnp.asarray(score[2])),
+               'int8_codes': worker.int8_cache_codes(None, sd, kv),
+               'a8w8': worker.a8w8_products(None),
+               'calib': worker.calibrations(None),
+               'jax_scores8': _jax_scores_sharded(jm8, v8, score[0], top8,
+                                                  cells8)}
         rcs = [p.wait(timeout=300) for p in procs]
     finally:
         for p in procs:
@@ -480,15 +565,147 @@ def test_cli_tp2_trains_resumes_and_writes_a_strict_bundle(run):
     print(f'cli: {len(logs)} run(s), step 3 state and a strict bundle')
 
 
-def test_int8_serving_under_tp_is_refused():
-    """An int8 switch on a model whose layout has tp > 1 raises
-    NotImplementedError naming ROADMAP A17, before any collective."""
-    from hqtransformer_tpu_torch.ops.int8 import Int8Serving
-    from hqtransformer_tpu_torch.parallel.tp import ParallelLayout
+# ------------------------------------------------------------ int8 serving
 
-    model = worker.parallel_model().eval()
-    model.layout = ParallelLayout(tp=2)
-    sampler = make_hierarchical_sampler(model, 16, SamplingParams(),
-                                        int8=Int8Serving(kv_cache=True))
-    with pytest.raises(NotImplementedError, match='A17'):
-        sampler(torch.Generator(), torch.arange(2))
+@pytest.mark.parametrize('kind', worker.KV_KINDS)
+def test_int8_cache_samplers_give_tp1_codes(run, kind):
+    """Every sampler with f32 activations and the int8 KV cache at tp 2 x
+    dp 2, its whole scales read from the tp-1 artifact and cut to each
+    rank's heads, gives tp 1's int8-cache codes bit for bit for the same
+    generator seed; the tp ranks of a dp group draw the same."""
+    ranks = [{kind: r['int8_codes'][kind]} for r in run['ranks']]
+    got = _stitch(ranks, kind)
+    want = run['int8_codes'][kind]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), kind
+    print(f'{kind}: int8-cache codes {[tuple(w.shape) for w in want]} at '
+          f'tp 2 x dp 2 equal tp 1\'s')
+
+
+@pytest.mark.parametrize('part', ['row', 'vocab', 'int32'])
+def test_a8w8_products_give_tp1_outputs(run, part):
+    """A row-parallel bf16 A8W8 `proj` (the rank's input columns, weight
+    scales maxed over the group, the int32 partial products summed
+    exactly before the dequantization and the bias) and a
+    vocabulary-sharded `head_bot` (its logits gathered) give tp 1's
+    outputs bit for bit on every rank; the tp group's int32 sum of values
+    past f32's mantissa is exact."""
+    want = run['a8w8'][part]
+    for r in run['ranks']:
+        got = r['a8w8'][part]
+        assert got.dtype == want.dtype and torch.equal(got, want), part
+    print(f'{part}: {tuple(want.shape)} {want.dtype} on every rank equal '
+          f'to tp 1\'s')
+
+
+def _scale_diffs(got, want):
+    """(the count of scales, those bit-equal, the largest relative
+    difference) of two calibrations, after checking they name the same
+    scales of the same shapes."""
+    n = same = 0
+    worst = 0.0
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert sorted(got[key]) == sorted(want[key]), key
+        for name, w in want[key].items():
+            g = got[key][name]
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            n += w.numel()
+            same += int((g == w).sum())
+            worst = max(worst, float(((g - w).abs() / w.abs()).max()))
+    return n, same, worst
+
+
+@pytest.mark.parametrize('model', ['2-level', '3-level'])
+def test_calibration_at_tp2_gives_tp1_scales(run, model):
+    """`calibrate_kv_scales` and `calibrate_stage2_int8` at tp 2 x dp 2
+    (f32) return the whole, tp-1-layout scales on every rank, equal to
+    tp 1's: bit for bit where tp 2 computes the calibrated activation as
+    tp 1 does, and within f32 rounding (rtol 1e-5) where a row-parallel
+    sum in another order came before it."""
+    want = run['calib'][model]
+    first = run['ranks'][0]['calib'][model]
+    for r in run['ranks'][1:]:
+        assert _scale_diffs(r['calib'][model], first)[2] == 0.0
+    n, same, worst = _scale_diffs(first, want)
+    assert worst <= 1e-5, worst
+    print(f'{model}: {n} scale values at tp 2 x dp 2, {same} bit-equal to '
+          f'tp 1\'s, the rest within {worst:.2e} relative')
+
+
+def test_int8max_scorer_under_tp_matches_jax_sharded(run):
+    """The bf16 scorer in int8max at tp 2 x dp 2 (the tp-1 artifact's
+    scales, every gemm A8W8, the int8 KV cache) against JAX's scorer on
+    make_mesh(dp=2, tp=2) with the same scales, per logits (top, bottom):
+    `_assert_near_jax`'s bounds (int8max changes the port's logits by
+    0.9x-1.1x as much as JAX's; mean and max |d| at most 3.5x the bf16
+    scorer's own port-to-JAX deviation, both sharded; top-1 agreement >=
+    90%)."""
+    ours8 = _stitch(run['ranks'], 'int8_scores')
+    ours16 = _stitch(run['ranks'], 'bf16_scores')
+    ref16, ref8 = run['jax_scores8']
+    for level, o, r, ob, rb in zip(('top', 'bottom'), ours8, ref8, ours16,
+                                   ref16):
+        o, ob = o.float().numpy(), ob.float().numpy()
+        d, db, gap = np.abs(o - r), np.abs(ob - rb), np.abs(r - rb)
+        reading = dict(mean=d.mean() / db.mean(), max=d.max() / db.max(),
+                       size=np.abs(o - ob).mean() / gap.mean(),
+                       top1=float(np.mean(o.argmax(-1) == r.argmax(-1))))
+        print(f'int8max scorer at tp 2 x dp 2 against JAX\'s on the mesh, '
+              f'{level}: {reading}')
+        _assert_near_jax(reading)
+
+
+@pytest.mark.parametrize('case', ['indivisible', 'rank_width', 'missing_kv',
+                                  'missing_act', 'complete'])
+def test_int8_serving_under_tp_is_refused(monkeypatch, case):
+    """Under tp 2 (one process, a stand-in tp group), int8 scales that
+    cannot serve are refused with ValueError before any collective and
+    before any module changes: a KV-cache scale vector that tp does not
+    divide, one already cut to a rank's width (scales are whole, in the
+    tp-1 layout), a missing K/V scale, a missing activation scale of a
+    row-parallel layer. With complete scales the serving call gets as far
+    as its first collective (the row-parallel weights' scale max)."""
+    from hqtransformer_tpu_torch.ops.int8 import INT8MAX
+    from hqtransformer_tpu_torch.parallel.tp import ParallelLayout, TPGroup
+
+    def no_collective(*args, **kwargs):
+        raise AssertionError('a collective ran')
+    monkeypatch.setattr(torch.distributed, 'all_reduce', no_collective)
+    layout = ParallelLayout(tp=2, tp_group=TPGroup(None, 0, 2))
+    tm = twostage.TwoStageModel(twostage_config(worker.TINY2),
+                                dtype=torch.bfloat16, device='cpu',
+                                layout=layout)
+    tm.load_weights(tm.init_weights(0))
+    full = tm.full_stage2
+    kv = {f'blocks.{i}.attn.{c}': torch.full((128,), 0.01)
+          for i in range(len(full.blocks)) for c in 'kv'}
+    act = {n: torch.tensor(0.01) for n, m in full.named_modules()
+           if isinstance(m, twostage.QuantizableLinear)}
+    if case == 'indivisible':
+        kv['blocks.1.attn.k'] = torch.full((127,), 0.01)
+    elif case == 'rank_width':
+        kv['blocks.0.attn.v'] = torch.full((64,), 0.01)
+    elif case == 'missing_kv':
+        del kv['blocks.1.attn.v']
+    elif case == 'missing_act':
+        del act['depths.1.mlp.2']
+    scales = {'stage2/kv_scales': kv, 'stage2/act_scales': act}
+    sampler = make_hierarchical_sampler(tm.stage2, 16, SamplingParams(),
+                                        int8=INT8MAX, scales=scales)
+    want = {'indivisible': 'tp 2 does not divide', 'rank_width':
+            'the layer has 128', 'missing_kv': "'blocks.1.attn.v' has none",
+            'missing_act': "'depths.1.mlp.2' has none"}
+    if case == 'complete':
+        with pytest.raises(AssertionError, match='a collective ran'):
+            sampler(torch.Generator(), torch.arange(2))
+    else:
+        with pytest.raises(ValueError, match=want[case]):
+            sampler(torch.Generator(), torch.arange(2))
+    s2 = tm.stage2
+    assert all(b.attn.serving is None for b in (*s2.blocks, *s2.depths))
+    assert all(getattr(m, 'q8', None) is None for m in s2.modules())
+    print(f'{case}: ' + ('stopped at the first collective' if case ==
+                         'complete' else 'refused before any collective') +
+          ', no module changed')
