@@ -1,0 +1,23 @@
+"""K1's (decode attention's) share of its roofline in the profiled call:
+the bound of every launch, at its cache row and batch (`counts.k1_bytes`,
+`k1_flops`), over K1's device time. A call launches K1 once a layer at
+rows 1 .. positions - 1, in that order; a trace that holds another
+number of launches is not read."""
+
+from hqbench import counts
+
+
+def read(out):
+    if out.trace is None or 'positions' not in out.info:
+        return None
+    i = out.info
+    events = out.trace.kernels('decode_attention_kernel')
+    calls = sum(1 for _, _, profiled in i['calls'] if profiled)
+    per_call = i['layers'] * (i['positions'] - 1)
+    if not events or len(events) != calls * per_call:
+        return None
+    bound = calls * i['layers'] * sum(
+        counts.k1_bound_s(pos, i['batch'], i['width'])
+        for pos in range(1, i['positions']))
+    busy = sum(e - s for _, s, e in events) / 1e9
+    return 100.0 * bound / busy
