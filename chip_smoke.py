@@ -1331,10 +1331,9 @@ def checked_call(model, call, labels, name, da, st, q8, int8=False,
     res = model.config.dataset.image_resolution
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(da.decode_attention_step, st.sample_topk, q8.int8_matmul,
-                 q8.int8_conv2d)
-    da.decode_attention_step.int8_launches = 0
-    st.sample_topk.bisect3_launches = 0
+    reset_counts('k1.launches', 'k2.launches', 'int8.matmul_launches',
+                 'int8.conv2d_launches', 'k1.int8_launches',
+                 'k2.bisect3_launches')
     with k1_positions() as positions:
         t0 = time.perf_counter()
         pixels, codes = call()
@@ -1342,9 +1341,9 @@ def checked_call(model, call, labels, name, da, st, q8, int8=False,
         seconds = time.perf_counter() - t0
     k1 = model.config.stage2.hparams.n_layers * (n_top - 1)
     k2 = 0 if top_p else draws * n_top
-    launches = (da.decode_attention_step.launches,
-                da.decode_attention_step.int8_launches,
-                st.sample_topk.launches, st.sample_topk.bisect3_launches)
+    launches = (since_reset('k1.launches'),
+                since_reset('k1.int8_launches'),
+                since_reset('k2.launches'), since_reset('k2.bisect3_launches'))
     want = (k1, k1 if int8 else 0, k2, k2 if bisect3 else 0)
     require(launches == want, f'{name} launches K1, K1 int8, K2, K2 '
             f'bisect3 {launches}, expected {want}')
@@ -1353,7 +1352,8 @@ def checked_call(model, call, labels, name, da, st, q8, int8=False,
     require(len(positions) == k1 and span == (first, first + n_top - 2),
             f'{name} K1 at pos {span}, expected {first}..'
             f'{first + n_top - 2}')
-    gemms, convs = q8.int8_matmul.launches, q8.int8_conv2d.launches
+    gemms = since_reset('int8.matmul_launches')
+    convs = since_reset('int8.conv2d_launches')
     require((gemms > 0, convs > 0) == ((int8, int8) if a8w8 is None
                                        else a8w8),
             f'{name} int8 gemms, convs {(gemms, convs)}')
@@ -1415,7 +1415,7 @@ def run_main_path(da, st):
         _, samples_per_s = sampler_call(model, weights, sampler, gen,
                                         labels, f'main path call {call}',
                                         da, st, q8)
-    launches = (da.decode_attention_step.launches, st.sample_topk.launches)
+    launches = (since_reset('k1.launches'), since_reset('k2.launches'))
     breakdown(model, weights, params, labels, gen)
     return launches, samples_per_s, model, weights
 
@@ -1655,7 +1655,7 @@ def run_int8max(da, st, model, weights):
     int8max, bf16 = q8.INT8MAX, q8.Int8Serving()
     codes8 = run_pipelined(model, weights, params, labels, int8max, scales,
                               'int8max', da, st, q8)
-    launches = da.decode_attention_step.int8_launches
+    launches = since_reset('k1.int8_launches')
     codes16 = run_pipelined(model, weights, params, labels, bf16, None,
                                'bf16', da, st, q8)
     # bench.py's other int8 mode (BENCH_INT8_SPATIAL=0): float spatial gemms
@@ -1683,9 +1683,21 @@ def seeded_images(n: int, res: int, seed: int, device='cuda'):
     return torch.rand((n, res, res, 3), generator=g, device=device) * 2 - 1
 
 
-def reset_counts(*kernels):
-    for k in kernels:
-        k.launches = 0
+_COUNT_BASE = {}    # a launch counter's reading at its last reset_counts
+
+
+def reset_counts(*names):
+    """Start counting the launch counters `names` (`utils/tracing.py`'s
+    table) from zero, for `since_reset`."""
+    from hqtransformer_tpu_torch.utils import tracing
+    for name in names:
+        _COUNT_BASE[name] = tracing.counter(name)
+
+
+def since_reset(name):
+    """The launches counted under `name` since its last reset_counts."""
+    from hqtransformer_tpu_torch.utils import tracing
+    return tracing.counter(name) - _COUNT_BASE.get(name, 0)
 
 
 def check_reconstruction(pixels, levels, n, res, grids):
@@ -1714,13 +1726,13 @@ def run_encode_slice(vq, da, st, stage1_weights):
     for call in (1, 2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+        reset_counts('k3.launches', 'k1.launches', 'k2.launches')
         t0 = time.perf_counter()
         pixels, levels = recon(stage1_weights, images)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = (vq.vq_argmin.launches, da.decode_attention_step.launches,
-                    st.sample_topk.launches)
+        launches = (since_reset('k3.launches'), since_reset('k1.launches'),
+                    since_reset('k2.launches'))
         require(launches == (2, 0, 0), f'encode slice launches K3, K1, K2 '
                 f'{launches}, expected (2, 0, 0)')
         check_reconstruction(pixels, levels, B, res, (8, 16))
@@ -1792,15 +1804,14 @@ def run_twostage_encode(vq, da, st, model, weights):
                       lambda: model.forward(weights, images, labels))):
         for call in (1, 2):
             torch.cuda.synchronize()
-            reset_counts(vq.vq_argmin, da.decode_attention_step,
-                         st.sample_topk)
+            reset_counts('k3.launches', 'k1.launches', 'k2.launches')
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            launches = (vq.vq_argmin.launches,
-                        da.decode_attention_step.launches,
-                        st.sample_topk.launches)
+            launches = (since_reset('k3.launches'),
+                        since_reset('k1.launches'),
+                        since_reset('k2.launches'))
             require(launches == (2, 0, 0), f'{name} launches K3, K1, K2 '
                     f'{launches}, expected (2, 0, 0)')
         codes = out[0] if name == 'extract_codes' else out[1]
@@ -1859,7 +1870,7 @@ def run_level3_sampling(da, st, q8):
         out.append(sampler_call(model, weights, sampler, gen, labels,
                                 f'3-level sampling call {call} (bisect3 '
                                 f'{bisect3})', da, st, q8, bisect3=bisect3))
-    k2b_launches = st.sample_topk.bisect3_launches
+    k2b_launches = since_reset('k2.bisect3_launches')
     level3_breakdown(model, weights, labels, gen, '3-level')
     return k2b_launches, out[1][1], model, weights, out[0][0]
 
@@ -2043,14 +2054,14 @@ def check_level3_reference(st):
         knobs = dict(top_k=(1, 1, 1), bisect3=bisect3)
         ref_px, ref = cpu.make_pixel_sampler_multilevel(**knobs)(
             weights, torch.Generator().manual_seed(0), labels)
-        st.sample_topk.launches = 0
+        reset_counts('k2.launches')
         px, codes = gpu.make_pixel_sampler_multilevel(**knobs)(
             w_gpu, torch.Generator(device='cuda').manual_seed(0),
             labels.cuda())
         torch.cuda.synchronize()
-        require(st.sample_topk.launches == 3 * 16,
-                f'tiny 3-level sampler launched K2 '
-                f'{st.sample_topk.launches} times')
+        k2 = since_reset('k2.launches')
+        require(k2 == 3 * 16,
+                f'tiny 3-level sampler launched K2 {k2} times')
         require(all(torch.equal(c.cpu(), r) for c, r in zip(codes, ref)),
                 f'tiny 3-level greedy codes differ between the CUDA and the '
                 f'CPU path (bisect3 {bisect3})')
@@ -2102,13 +2113,13 @@ def run_level3(vq, da, st):
     for call in (1, 2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+        reset_counts('k3.launches', 'k1.launches', 'k2.launches')
         t0 = time.perf_counter()
         pixels, levels = recon(weights, images)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = (vq.vq_argmin.launches, da.decode_attention_step.launches,
-                    st.sample_topk.launches)
+        launches = (since_reset('k3.launches'), since_reset('k1.launches'),
+                    since_reset('k2.launches'))
         require(launches == (3, 0, 0), f'3-level launches K3, K1, K2 '
                 f'{launches}, expected (3, 0, 0)')
         check_reconstruction(pixels, levels, B_LEVEL3, res, (8, 16, 32))
@@ -2135,13 +2146,13 @@ def run_encode_f32(vq, da, st):
     for call in (1, 2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+        reset_counts('k3.launches', 'k1.launches', 'k2.launches')
         t0 = time.perf_counter()
         pixels, levels = recon(weights, images)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = (vq.vq_argmin.launches, da.decode_attention_step.launches,
-                    st.sample_topk.launches)
+        launches = (since_reset('k3.launches'), since_reset('k1.launches'),
+                    since_reset('k2.launches'))
         require(launches == (2, 0, 0), f'f32 encode launches K3, K1, K2 '
                 f'{launches}, expected (2, 0, 0)')
         check_reconstruction(pixels, levels, B, res, (8, 16))
@@ -2185,10 +2196,11 @@ def check_small_reference(vq):
     res = cfg.dataset.image_resolution
     images = seeded_images(8, res, seed=9, device='cpu')
     (ref_t, ref_b), _ = cpu.extract_codes(weights, images)
-    reset_counts(vq.vq_argmin)
+    reset_counts('k3.launches')
     (ct, cb), _ = gpu.extract_codes(w_gpu, images.cuda())
     torch.cuda.synchronize()
-    require(vq.vq_argmin.launches == 2, 'tiny extract_codes did not run K3')
+    require(since_reset('k3.launches') == 2,
+            'tiny extract_codes did not run K3')
     require(torch.equal(ct.cpu(), ref_t) and torch.equal(cb.cpu(), ref_b),
             'tiny extract_codes differ between the CUDA and the CPU path')
     ref_px, ref_levels = make_reconstructor(cfg.stage1, device='cpu')(
@@ -2653,7 +2665,7 @@ def run_depth_modes(da, st, q8):
         for call in (1, 2):
             sampler_call(model, weights, sampler, gen, labels,
                          f'{mode} bf16 call {call}', da, st, q8)
-        joint = joint or st.sample_topk.launches
+        joint = joint or since_reset('k2.launches')
         ar_loop_profile(model, weights, params, labels, gen, mode)
         del model, weights
         torch.cuda.empty_cache()
@@ -2759,7 +2771,7 @@ def run_flat_baselines(da, st, q8):
         checked_call(bot_model, pair_call, prefix,
                      f'Transformer1d bf16 call {call} (+ stage-1 decode of '
                      f'top and bottom)', da, st, q8)
-    k1 = da.decode_attention_step.launches
+    k1 = since_reset('k1.launches')
     bot_model.load_weights(bot_weights)
     profile_phases((('Transformer1d AR loop',
                      lambda: txt2img(gen, prefix)),))
@@ -2888,8 +2900,8 @@ SOFT_ROW_TOL = 1e-4
 
 
 def launch_counts(vq, da, st):
-    return (vq.vq_argmin.launches, da.decode_attention_step.launches,
-            st.sample_topk.launches)
+    return (since_reset('k3.launches'), since_reset('k1.launches'),
+            since_reset('k2.launches'))
 
 
 def run_resampler_reconstruction(vq, da, st, path, seed):
@@ -2916,8 +2928,7 @@ def run_resampler_reconstruction(vq, da, st, path, seed):
         for call in calls:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            reset_counts(vq.vq_argmin, da.decode_attention_step,
-                         st.sample_topk)
+            reset_counts('k3.launches', 'k1.launches', 'k2.launches')
             t0 = time.perf_counter()
             pixels, levels = recon(weights, images)
             torch.cuda.synchronize()
@@ -2951,7 +2962,7 @@ def run_bottom_bypass(vq, da, st, cfg, weights, images):
     gen = gen.to_empty(device='cuda').eval()
     gen.load_state_dict(weights, strict=True, assign=True)
     torch.cuda.synchronize()
-    reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+    reset_counts('k3.launches', 'k1.launches', 'k2.launches')
     t0 = time.perf_counter()
     with torch.inference_mode():
         (dec_t, dec), _, codes = gen(images, bottom_bypass=True)
@@ -3009,7 +3020,7 @@ def run_soft_codes(vq, da, st):
     for call in (1, 2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+        reset_counts('k3.launches', 'k1.launches', 'k2.launches')
         t0 = time.perf_counter()
         codes, softs = model.extract_codes(weights, images,
                                            temp_soft_labels=temp)
@@ -3029,18 +3040,19 @@ def run_soft_codes(vq, da, st):
               f'{seconds * 1e3:.1f} ms, peak {peak:.2f} GiB, launches '
               f'K3={launches[0]}, rows sum to 1 within {row_err:.2e}')
     soft_argmin_check(model, images, codes)
-    reset_counts(vq.vq_argmin)
+    reset_counts('k3.launches')
     hard, _ = model.extract_codes(weights, images)
-    require(vq.vq_argmin.launches == 2, 'plain extract_codes did not run K3')
+    require(since_reset('k3.launches') == 2,
+            'plain extract_codes did not run K3')
     agree = [float((a == b).float().mean()) for a, b in zip(codes, hard)]
     print(f'soft hard codes: the argmin of their distances; equal to the K3 '
           f'codes of a plain extract_codes in {agree[0]:.4%} (top), '
           f'{agree[1]:.4%} (bottom) of positions')
     gen = torch.Generator(device='cuda').manual_seed(11)
-    reset_counts(vq.vq_argmin)
+    reset_counts('k3.launches')
     drawn, _ = model.extract_codes(weights, images, temp_soft_labels=temp,
                                    generator=gen)
-    require(vq.vq_argmin.launches == 0, 'stochastic soft codes ran K3')
+    require(since_reset('k3.launches') == 0, 'stochastic soft codes ran K3')
     for c in drawn:
         require(int(c.min()) >= 0 and int(c.max()) < N_CODES,
                 'stochastic soft codes out of range')
@@ -3116,12 +3128,13 @@ def check_stage1_variants_reference(vq):
         with k3_inputs() as searched:
             ref_px, ref_levels = make_reconstructor(cfg, device='cpu')(
                 weights, images)
-        reset_counts(vq.vq_argmin)
+        reset_counts('k3.launches')
         px, levels = make_reconstructor(cfg, device='cuda')(
             {k: v.cuda() for k, v in weights.items()}, images.cuda())
         torch.cuda.synchronize()
-        require(vq.vq_argmin.launches == len(ref_levels),
-                f'tiny {name} launched K3 {vq.vq_argmin.launches} times')
+        k3 = since_reset('k3.launches')
+        require(k3 == len(ref_levels),
+                f'tiny {name} launched K3 {k3} times')
         shapes = [tuple(c.shape) for c in levels]
         for li, (c, ref, (z, e)) in enumerate(zip(levels, ref_levels,
                                                   searched)):
@@ -3259,8 +3272,9 @@ def run_int8_depth_modes(da, st, q8):
             codes, rate = sampler_call(model, weights, sampler, gen, labels,
                                        f'{mode} int8max call {call}', da, st,
                                        q8, int8=True)
-            require(q8.int8_matmul.launches == spatial,
-                    f'{mode} int8max ran {q8.int8_matmul.launches} A8W8 '
+            gemms = since_reset('int8.matmul_launches')
+            require(gemms == spatial,
+                    f'{mode} int8max ran {gemms} A8W8 '
                     f'gemms, expected the {spatial} spatial ones only')
             if call == 1:
                 agree = [float((a == b).float().mean())
@@ -3350,7 +3364,7 @@ def run_int8_flat(da, st, q8):
                 bot_model, pair_call, prefix,
                 f'Transformer1d {name} call {call} (+ bf16 stage-1 decode)',
                 da, st, q8, int8=int8.kv_cache, a8w8=(False, False))
-    k1 = da.decode_attention_step.int8_launches
+    k1 = since_reset('k1.int8_launches')
     print(f'Transformer1d int8 cache: {rates["int8 cache"]:.2f} samples/s '
           f'against bf16 {rates["bf16"]:.2f} in this run '
           f'({rates["int8 cache"] / rates["bf16"]:.2f}x)')
@@ -3854,7 +3868,7 @@ def run_eval_stage1(vq, da, st):
             '--data-root', str(SMOKE_EVAL), '--batch-size', str(B), '--fid',
             '--code-usage', '--top-only', '--inception-weights',
             str(SMOKE_EVAL / 'pt_inception.pth')]
-    reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+    reset_counts('k3.launches', 'k1.launches', 'k2.launches')
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4125,7 +4139,7 @@ def time_training(name, step, state, batches, kernels, k3_per_step, n_steps,
         state, _ = step(state, *args(i))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+    reset_counts('k3.launches', 'k1.launches', 'k2.launches')
     losses = []
     t0 = time.perf_counter()
     for i in range(n_steps):
@@ -4416,7 +4430,7 @@ def one_step(path, batch, k3, kernels):
     cfg, model = training_model(path, torch.float32, 17)
     step, state, _ = stage2_trainer(cfg, model)
     x, y = train_batches(1, batch, 170)[0]
-    reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+    reset_counts('k3.launches', 'k1.launches', 'k2.launches')
     state, m = step(state, x, y)
     torch.cuda.synchronize()
     counts = launch_counts(vq, da, st)
@@ -4568,7 +4582,7 @@ def run_stage1_training(vq, da, st):
         del step, state
         torch.cuda.empty_cache()
     step, state, _ = stage1_trainer(cfg, torch.bfloat16, 16)
-    reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+    reset_counts('k3.launches', 'k1.launches', 'k2.launches')
     torch.cuda.reset_peak_memory_stats()
     state, m = step(state, batches[0][0], rng)
     torch.cuda.synchronize()
@@ -4828,7 +4842,7 @@ def tp_sampler_call(layout, name, da, st, q8, int8=None, scales=None,
                             layout.rows(labels), name, da, st, q8,
                             int8=int8.kv_cache)
     seconds = time.perf_counter() - t0
-    launches = (da.decode_attention_step.launches, st.sample_topk.launches)
+    launches = (since_reset('k1.launches'), since_reset('k2.launches'))
     ref = [c.cuda() for c in torch.load(TP_DIR / f'ref_codes{tag}.pt')]
     t1 = time.perf_counter()
     scores = make_hierarchical_scorer(model.stage2, T, int8, scales)(
@@ -4864,15 +4878,14 @@ def tp_stage2_call(layout, dtype, n, da, st, name, int8=None, scales=None):
                                         int8, scales)
     gen = torch.Generator(device='cuda').manual_seed(TP_SAMPLER_SEED)
     torch.cuda.synchronize()
-    reset_counts(da.decode_attention_step, st.sample_topk)
-    da.decode_attention_step.int8_launches = 0
+    reset_counts('k1.launches', 'k2.launches', 'k1.int8_launches')
     with k1_positions() as positions:
         t0 = time.perf_counter()
         codes = sampler(gen, labels)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    launches = (da.decode_attention_step.launches, st.sample_topk.launches)
-    k1_int8 = da.decode_attention_step.int8_launches
+    launches = (since_reset('k1.launches'), since_reset('k2.launches'))
+    k1_int8 = since_reset('k1.int8_launches')
     require(launches == (L * (n - 1), 2 * n) and
             k1_int8 == (launches[0] if int8.kv_cache else 0) and
             (min(positions), max(positions)) == (1, n - 1),
@@ -4983,7 +4996,7 @@ def tp_training(layout, vq, da, st):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(vq.vq_argmin, da.decode_attention_step, st.sample_topk)
+    reset_counts('k3.launches', 'k1.launches', 'k2.launches')
     losses, t0 = [], time.perf_counter()
     for x, y in batches:
         state, m = step(state, layout.rows(x), layout.rows(y))

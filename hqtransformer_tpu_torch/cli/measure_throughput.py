@@ -23,7 +23,11 @@ reads one (written here or by the JAX script) and calibrates nothing;
 with neither, it calibrates in the measuring process. `profile=<dir>`
 writes a `torch.profiler` Chrome trace of one AR loop and one whole call
 there (`ar_trace.json`, `e2e_trace.json`), where the JAX script writes a
-`jax.profiler` trace.
+`jax.profiler` trace. Each trace also holds the program's spans of that
+call (`utils/tracing.py`: `sample`, `ar.spatial`, `ar.depth`, `ar.draw`,
+`decode`) as a process row of their own, `program spans`, on the trace's
+time base, so a gap on the device's rows lines up with the layer the host
+was in.
 
 Each loop's ms a sample is printed as it ends; the last line gives the
 means over the kept loops. Times are the host clock around work that ends
@@ -34,6 +38,7 @@ runs the kernels' plain versions (a rehearsal, not a device measurement).
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -50,6 +55,7 @@ from ..models.twostage import (TwoStageModel, load_serving_scales,
 from ..ops.int8 import INT8MAX, Int8Serving
 from ..sampling.engine import (SamplingParams, make_hierarchical_sampler,
                                make_multilevel_sampler)
+from ..utils import tracing
 
 SERVING = {'bf16': Int8Serving(),
            'int8': Int8Serving(kv_cache=True, decode_convs=True),
@@ -222,11 +228,20 @@ def main(argv=None) -> int:
         activities = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if dev.type == 'cuda' else [])
         os.makedirs(a['profile'], exist_ok=True)
+        t0 = time.time_ns()
         with profile(activities=activities) as prof:
             run()
+        spans = [r for r in tracing.spans() if r.start_ns >= t0]
         path = os.path.join(a['profile'], f'{name}_trace.json')
         prof.export_chrome_trace(path)
-        print(f'profiler trace written to {path}')
+        with open(path) as f:
+            trace = json.load(f)
+        trace['traceEvents'] += tracing.chrome_events(
+            spans, trace.get('baseTimeNanoseconds', 0))
+        with open(path, 'w') as f:
+            json.dump(trace, f)
+        print(f'profiler trace written to {path} ({len(spans)} program '
+              f'spans)')
 
     run_ar()    # warm-up: allocations and the kernels' first launches
     if a['profile']:

@@ -78,6 +78,7 @@ from ..parallel.tp import (ParallelLayout, all_reduce, shard_module,
 from ..sampling.engine import (LevelSampling, SamplingParams, Scales,
                                _flat_sampler, make_hierarchical_sampler,
                                make_igpt_sampler, make_multilevel_sampler)
+from ..utils import tracing
 from .stage1.generator import build_generator
 from .stage1.layers import QuantizableConv2d
 from .stage1.quantizer import EMAVectorQuantizer, VectorQuantizer
@@ -501,6 +502,7 @@ class TwoStageModel:
                       else self.stage1.decode_code(list(maps)))
             return torch.clamp(pixels * 0.5 + 0.5, 0.0, 1.0)
 
+        @tracing.span('decode')
         def decode(top, *groups):
             maps = [top.reshape(-1, top_res, top_res)] + [
                 cells_to_raster(g, top_res, w).reshape(-1, top_res * w,
@@ -529,6 +531,7 @@ class TwoStageModel:
         decode = self._pixel_decoder(n_top, decode_chunk, int8, scales)
 
         @torch.inference_mode()
+        @tracing.span('sample')
         def sample_pixels(weights: Weights, generator: torch.Generator,
                           labels: torch.Tensor):
             self.load_weights(weights)
@@ -562,6 +565,7 @@ class TwoStageModel:
         streams = []
 
         @torch.inference_mode()
+        @tracing.span('sample')
         def step(weights: Weights, generator: torch.Generator,
                  labels: torch.Tensor, prev_codes: Optional[Codes] = None):
             self.load_weights(weights)
@@ -615,6 +619,7 @@ class TwoStageModel:
         decode = self._pixel_decoder(n_top, decode_chunk, int8, scales)
 
         @torch.inference_mode()
+        @tracing.span('sample')
         def sample_pixels(weights: Weights, generator: torch.Generator,
                           labels: torch.Tensor):
             self.load_weights(weights)
@@ -655,12 +660,14 @@ class TwoStageModel:
             return torch.clamp(pixels * 0.5 + 0.5, 0.0, 1.0)
 
         @torch.inference_mode()
+        @tracing.span('sample')
         def sample_pixels(weights: Weights, generator: torch.Generator,
                           labels: torch.Tensor):
             self.load_weights(weights)
             codes = sampler(generator, labels)
-            with (self.stage1.int8_decode(act) if int8.decode_convs
-                  else contextlib.nullcontext()):
+            with tracing.span('decode'), (
+                    self.stage1.int8_decode(act) if int8.decode_convs
+                    else contextlib.nullcontext()):
                 pixels = _decode_chunked(dec1, [codes], decode_chunk)
             return pixels, codes
 

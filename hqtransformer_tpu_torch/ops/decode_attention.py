@@ -21,8 +21,8 @@ plans; `q_fixed_point` and `widen_int8_words` are plain
 mirrors of its fixed-point q and its widening of V, which the CPU tests
 hold to their invariants.
 
-`decode_attention_step.launches` counts every launch of the kernel and
-`.int8_launches` those on int8 caches.
+`utils/tracing.py`'s counters `k1.launches` and `k1.int8_launches` count
+every launch of the kernel and those on int8 caches.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import tracing
 from . import cuda_build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -222,11 +223,7 @@ def decode_attention_step(q: torch.Tensor, k_new: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f'decode_attention kernel launch failed: CUDA '
                            f'error {rc}')
-    decode_attention_step.launches += 1
+    tracing.count('k1.launches')
     if k_cache.dtype == torch.int8:
-        decode_attention_step.int8_launches += 1
+        tracing.count('k1.int8_launches')
     return y
-
-
-decode_attention_step.launches = 0
-decode_attention_step.int8_launches = 0

@@ -28,8 +28,9 @@ exactly over the group before the dequantization adds the bias once
 column-parallel or vocabulary-sharded weight's scales do not depend on the
 cut.
 
-`int8_matmul.launches` and `int8_conv2d.launches` count the products, so a
-run can show that the int8 path was taken.
+`utils/tracing.py`'s counters `int8.matmul_launches` and
+`int8.conv2d_launches` count the products, so a run can show that the int8
+path was taken.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils import tracing
 
 
 @dataclass(frozen=True)
@@ -208,11 +211,8 @@ def int8_matmul(xq: torch.Tensor, w: 'Int8Weight', dtype: torch.dtype,
     if reduce is not None:
         acc = reduce(acc)
     y = _dequant(acc, w.out_scale, w.bias, dtype)
-    int8_matmul.launches += 1
+    tracing.count('int8.matmul_launches')
     return y.reshape(*lead, w.out_features)
-
-
-int8_matmul.launches = 0
 
 
 @dataclass(frozen=True)
@@ -286,8 +286,5 @@ def int8_conv2d(x: torch.Tensor, w: Int8Weight, kernel: Tuple[int, int],
         acc = int_mm(cols, w.wq)[:, :O]
         out[b0:b0 + band] = _dequant(acc, out_scale, w.bias, x.dtype).reshape(
             -1, Ho, Wo, O)
-    int8_conv2d.launches += 1
+    tracing.count('int8.conv2d_launches')
     return out.permute(0, 3, 1, 2).contiguous()
-
-
-int8_conv2d.launches = 0

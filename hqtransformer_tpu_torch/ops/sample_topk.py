@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import tracing
 from . import cuda_build
 
 BISECT_RANGE = 44.0
@@ -295,10 +296,6 @@ def sample_topk(logits: torch.Tensor, u: torch.Tensor, k: int,
     if rc != 0:
         raise RuntimeError(f'sample_topk kernel launch failed: CUDA error '
                            f'{rc}')
-    sample_topk.launches += 1
-    sample_topk.bisect3_launches += bool(bisect3)
+    tracing.count('k2.launches')
+    tracing.count('k2.bisect3_launches', bool(bisect3))
     return out
-
-
-sample_topk.launches = 0          # every launch of the kernel
-sample_topk.bisect3_launches = 0  # those with the quartile search

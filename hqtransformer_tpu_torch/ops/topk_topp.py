@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import tracing
 from .sample_topk import inverse_cdf_draw, sample_topk, scaled_logits
 
 BISECT_ITERS = 30
@@ -84,6 +85,7 @@ def nucleus_probs(logits: torch.Tensor, temperature: float,
     return cutoff_topp_probs(torch.softmax(x, dim=-1), top_p)
 
 
+@tracing.span('ar.draw')
 def sample_from_logits(generator: torch.Generator, logits: torch.Tensor, *,
                        temperature: float = 1.0,
                        top_k: Optional[int] = None,

@@ -32,6 +32,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import tracing
 from . import cuda_build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -197,8 +198,5 @@ def vq_argmin(z_flat: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
                    pack_pairs(pairs), stream)
     if rc != 0:
         raise RuntimeError(f'vq_argmin kernel launch failed: CUDA error {rc}')
-    vq_argmin.launches += 1
+    tracing.count('k3.launches')
     return codes
-
-
-vq_argmin.launches = 0

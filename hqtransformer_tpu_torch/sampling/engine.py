@@ -75,6 +75,7 @@ from ..models.stage2.multilevel import NO_PHASES, MultiLevelHQTransformer
 from ..models.stage2.transformer import IGPT, Transformer1d
 from ..ops.int8 import Int8Serving
 from ..ops.topk_topp import sample_from_logits
+from ..utils import tracing
 
 Scales = Mapping[str, Mapping[str, torch.Tensor]]
 
@@ -257,7 +258,8 @@ def _serving_loop(model: Model, labels: torch.Tensor, max_seq_len: int,
     bottoms [B, ratio]) for 2 levels, (top, mids [B, 4], bottoms
     [B, 16]) for 3, (code [B],) for the flat baselines), and embed them
     for the next spatial step. Returns ([out of every position],
-    (k_caches, v_caches))."""
+    (k_caches, v_caches)). Each position's spatial step and depth call are
+    the spans `ar.spatial` and `ar.depth` (`utils/tracing.py`)."""
     B = labels.shape[0]
     with model.serving(int8, scales):
         sos = model.sos_tokens(B, labels)
@@ -267,13 +269,15 @@ def _serving_loop(model: Model, labels: torch.Tensor, max_seq_len: int,
         outs = []
         for i in range(max_seq_len):
             if i:
-                position = torch.full((B,), i - 1, dtype=torch.long,
-                                      device=sos.device)
-                x = model.embed_cell_step(*codes, position,
-                                          int8=int8.spatial_gemms)
-                h = model.spatial_step(x, kc, vc, sos_len + i - 1,
-                                       int8.spatial_gemms)
-            codes, out = depth(i, h[:, -1])
+                with tracing.span('ar.spatial'):
+                    position = torch.full((B,), i - 1, dtype=torch.long,
+                                          device=sos.device)
+                    x = model.embed_cell_step(*codes, position,
+                                              int8=int8.spatial_gemms)
+                    h = model.spatial_step(x, kc, vc, sos_len + i - 1,
+                                           int8.spatial_gemms)
+            with tracing.span('ar.depth'):
+                codes, out = depth(i, h[:, -1])
             outs.append(out)
     return outs, (kc, vc)
 

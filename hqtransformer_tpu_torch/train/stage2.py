@@ -25,7 +25,9 @@ norm is summed over the tp group, and `train_state_dict` /
 `load_train_state` gather and cut them, so a checkpoint holds whole
 tensors and resumes at any tp size. Stage 1 is replicated: every tp rank
 encodes its dp shard. Like the JAX step, it runs the stage-2 model
-deterministic: no dropout.
+deterministic: no dropout. A step is the span `train.step` around
+`train.stage1_codes`, `train.forward` (the model and the loss),
+`train.backward` and `train.optimizer` (`utils/tracing.py`).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from torch import nn
 from ..parallel.ddp import average_gradients
 from ..parallel.tp import (ParallelLayout, gather_state, shard_state,
                            sharded_names)
+from ..utils import tracing
 from .optim import OptState, Optimizer, decayed, grads_of, named_trainable
 from .scheduler import Schedule
 
@@ -192,16 +195,20 @@ def make_loss_fn(model2: nn.Module, stage1: nn.Module, *,
 
     def loss_fn(images: torch.Tensor, labels: torch.Tensor,
                 soft: bool = True):
-        codes, softs = stage1_codes(stage1, images,
-                                    temp_soft_labels if soft else None)
+        with tracing.span('train.stage1_codes'):
+            codes, softs = stage1_codes(stage1, images,
+                                        temp_soft_labels if soft else None)
         cond = labels if use_cond else None
-        if multilevel:
-            return multilevel_loss(model2(codes, cond), codes, softs, labels,
-                                   weight_img=weight_img,
-                                   weight_txt=weight_txt)
-        return hierarchical_loss(model2(codes[0], codes[1], cond), codes,
-                                 softs, labels, weight_bottom=weight_bottom,
-                                 weight_img=weight_img, weight_txt=weight_txt)
+        with tracing.span('train.forward'):
+            if multilevel:
+                return multilevel_loss(model2(codes, cond), codes, softs,
+                                       labels, weight_img=weight_img,
+                                       weight_txt=weight_txt)
+            return hierarchical_loss(model2(codes[0], codes[1], cond), codes,
+                                     softs, labels,
+                                     weight_bottom=weight_bottom,
+                                     weight_img=weight_img,
+                                     weight_txt=weight_txt)
 
     return loss_fn
 
@@ -223,13 +230,17 @@ def make_train_step(model2: nn.Module, stage1: nn.Module,
     if layout is not None and layout.tp > 1:
         sum_squares = layout.sum_squares(sharded_names(model2))
 
+    @tracing.span('train.step')
     def train_step(state: TrainState, images: torch.Tensor,
                    labels: torch.Tensor):
         loss, metrics = loss_fn(images, labels)
-        grads = grads_of(loss, state.params)
+        with tracing.span('train.backward'):
+            grads = grads_of(loss, state.params)
         if dp_group is not None:
             average_gradients(grads, dp_group)
-        optimizer.update(grads, state.opt_state, state.params, sum_squares)
+        with tracing.span('train.optimizer'):
+            optimizer.update(grads, state.opt_state, state.params,
+                             sum_squares)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 

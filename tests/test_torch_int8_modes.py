@@ -54,6 +54,7 @@ from hqtransformer_tpu_torch.ops import int8 as q8  # noqa: E402
 from hqtransformer_tpu_torch.sampling.engine import (  # noqa: E402
     SamplingParams, make_hierarchical_sampler, make_igpt_sampler,
     make_txt2img_sampler)
+from hqtransformer_tpu_torch.utils import tracing  # noqa: E402
 
 from test_torch_depth_modes import (  # noqa: E402
     GREEDY, LABELS, MODES, codes, config)
@@ -195,20 +196,21 @@ def test_int8_sampler_serves_the_mode(mode):
     tm.load_weights(weights)
     labels = torch.from_numpy(labels)
     greedy = SamplingParams(**GREEDY)
-    before = q8.int8_matmul.launches
+    before = tracing.counter('int8.matmul_launches')
     (codes_t, codes_b), (kc, vc) = make_hierarchical_sampler(
         tm.stage2, N_TOP, greedy, q8.INT8MAX, scales, return_caches=True)(
             torch.Generator(), labels)
     assert kc.dtype == vc.dtype == torch.int8
-    assert q8.int8_matmul.launches - before == 2 * SPATIAL_GEMMS * N_TOP
+    assert tracing.counter('int8.matmul_launches') - before == \
+        2 * SPATIAL_GEMMS * N_TOP
     assert codes_t.shape == (B, N_TOP) and codes_b.shape == (B, N_TOP, 4)
     plain = make_hierarchical_sampler(tm.stage2, N_TOP, greedy)(
         torch.Generator(), labels)
-    before = q8.int8_matmul.launches
+    before = tracing.counter('int8.matmul_launches')
     depth_only = make_hierarchical_sampler(
         tm.stage2, N_TOP, greedy, q8.Int8Serving(depth_gemms=True),
         scales)(torch.Generator(), labels)
-    assert q8.int8_matmul.launches == before
+    assert tracing.counter('int8.matmul_launches') == before
     for a, b in zip(plain, depth_only):
         assert torch.equal(a, b)
 
@@ -405,11 +407,11 @@ def test_igpt_pixel_sampler_int8(tmp_path):
                                       N_TOP, top_k=8)
     scales.update(bf.calibrate_int8_decode(w16, torch.from_numpy(maps),
                                            None))
-    before = q8.int8_conv2d.launches
+    before = tracing.counter('int8.conv2d_launches')
     px, out = bf.make_pixel_sampler_igpt(
         top_k=8, int8=q8.Int8Serving(kv_cache=True, decode_convs=True),
         scales=scales)(w16, torch.Generator().manual_seed(2), labels)
-    assert q8.int8_conv2d.launches > before
+    assert tracing.counter('int8.conv2d_launches') > before
     assert px.shape == (B, 32, 32, 3) and out.shape == (B, N_TOP)
     assert bool(torch.isfinite(px).all()) and 0 <= float(px.min()) and \
         float(px.max()) <= 1

@@ -45,6 +45,7 @@ from hqtransformer_tpu_torch.models.stage2.multilevel import \
 from hqtransformer_tpu_torch.ops import int8 as q8  # noqa: E402
 from hqtransformer_tpu_torch.sampling.engine import (  # noqa: E402
     LevelSampling, make_multilevel_sampler)
+from hqtransformer_tpu_torch.utils import tracing  # noqa: E402
 
 from test_torch_int8 import (  # noqa: E402
     STAGE2_MODES, _assert_near_jax, _intercepting, _np, _same_scales)
@@ -190,11 +191,11 @@ def test_int8_quantizers_match_jax_on_its_activations(bf16_models,
                         np.asarray(cache)[layer, row:row + T])
                 rows[layer] = row + T
         quantized = _quantized(model)
-        before = q8.int8_matmul.launches
+        before = tracing.counter('int8.matmul_launches')
         model.depth_phase_cached(
             torch.from_numpy(np.array(_np(h[:, -1]))).bfloat16(), None, None,
             None, 0, int8=True)
-        assert q8.int8_matmul.launches - before == 13
+        assert tracing.counter('int8.matmul_launches') - before == 13
         # phase 0's K/V: each depth layer's ln1 output through the float
         # fused K/V product gives JAX's K/V, within one bf16 ulp (the two
         # bf16 gemms sum in another order) and mostly equal; the A8W8 K/V
@@ -503,9 +504,8 @@ def test_twostage_int8max_level3_surface():
     scales.update(tm.calibrate_stage2_int8(weights, rasters, labels))
     sampler = tm.make_pixel_sampler_multilevel(int8=q8.INT8MAX,
                                                scales=scales)
-    counts = (q8.int8_matmul, q8.int8_conv2d)
-    for c in counts:
-        c.launches = 0
+    gemms, convs = (tracing.counter('int8.matmul_launches'),
+                    tracing.counter('int8.conv2d_launches'))
     pixels, codes = sampler(weights, torch.Generator().manual_seed(4),
                             labels)
     assert pixels.shape == (8, 64, 64, 3) and pixels.dtype == torch.bfloat16
@@ -515,8 +515,9 @@ def test_twostage_int8max_level3_surface():
         assert int(c.min()) >= 0 and int(c.max()) < v
     # 2 spatial layers x 4 gemms x 16 positions, 4 depth layers x 15
     # gemms and 3 heads a position
-    assert q8.int8_matmul.launches == 16 * (2 * 4 + 4 * 11 + 3)
-    assert q8.int8_conv2d.launches > 0
+    assert tracing.counter('int8.matmul_launches') - gemms == \
+        16 * (2 * 4 + 4 * 11 + 3)
+    assert tracing.counter('int8.conv2d_launches') > convs
     _, (kc, vc) = make_multilevel_sampler(
         tm.stage2, N_TOP, int8=q8.INT8MAX, scales=scales,
         return_caches=True)(torch.Generator(), labels)

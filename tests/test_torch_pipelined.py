@@ -29,6 +29,7 @@ from hqtransformer_tpu_torch.models.twostage import (  # noqa: E402
 from hqtransformer_tpu_torch.ops import int8 as q8  # noqa: E402
 from hqtransformer_tpu_torch.sampling.engine import \
     SamplingParams  # noqa: E402
+from hqtransformer_tpu_torch.utils import tracing  # noqa: E402
 from test_torch_int8 import _intercepting  # noqa: E402
 
 CFG = 'configs/tiny/stage2-tiny.yaml'
@@ -79,7 +80,8 @@ def test_pipelined_fill_and_steady_calls(bf16_model, mode):
     piped = tm.make_pipelined_sampler(params=SP, int8=int8, scales=scales)
     px0, codes0 = plain(weights, torch.Generator().manual_seed(1), labels)
     px1, codes1 = plain(weights, torch.Generator().manual_seed(2), labels)
-    counts = q8.int8_matmul.launches, q8.int8_conv2d.launches
+    counts = (tracing.counter('int8.matmul_launches'),
+              tracing.counter('int8.conv2d_launches'))
 
     fill_codes, fill_px = piped(weights, torch.Generator().manual_seed(1),
                                 labels)
@@ -92,8 +94,8 @@ def test_pipelined_fill_and_steady_calls(bf16_model, mode):
         assert torch.equal(a, b)
     assert torch.equal(lag_px, px0)
     assert lag_px.shape == (4, 32, 32, 3) and lag_px.dtype == torch.bfloat16
-    ran = (q8.int8_matmul.launches > counts[0],
-           q8.int8_conv2d.launches > counts[1])
+    ran = (tracing.counter('int8.matmul_launches') > counts[0],
+           tracing.counter('int8.conv2d_launches') > counts[1])
     assert ran == ((True, True) if mode == 'int8max' else (False, False))
 
 
@@ -175,7 +177,7 @@ def test_int8_decode_matches_jax(monkeypatch):
             assert not np.array_equal(
                 conv(xt).float().permute(0, 2, 3, 1).numpy(), y), name
             conv.q8 = w
-        before = q8.int8_conv2d.launches
+        before = tracing.counter('int8.conv2d_launches')
         px = tm.stage1.decode_code(torch.from_numpy(ct), torch.from_numpy(cb))
-    assert q8.int8_conv2d.launches - before == 29
+    assert tracing.counter('int8.conv2d_launches') - before == 29
     assert px.shape == (3, 32, 32, 3) and bool(torch.isfinite(px).all())
