@@ -7,6 +7,8 @@ NVIDIA GPU. Run from the root of a checkout, with no arguments:
 With `--k1-only` it runs phase 1, decode attention's checks and timings
 of phases 2 and 7 and the K1 sweep, and stops without the result line
 (to compare two commits' K1, run it in a checkout of each, in turns).
+With `--gn-only` it runs phases 1 and 18 and prints phase 18's kernel
+entry as its JSON line.
 
 1. Device: prints the card, `nvidia-smi`'s name and power limit, the torch
    and CUDA versions; builds every CUDA kernel from
@@ -222,6 +224,10 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
      K2), its bottom codes decoded with the top codes by stage 1; both AR
      loops profiled.
    Every call goes through `checked_call` (samples/s, peak memory).
+   Every sampler call of every phase, there and elsewhere, also requires
+   the GroupNorm kernel at each GroupNorm of the stage-1 decoder in each
+   decode chunk (`gn.launches`: 33 a flagship chunk of 128, 27 a 3-level
+   one) and no layout copy (`gn.layout_copies`).
    At the end, the tiny f32 bidirectional, top2bot, IGPT and
    Transformer1d models sample greedily on the card and on the CPU:
    equal codes.
@@ -306,7 +312,8 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    (`hqtransformer-l12-top8x8.yaml`, 12 layers, d 1536) and its stage 1
    on seeded random weights, batch 64, f32 and bf16: 2 warm-up and 10
    timed steps on seeded images (ms a step, images/s, peak memory),
-   exactly 2 K3 launches a step and no K1 or K2, finite losses and
+   exactly 2 K3 launches a step and no K1 or K2, 22 GroupNorm kernel
+   pairs a step (the frozen encoder's) and no layout copy, finite losses and
    gradient norm; the f32 step broken down (stage-1 codes, forward and
    backward, optimizer) under the profiler; one repeated batch at a
    constant lr 1e-4: the loss falls over 10 steps; `remat` gradients
@@ -324,8 +331,10 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    (`hqvae-pixelshuffle-top8x8.yaml`) at batch 16, f32, the GAN active
    from step 0, LPIPS on seeded He-scaled random VGG16 weights: the
    faithful step (2 warm-up, 5 timed: images/s, peak memory, exactly 4
-   K3 launches a step, every EMA buffer changed, d_weight finite and
-   positive; one step profiled), the fast step likewise (2 K3 a step), one
+   K3 launches a step, 55 GroupNorm kernel pairs a step (its no-grad
+   generator forward; the rest is autograd) and no layout copy, every
+   EMA buffer changed, d_weight finite and positive; one step profiled),
+   the fast step likewise (2 K3 and no GroupNorm kernel a step), one
    bf16 step; the tiny stage 1's 2 f32 steps on the card and the CPU
    (the tests' bounds); `cli.main_stage1` in a subprocess, --max-steps 2
    with --lpips-vgg (a torchvision-layout file of the random weights),
@@ -385,6 +394,30 @@ of phases 2 and 7 and the K1 sweep, and stops without the result line
    JSON line gains `decode_attention_tp2`, `decode_attention_tp4`,
    `decode_attention_int8_tp2` and `decode_attention_int8_tp4` (launches
    a rank of the tp 2 and tp 4 sampler calls).
+
+18. The GroupNorm-swish kernel (`csrc/group_norm.cu`, no TPU
+   counterpart), after phase 17: a flagship decode chunk (bf16, batch
+   128, seeded random codes and bf16 serving weights), a 3-level decode
+   chunk (batch 128) and stage-2 training's frozen encode (bf16 on f32
+   weights, batch 64), each run once with a hook on every GroupNorm:
+   exactly 33, 27 and 22 kernel pairs (`gn.launches`), no layout copy
+   (`gn.layout_copies`), every input and output channels-last, the
+   pixels NHWC-contiguous. The statistics on f32 maps at every served
+   shape (and one 40 off 0) against float64: the normalised values within
+   twice F.group_norm's error plus 1e-6. Then the kernel against its plain
+   version at every (batch, C, H, W, dtype, weight dtype, swish) those
+   runs recorded, on seeded maps whose channels have means in [-3, 3] and
+   spreads in [0.5, 2], and at f32 maps, bf16 weights, maps 8 and 40 off
+   0, C 64 and 32 and a short last tile, and an NCHW input (one layout
+   copy counted): in bf16 within a bf16 step of the pre-swish value
+   carried through swish plus 1e-5, with at most 1% of the elements
+   differing at all, in f32 within 1e-5 of max(1, |value|) (the
+   statistics' sums in another order; `GN_STEP`); the kernel repeats
+   itself bit for bit. Then timed at every served shape (bf16, swish) beside its plain version, F.silu(F.group_norm) and
+   the bytes bound (the map read once and written once at 3.35 TB/s),
+   summed over each path's sites, and the flagship decode chunk profiled.
+   The JSON line gains `group_norm` (its times at [128, 128, 256, 256],
+   the decoder's `norm_out`; launches a flagship decode chunk).
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
@@ -1313,8 +1346,17 @@ def sampling_shape(model):
     return n, draws, [(n,), (n, s2.ratio_bot2top)]
 
 
+def gn_count(stage1, part):
+    """The GroupNorms of `stage1`'s `part` ('encoder' or 'decoder'): the
+    GroupNorm kernel pairs one pass of it launches outside autograd."""
+    from hqtransformer_tpu_torch.models.stage1.layers import GroupNorm
+    return sum(isinstance(m, GroupNorm)
+               for m in getattr(stage1, part).modules())
+
+
 def checked_call(model, call, labels, name, da, st, q8, int8=False,
-                 bisect3=False, top_p=False, a8w8=None):
+                 bisect3=False, top_p=False, a8w8=None, stage1=None,
+                 decode_chunk=128):
     """One call of a sampler, checked: `call()` gives (pixels, codes) for
     `labels`' batch n, codes one tensor or a tuple of the levels' (see
     `sampling_shape`: N positions, each of the shapes there with a leading
@@ -1324,8 +1366,11 @@ def checked_call(model, call, labels, name, da, st, q8, int8=False,
     quartile search with `bisect3`; none with `top_p`, whose draws leave
     the kernel as in JAX); int8 gemms and convolutions counted with
     `int8`, none without, unless `a8w8` says which of the two must run
-    (the flat baselines' int8 cache runs no gemm). Prints samples/s and
-    peak memory; returns (codes, samples/s)."""
+    (the flat baselines' int8 cache runs no gemm); the GroupNorm kernel
+    once at each GroupNorm of `stage1`'s decoder (`model.stage1` unless
+    given) in each `decode_chunk`-sample chunk of the n samples
+    (`gn.launches`), and no layout copy (`gn.layout_copies`). Prints
+    samples/s and peak memory; returns (codes, samples/s)."""
     n = labels.shape[0]
     n_top, draws, sample_shapes = sampling_shape(model)
     res = model.config.dataset.image_resolution
@@ -1333,7 +1378,7 @@ def checked_call(model, call, labels, name, da, st, q8, int8=False,
     torch.cuda.reset_peak_memory_stats()
     reset_counts('k1.launches', 'k2.launches', 'int8.matmul_launches',
                  'int8.conv2d_launches', 'k1.int8_launches',
-                 'k2.bisect3_launches')
+                 'k2.bisect3_launches', 'gn.launches', 'gn.layout_copies')
     with k1_positions() as positions:
         t0 = time.perf_counter()
         pixels, codes = call()
@@ -1357,6 +1402,11 @@ def checked_call(model, call, labels, name, da, st, q8, int8=False,
     require((gemms > 0, convs > 0) == ((int8, int8) if a8w8 is None
                                        else a8w8),
             f'{name} int8 gemms, convs {(gemms, convs)}')
+    gn = (since_reset('gn.launches'), since_reset('gn.layout_copies'))
+    gn_want = (gn_count(stage1 or model.stage1, 'decoder') *
+               -(-n // decode_chunk), 0)
+    require(gn == gn_want, f'{name} GroupNorm kernel pairs, layout copies '
+            f'{gn}, expected {gn_want}')
     levels = codes if isinstance(codes, tuple) else (codes,)
     shapes = [(n,) + s for s in sample_shapes]
     require([tuple(c.shape) for c in levels] == shapes,
@@ -1373,7 +1423,8 @@ def checked_call(model, call, labels, name, da, st, q8, int8=False,
     print(f'{name}: {seconds:.3f} s, {n / seconds:.2f} samples/s at batch '
           f'{n}, peak {peak:.2f} GiB, launches K1={launches[0]} (int8 '
           f'{launches[1]}, pos {span[0]}..{span[1]}) K2={launches[2]} '
-          f'(bisect3 {launches[3]}), int8 gemms {gemms}, int8 convs {convs}')
+          f'(bisect3 {launches[3]}), int8 gemms {gemms}, int8 convs {convs}, '
+          f'GroupNorm kernels {gn[0]} (no layout copy)')
     return codes, n / seconds
 
 
@@ -2714,7 +2765,7 @@ def run_given_top_and_top_p(da, st, q8):
     for call in (1, 2):
         codes, _ = checked_call(model, given_call, labels,
                                 f'flagship use_given_top call {call}', da,
-                                st, q8)
+                                st, q8, decode_chunk=labels.shape[0])
         require(torch.equal(codes[0], given.int()),
                 'use_given_top codes_t differ from the given codes')
     print('use_given_top: codes_t equal the given codes')
@@ -2770,7 +2821,8 @@ def run_flat_baselines(da, st, q8):
     for call in (1, 2):
         checked_call(bot_model, pair_call, prefix,
                      f'Transformer1d bf16 call {call} (+ stage-1 decode of '
-                     f'top and bottom)', da, st, q8)
+                     f'top and bottom)', da, st, q8, stage1=top_model.stage1,
+                     decode_chunk=prefix.shape[0])
     k1 = since_reset('k1.launches')
     bot_model.load_weights(bot_weights)
     profile_phases((('Transformer1d AR loop',
@@ -3363,7 +3415,8 @@ def run_int8_flat(da, st, q8):
             _, rates[name] = checked_call(
                 bot_model, pair_call, prefix,
                 f'Transformer1d {name} call {call} (+ bf16 stage-1 decode)',
-                da, st, q8, int8=int8.kv_cache, a8w8=(False, False))
+                da, st, q8, int8=int8.kv_cache, a8w8=(False, False),
+                stage1=top_model.stage1, decode_chunk=prefix.shape[0])
     k1 = since_reset('k1.int8_launches')
     print(f'Transformer1d int8 cache: {rates["int8 cache"]:.2f} samples/s '
           f'against bf16 {rates["bf16"]:.2f} in this run '
@@ -4124,11 +4177,13 @@ def stage2_trainer(cfg, model, schedule=None, layout=None):
 
 
 def time_training(name, step, state, batches, kernels, k3_per_step, n_steps,
-                  batch, loss_key='loss', rng=None):
+                  batch, loss_key='loss', rng=None, gn_per_step=0):
     """TRAIN_WARMUP steps, then n_steps timed (host clock around them,
     ending in a synchronisation) with the launch counters set to 0 just
     before: exactly k3_per_step K3 launches a step and no K1 or K2,
-    finite losses. Returns (state, ms a step, K3 launches)."""
+    gn_per_step GroupNorm kernel pairs a step (the GroupNorms that run
+    outside autograd) and no layout copy, finite losses. Returns (state,
+    ms a step, K3 launches)."""
     vq, da, st = kernels
     extra = () if rng is None else (rng,)
 
@@ -4139,7 +4194,8 @@ def time_training(name, step, state, batches, kernels, k3_per_step, n_steps,
         state, _ = step(state, *args(i))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts('k3.launches', 'k1.launches', 'k2.launches')
+    reset_counts('k3.launches', 'k1.launches', 'k2.launches', 'gn.launches',
+                 'gn.layout_copies')
     losses = []
     t0 = time.perf_counter()
     for i in range(n_steps):
@@ -4152,12 +4208,17 @@ def time_training(name, step, state, batches, kernels, k3_per_step, n_steps,
     require(counts == (k3_per_step * n_steps, 0, 0),
             f'{name}: launches (K3, K1, K2) {counts} in {n_steps} steps, '
             f'not {k3_per_step} K3 a step')
+    gn = (since_reset('gn.launches'), since_reset('gn.layout_copies'))
+    require(gn == (gn_per_step * n_steps, 0), f'{name}: GroupNorm kernel '
+            f'pairs, layout copies {gn} in {n_steps} steps, not '
+            f'{gn_per_step} a step and no copy')
     require(all(math.isfinite(v) for v in losses), f'{name}: losses {losses}')
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'{name}: {ms:.1f} ms a step, {batch / ms * 1e3:.2f} images/s at '
           f'batch {batch} ({n_steps} steps after {TRAIN_WARMUP}), '
-          f'{counts[0] // n_steps} K3 launches a step, no K1 or K2, peak '
-          f'{peak:.2f} GiB; {loss_key} {losses[0]:.4f} .. {losses[-1]:.4f}')
+          f'{counts[0] // n_steps} K3 launches a step, no K1 or K2, '
+          f'{gn_per_step} GroupNorm kernels a step, peak {peak:.2f} GiB; '
+          f'{loss_key} {losses[0]:.4f} .. {losses[-1]:.4f}')
     return state, ms, counts[0]
 
 
@@ -4336,8 +4397,11 @@ def run_stage2_training(vq, da, st):
             del weights
         step, state, opt = stage2_trainer(cfg, model)
         name = f'stage-2 training {str(dtype)[6:]}'
-        state, ms, k3 = time_training(name, step, state, batches, kernels,
-                                      2, TRAIN_STEPS2, B_TRAIN2)
+        # the frozen stage 1 encodes outside autograd: the kernel at each
+        # of its encoder's GroupNorms
+        state, ms, k3 = time_training(
+            name, step, state, batches, kernels, 2, TRAIN_STEPS2, B_TRAIN2,
+            gn_per_step=gn_count(model.stage1, 'encoder'))
         x, y = batches[0]
         loss, _ = step.loss_fn(x, y)
         norm = global_norm(grads_of(loss, state.params))
@@ -4560,12 +4624,16 @@ def run_stage1_training(vq, da, st):
     rng = torch.Generator(device='cuda').manual_seed(16)
     launches = None
     for fast, k3 in ((False, 4), (True, 2)):
-        step, state, _ = stage1_trainer(cfg, torch.float32, 16, fast)
+        step, state, generator = stage1_trainer(cfg, torch.float32, 16, fast)
         ema = {k: v.clone() for k, v in state.ema.items()}
         name = f'stage-1 training f32 {"fast" if fast else "faithful"}'
+        # the faithful discriminator phase runs the generator again under
+        # no_grad: the kernel at each of its GroupNorms; the rest is autograd
+        gn_step = 0 if fast else sum(gn_count(generator, part) for part in
+                                     ('encoder', 'decoder'))
         state, ms, n = time_training(name, step, state, batches, kernels,
                                      k3, TRAIN_STEPS1, B_TRAIN1,
-                                     'total_loss', rng)
+                                     'total_loss', rng, gn_step)
         state, m = step(state, batches[0][0], rng)
         d_weight = float(m['d_weight'])
         require(math.isfinite(d_weight) and d_weight > 0,
@@ -4840,7 +4908,7 @@ def tp_sampler_call(layout, name, da, st, q8, int8=None, scales=None,
     t0 = time.perf_counter()
     codes, _ = checked_call(model, lambda: sampler(weights, gen, labels),
                             layout.rows(labels), name, da, st, q8,
-                            int8=int8.kv_cache)
+                            int8=int8.kv_cache, decode_chunk=32)
     seconds = time.perf_counter() - t0
     launches = (since_reset('k1.launches'), since_reset('k2.launches'))
     ref = [c.cuda() for c in torch.load(TP_DIR / f'ref_codes{tag}.pt')]
@@ -5441,6 +5509,308 @@ def run_tensor_parallel(da, st, vq):
         launches[tp, True], errs8[tp], times8[tp]) for tp in (2, 4)})
     return out
 
+# ------------------------------------------- phase 18: GroupNorm-swish kernel
+
+GN_SEEDS = {'decode': 181, 'encode': 183}
+# |kernel - plain| allowed. The kernel sums the statistics in another order,
+# which moves the f32 value y = a x + b by about 1e-6 of the map's scale
+# (maps here are of unit scale; `gn_accuracy` holds the statistics to
+# float64). In bf16 that moves y across a rounding boundary now and then:
+# the rounded y of the two differ by at most a step, 2^-7 |y|. Swish
+# carries that through its slope (at most 1.1) and adds a step of the
+# rounded sigmoid times |y| (2^-7 |out|) and one of the rounded product
+# (2^-7 |out|): |diff| <= 2^-7 (1.1 |y| + 2 |out|) + GN_ABS, GN_ABS for
+# values near 0, whose steps are finer than the statistics' own error; at
+# most GN_SHARE of the elements may differ at all. In f32 nothing rounds to
+# a coarser type: GN_ABS of max(1, |value|).
+GN_STEP = 2.0 ** -7
+GN_ABS = 1e-5
+GN_SHARE = 0.01
+
+
+def gn_generator(cfg, dtype, serving):
+    """A stage-1 generator of `cfg` on the card, computing in `dtype`, with
+    seeded random weights: bf16 serving weights (1-D ones, GroupNorm's
+    among them, stay f32) or the f32 weights training holds."""
+    from hqtransformer_tpu_torch.evaluation.stage1 import init_stage1_weights
+    from hqtransformer_tpu_torch.models.stage1.generator import \
+        build_generator
+    from hqtransformer_tpu_torch.models.twostage import serving_bf16_params
+
+    with torch.device('meta'):
+        gen = build_generator(cfg, dtype)
+    weights = init_stage1_weights(cfg, seed=180, device='cuda')
+    if serving:
+        weights = serving_bf16_params(weights)
+    gen.load_state_dict(weights, strict=True, assign=True)
+    return gen.eval().requires_grad_(False)
+
+
+def gn_sites(name, gen, run, launches):
+    """Run `run()` once with a hook on every GroupNorm: require `launches`
+    kernel pairs, no layout copy, every input and output channels-last;
+    return {(B, C, H, W, dtype, weight dtype, swish): sites}."""
+    from hqtransformer_tpu_torch.models.stage1.layers import GroupNorm
+    from hqtransformer_tpu_torch.ops import group_norm as gn
+
+    sites, layouts = {}, []
+
+    def pre(m, args, kwargs):
+        x = args[0]
+        key = (*x.shape, x.dtype, m.weight.dtype, kwargs.get('swish', False))
+        sites[key] = sites.get(key, 0) + 1
+        layouts.append(gn.is_channels_last(x))
+
+    def post(m, args, kwargs, out):
+        layouts.append(gn.is_channels_last(out))
+
+    hooks = [h for m in gen.modules() if isinstance(m, GroupNorm)
+             for h in (m.register_forward_pre_hook(pre, with_kwargs=True),
+                       m.register_forward_hook(post, with_kwargs=True))]
+    reset_counts('gn.launches', 'gn.layout_copies')
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    got = (since_reset('gn.launches'), since_reset('gn.layout_copies'))
+    require(got == (launches, 0), f'{name}: gn.launches, gn.layout_copies '
+            f'{got}, expected ({launches}, 0)')
+    require(all(layouts), f'{name}: a GroupNorm input or output is not '
+            f'channels-last')
+    require(out.dim() != 4 or out.is_contiguous(), f'{name}: pixels not '
+            f'NHWC-contiguous')
+    print(f'{name}: gn.launches {got[0]}, gn.layout_copies {got[1]}, every '
+          f'GroupNorm input and output channels-last; output '
+          f'{tuple(out.shape)}')
+    return sites
+
+
+def gn_main_paths():
+    """The flagship decode chunk (bf16 serving weights, batch 128), the
+    3-level decode chunk (batch 128) and stage-2 training's frozen encode
+    (bf16 on f32 weights, batch 64), each run once on the card with its
+    counts checked. Returns their sites and the flagship decode chunk."""
+    from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.train import stage2 as tr2
+
+    g = torch.Generator(device='cuda').manual_seed(GN_SEEDS['decode'])
+
+    def codes(*sides):
+        return [torch.randint(0, N_CODES, (B, s, s), generator=g,
+                              device='cuda') for s in sides]
+
+    flagship = build_twostage_config(str(FLAGSHIP)).stage1
+    gen = gn_generator(flagship, torch.bfloat16, serving=True)
+    ct, cb = codes(8, 16)
+
+    @torch.inference_mode()
+    def decode():
+        return gen.decode_code(ct, cb)
+
+    sites = {'flagship decode chunk': gn_sites(
+        'flagship decode chunk (batch 128)', gen, decode, 33)}
+    level3 = build_twostage_config(str(LEVEL3_S2)).stage1
+    gen3 = gn_generator(level3, torch.bfloat16, serving=True)
+    maps = codes(8, 16, 32)
+    sites['3-level decode chunk'] = gn_sites(
+        '3-level decode chunk (batch 128)', gen3,
+        torch.inference_mode()(lambda: gen3.decode_code(maps)), 27)
+    del gen3, maps
+    train = gn_generator(flagship, torch.bfloat16, serving=False)
+    images = seeded_images(B_TRAIN2, flagship.hparams.resolution,
+                           seed=GN_SEEDS['encode'])
+    sites['training encode'] = gn_sites(
+        'stage-2 training encode (batch 64)', train,
+        lambda: torch.stack([c.float().mean() for c in tr2.stage1_codes(
+            train, images)[0]]), 22)
+    del train, images
+    return sites, decode
+
+
+def gn_case(b, c, h, w, dtype, w_dtype, seed, offset=0.0):
+    """A channels-last [b, c, h, w] map whose channels have means in
+    offset + [-3, 3] and spreads in [0.5, 2], and a weight and bias of c."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    mean = torch.rand(c, generator=g, device='cuda') * 6 - 3 + offset
+    std = torch.rand(c, generator=g, device='cuda') * 1.5 + 0.5
+    x = torch.randn((b, h, w, c), generator=g, device='cuda')
+    x = (x.mul_(std).add_(mean)).to(dtype).permute(0, 3, 1, 2)
+    weight = (torch.rand(c, generator=g, device='cuda') + 0.5).to(w_dtype)
+    bias = (torch.randn(c, generator=g, device='cuda') * 0.5).to(w_dtype)
+    return x, weight, bias
+
+
+def gn_compare(gn, x, weight, bias, with_swish, label):
+    """The kernel against the plain version on one map: require the bounds
+    above; returns (max |diff|, share of elements that differ)."""
+    got = gn.group_norm_swish(x, weight, bias, 1e-6, with_swish)
+    torch.cuda.synchronize()
+    want = gn.group_norm_swish_plain(x, weight, bias, 1e-6, with_swish)
+    require(got.dtype == x.dtype and gn.is_channels_last(got),
+            f'{label}: output {got.dtype}, not channels-last')
+    diff = (got.float() - want.float()).abs()
+    out = torch.maximum(got.float().abs(), want.float().abs())
+    if x.dtype == torch.bfloat16:
+        y = (gn.group_norm_swish_plain(x, weight, bias, 1e-6).float().abs()
+             if with_swish else out)
+        allowed = GN_STEP * (1.1 * y + 2 * out) + GN_ABS
+    else:
+        allowed = GN_ABS * out.clamp(min=1.0)
+    share = float((diff > 0).float().mean())
+    err = float(diff.max())
+    use = float((diff / allowed).max())
+    print(f'  group_norm {label}: max |diff| {err:.3e}, largest share of the '
+          f'bound used {use:.3f}, elements differing {share:.2e}')
+    if use > 1:
+        i = int((diff / allowed).flatten().argmax())
+        print(f'    worst: kernel {float(got.flatten()[i])}, plain '
+              f'{float(want.flatten()[i])}, allowed '
+              f'{float(allowed.flatten()[i])}')
+    require(use <= 1 and bool(torch.isfinite(got).all()),
+            f'group_norm {label}: beyond the bound')
+    if x.dtype == torch.bfloat16:
+        require(share <= GN_SHARE, f'group_norm {label}: {share:.2e} of the '
+                f'elements differ')
+    return err, share
+
+
+def gn_accuracy(gn, b, c, h, w, seed, offset=0.0):
+    """The statistics against float64: the kernel (at the served batch,
+    so at the served tiles) and F.group_norm on the same f32 map, weight 1,
+    bias 0, no swish; each one's largest |error| of the normalised value
+    over the first 16 samples. Requires the kernel's to be within twice
+    F.group_norm's plus 1e-6: its sums are as sound as PyTorch's Welford."""
+    x, _, _ = gn_case(b, c, h, w, torch.float32, torch.float32, seed,
+                      offset=offset)
+    one = torch.ones(c, device='cuda')
+    zero = torch.zeros(c, device='cuda')
+    k = gn.group_norm_swish(x, one, zero, 1e-6)[:16]
+    p = torch.nn.functional.group_norm(x, 32, one, zero, 1e-6)[:16]
+    n = min(b, 16)
+    g = x[:n].double().permute(0, 2, 3, 1).reshape(n, h * w, 32, c // 32)
+    var, mean = torch.var_mean(g, dim=(1, 3), correction=0, keepdim=True)
+    ref = ((g - mean) * (var + 1e-6).rsqrt()).reshape(n, h, w, c).permute(
+        0, 3, 1, 2)
+    ek = float((k.double() - ref).abs().max())
+    ep = float((p.double() - ref).abs().max())
+    print(f'  group_norm statistics [{b}, {c}, {h}, {w}] f32, offset '
+          f'{offset}: |normalised - float64| kernel {ek:.3e}, F.group_norm '
+          f'{ep:.3e}')
+    require(ek <= 2 * ep + 1e-6, f'group_norm statistics [{b}, {c}, {h}, '
+            f'{w}]: kernel {ek:.3e} against F.group_norm {ep:.3e}')
+    return ek
+
+
+def gn_bytes(b, c, h, w, dtype):
+    """Bytes the function must move: the map read once and written once."""
+    return 2 * b * c * h * w * dtype.itemsize
+
+
+def time_group_norm(gn, shapes):
+    """Kernel, plain version and F.silu(F.group_norm) on each served shape
+    (channels-last bf16, f32 weights, with swish as the resblocks run it),
+    each beside the bytes bound and the design's floor (the map read
+    twice, written once). Returns {shape: (ms, plain, library, bound)}."""
+    fn = torch.nn.functional
+    out = {}
+    print('group_norm times (ms a call; bound: the map read once and written '
+          'once at 3.35 TB/s; floor: read twice, written once):')
+    for b, c, h, w in shapes:
+        x, weight, bias = gn_case(b, c, h, w, torch.bfloat16, torch.float32,
+                                  seed=190)
+        wl, bl = weight.to(x.dtype), bias.to(x.dtype)
+        ms = time_ms(lambda i: gn.group_norm_swish(x, weight, bias, 1e-6,
+                                                   True), 20)
+        plain = time_ms(lambda i: gn.group_norm_swish_plain(
+            x, weight, bias, 1e-6, True), 5)
+        lib = time_ms(lambda i: fn.silu(fn.group_norm(x, 32, wl, bl, 1e-6)),
+                      10)
+        bnd = gn_bytes(b, c, h, w, x.dtype) / HBM_BYTES_PER_S * 1e3
+        floor = 1.5 * bnd
+        print(f'  [{b}, {c}, {h}, {w}] bf16: kernel {ms:.4f} '
+              f'({bnd / ms:.1%} of the bound, {floor / ms:.1%} of the floor, '
+              f'{1.5 * gn_bytes(b, c, h, w, x.dtype) / ms / 1e6:.0f} GB/s '
+              f'moved), plain {plain:.4f}, F.group_norm + F.silu {lib:.4f}, '
+              f'bound {bnd:.4f}')
+        out[b, c, h, w] = (ms, plain, lib, bnd)
+        del x
+    return out
+
+
+def run_group_norm():
+    """Phase 18: the GroupNorm-swish kernel on every shape the main paths
+    run it at, its counts there, and its times. Returns the result line's
+    entry."""
+    from hqtransformer_tpu_torch.ops import group_norm as gn
+
+    t0 = time.perf_counter()
+    sites, decode = gn_main_paths()
+    served = sorted({k[:4] for k in sites['flagship decode chunk']} |
+                    {k[:4] for k in sites['3-level decode chunk']} |
+                    {k[:4] for k in sites['training encode']})
+    for i, shape in enumerate(served):
+        gn_accuracy(gn, *shape, seed=500 + i)
+    gn_accuracy(gn, 32, 128, 128, 128, seed=520, offset=40.0)
+    keys = sorted({k for s in sites.values() for k in s},
+                  key=lambda k: (k[0], k[1], k[2], str(k[4]), k[6]))
+    err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for i, (b, c, h, w, dtype, w_dtype, with_swish) in enumerate(keys):
+        label = (f'[{b}, {c}, {h}, {w}] {str(dtype)[6:]}, weight '
+                 f'{str(w_dtype)[6:]}, swish {with_swish}')
+        x, weight, bias = gn_case(b, c, h, w, dtype, w_dtype, seed=200 + i)
+        err[dtype] = max(err[dtype], gn_compare(gn, x, weight, bias,
+                                                with_swish, label)[0])
+        del x
+    # beyond the served ones: f32 maps, bf16 weights, maps far off 0 (the
+    # shift), NCHW input (one layout copy), a C of 2 channels a group, and
+    # a map whose last tile is short
+    extra = ((64, 128, 64, 64, torch.float32, torch.float32, True, 0.0),
+             (64, 512, 16, 16, torch.float32, torch.float32, False, 0.0),
+             (128, 256, 32, 32, torch.bfloat16, torch.bfloat16, True, 0.0),
+             (32, 128, 128, 128, torch.float32, torch.float32, True, 40.0),
+             (32, 128, 64, 64, torch.bfloat16, torch.float32, False, 8.0),
+             (16, 64, 24, 40, torch.bfloat16, torch.float32, True, 0.0),
+             (8, 32, 13, 11, torch.float32, torch.float32, True, 0.0))
+    for i, (b, c, h, w, dtype, w_dtype, with_swish, offset) in enumerate(
+            extra):
+        x, weight, bias = gn_case(b, c, h, w, dtype, w_dtype, seed=300 + i,
+                                  offset=offset)
+        gn_compare(gn, x, weight, bias, with_swish,
+                   f'[{b}, {c}, {h}, {w}] {str(dtype)[6:]}, weight '
+                   f'{str(w_dtype)[6:]}, swish {with_swish}, offset {offset}')
+    x, weight, bias = gn_case(4, 256, 16, 16, torch.bfloat16, torch.float32,
+                              seed=400)
+    reset_counts('gn.layout_copies')
+    gn_compare(gn, x.contiguous(), weight, bias, True, 'NCHW input')
+    require(since_reset('gn.layout_copies') == 1, 'an NCHW input was not '
+            'counted as one layout copy')
+    first = gn.group_norm_swish(x, weight, bias, 1e-6, True)
+    require(all(torch.equal(first, gn.group_norm_swish(
+        x, weight, bias, 1e-6, True)) for _ in range(3)),
+        'the kernel does not repeat itself')
+    del x, first
+    times = time_group_norm(gn, served)
+    for path, s in sites.items():
+        sums = [sum(n * times[k[:4]][j] for k, n in s.items())
+                for j in range(4)]
+        per = B if 'decode' in path else B_TRAIN2
+        print(f'group_norm over a {path} ({sum(s.values())} sites): kernel '
+              f'{sums[0]:.3f} ms, plain {sums[1]:.3f}, F.group_norm + '
+              f'F.silu {sums[2]:.3f}, bound {sums[3]:.3f} '
+              f'({sums[0] / per:.5f} ms a sample)')
+    profile_phases((('flagship decode chunk (batch 128)', decode),))
+    print(f'phase 18 (GroupNorm-swish): {time.perf_counter() - t0:.1f} s')
+    ms, plain, lib, bnd = times[B, 128, 256, 256]
+    return {'name': 'group_norm', 'route': 'cuda',
+            'source': 'hqtransformer_tpu_torch/csrc/group_norm.cu',
+            'replaces': None, 'launches': sum(
+                sites['flagship decode chunk'].values()),
+            'max_abs_err': max(err.values()), 'ms': ms, 'kernel_ms': ms,
+            'plain_ms': plain, 'bound_ms': bnd, 'bound_by': 'bytes',
+            'library_ms': lib, 'shape': [B, 128, 256, 256]}
+
 
 
 def parse_args(argv):
@@ -5450,6 +5820,9 @@ def parse_args(argv):
     ap.add_argument('--k1-only', action='store_true',
                     help='build the kernels, run the K1 checks, timings and '
                     'sweep, and stop (no result line)')
+    ap.add_argument('--gn-only', action='store_true',
+                    help='build the kernels, run phase 18 (GroupNorm-swish) '
+                    'and stop (its kernel entry is the result line)')
     ap.add_argument('--tp-worker', nargs=2, type=int, metavar=('RANK', 'PORT'),
                     help='run as one rank of phase 17 (started by the '
                     'script itself)')
@@ -5499,6 +5872,10 @@ def main(argv=None) -> int:
                            'decode_attention')
     if args.k1_only:
         return run_k1_only(da)
+    if args.gn_only:
+        print(json.dumps({'kernels': [run_group_norm()]}))
+        print('chip_smoke --gn-only: every GroupNorm check passed')
+        return 0
 
     k1_err = check_decode_attention(da)
     k2_err, k2_frac = check_sample_topk(st)
@@ -5537,6 +5914,7 @@ def main(argv=None) -> int:
     k3t2_launches, k3t2_err, k3t2_times = run_stage2_training(vq, da, st)
     k3t1_launches, k3t1_err, k3t1_times = run_stage1_training(vq, da, st)
     k1_tp = run_tensor_parallel(da, st, vq)
+    gn_entry = run_group_norm()
     require(k3_shapes[K3_D256][5] == 0 and k3f_shapes[K3_D256][5] == 0,
             'K3 at the avgpool / conv2 top differs from plain')
     check_small_reference(vq)
@@ -5600,6 +5978,7 @@ def main(argv=None) -> int:
     # the training paths' K3 entries: f32 z and codebook, launches a step
     for entry, per_step in zip(kernels[-2:], (2, 4)):
         entry.update(dtype='float32', launches_per_step=per_step)
+    kernels.append(gn_entry)
     print(f'K2 rows differing from plain at most {k2_frac:.4f}; main path '
           f'{samples_per_s:.2f} samples/s at batch {B}; 3-level sampling '
           f'{level3_samples_per_s:.2f} samples/s at batch {B}; encode slice '

@@ -15,7 +15,9 @@ bottom grid and decodes to pixels. `get_soft_codes` gives the soft code
 distributions that soft-label stage-2 training reads (off K3, as in JAX).
 
 Images come in and pixels go out NHWC [B, H, W, 3], code maps are
-[B, H, W], the JAX package's layouts; the convolutions inside run NCHW.
+[B, H, W], the JAX package's layouts; the convolutions inside take NCHW
+shapes on channels-last memory (`_nchw` is a view), so the encoder and the
+decoder keep NHWC memory from their first conv to their last.
 Training: `encode(x, update_ema=True, generator=g)` takes one EMA step in
 every EMA codebook it searches (restarts drawn from `g`), and
 `decode(..., ret_pre_out=True)` also returns the decoder's features before

@@ -13,6 +13,12 @@ GroupNorm computes in f32 and returns the input dtype; attention scores and
 softmax are f32. Dropout is left out: the JAX package's training runs these
 modules deterministic too.
 
+The maps stay channels-last (NHWC in memory) from the first conv to the
+last, as the generator hands them in: outside autograd, GroupNorm and the
+swish after it run as one kernel on the card
+(`ops/group_norm.py::group_norm_swish`), which keeps that layout, and
+`AttnBlock` reads the map's pixels as views.
+
 Training adds `Decoder(ret_pre_out=True)` and the PatchGAN discriminator
 (`NLayerDiscriminator`, `nn.Sequential` names `main.<i>`, NHWC in and out)
 with its three norms: GroupNorm, `ActNorm` (JAX's per-channel affine,
@@ -43,22 +49,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops import group_norm as gn
 from ...ops.int8 import Int8Weight, int8_conv2d
 
 
-def swish(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(x)
-
-
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm(32 groups, eps 1e-6, affine) computed in f32."""
+    """GroupNorm(32 groups, eps 1e-6, affine) computed in f32, and with
+    `swish` the swish of its result. An input that needs a gradient takes
+    `gn.group_norm_swish_plain` (F.group_norm, under autograd); any other
+    goes to `gn.group_norm_swish` (the kernel on the card), whose output
+    is channels-last."""
 
     def __init__(self, channels: int):
         super().__init__(num_groups=32, num_channels=channels, eps=1e-6)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+    def forward(self, x: torch.Tensor, swish: bool = False) -> torch.Tensor:
+        if torch.is_grad_enabled() and (x.requires_grad or
+                                        self.weight.requires_grad or
+                                        self.bias.requires_grad):
+            return gn.group_norm_swish_plain(x, self.weight, self.bias,
+                                             self.eps, swish)
+        return gn.group_norm_swish(x, self.weight, self.bias, self.eps, swish)
 
 
 class Conv2d(nn.Conv2d):
@@ -141,8 +152,8 @@ class ResnetBlock(nn.Module):
             self.nin_shortcut = conv(cin, cout, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(swish(self.norm1(x)))
-        h = self.conv2(swish(self.norm2(h)))
+        h = self.conv1(self.norm1(x, swish=True))
+        h = self.conv2(self.norm2(h, swish=True))
         if hasattr(self, 'nin_shortcut'):
             x = self.nin_shortcut(x)
         return x + h
@@ -162,6 +173,7 @@ class AttnBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
         h = self.norm(x)
+        # views in either layout: a channels-last map's [B, C, HW] is one
         q = self.q(h).reshape(B, C, H * W).transpose(1, 2)     # [B, HW, C]
         k = self.k(h).reshape(B, C, H * W)                     # [B, C, HW]
         v = self.v(h).reshape(B, C, H * W).transpose(1, 2)     # [B, HW, C]
@@ -236,7 +248,7 @@ class Encoder(nn.Module):
             if self.mid.attn_1 is not None:
                 h = self.mid.attn_1(h)
             h = self.mid.block_2(h)
-        h = self.conv_out(swish(self.norm_out(h)))
+        h = self.conv_out(self.norm_out(h, swish=True))
         return (h, h_prev) if ret_bottom else h
 
 
@@ -299,7 +311,7 @@ class Decoder(nn.Module):
                     h = level.attn[i_block](h)
             if level.upsample is not None:
                 h = level.upsample(h)
-        pre = swish(self.norm_out(h))
+        pre = self.norm_out(h, swish=True)
         out = self.conv_out(pre)
         return (out, pre) if ret_pre_out else out
 

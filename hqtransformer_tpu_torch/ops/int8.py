@@ -258,8 +258,9 @@ class Int8Weight:
 def int8_conv2d(x: torch.Tensor, w: Int8Weight, kernel: Tuple[int, int],
                 stride: Tuple[int, int], padding: Tuple[int, int]
                 ) -> torch.Tensor:
-    """A8W8 dense 2-D convolution of x [B, C, H, W] (NCHW) with a quantized
-    OIHW weight; returns [B, O, Ho, Wo] in x's dtype. The activation scale
+    """A8W8 dense 2-D convolution of x [B, C, H, W] (any layout) with a
+    quantized OIHW weight; returns [B, O, Ho, Wo] in x's dtype,
+    channels-last (the NHWC result as it is computed). The activation scale
     is the static one or else max|x| / 127 of this call. Each band of whole
     images is quantized, laid out NHWC, zero-padded, and multiplied as an
     im2col of its kh * kw shifted views."""
@@ -287,4 +288,4 @@ def int8_conv2d(x: torch.Tensor, w: Int8Weight, kernel: Tuple[int, int],
         out[b0:b0 + band] = _dequant(acc, out_scale, w.bias, x.dtype).reshape(
             -1, Ho, Wo, O)
     tracing.count('int8.conv2d_launches')
-    return out.permute(0, 3, 1, 2).contiguous()
+    return out.permute(0, 3, 1, 2)

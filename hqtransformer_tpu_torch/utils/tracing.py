@@ -27,8 +27,10 @@ them as Chrome-trace events on a trace file's time base.
 Counters: `count(name, n)` adds to a process-wide table that is always on,
 `counter(name)` reads it. The kernel wrappers count their launches there
 (`k1.launches`, `k1.int8_launches`, `k2.launches`, `k2.bisect3_launches`,
-`k3.launches`) and the int8 products theirs (`int8.matmul_launches`,
-`int8.conv2d_launches`).
+`k3.launches`, `gn.launches`: one a GroupNorm's kernel pair), the int8
+products theirs (`int8.matmul_launches`, `int8.conv2d_launches`), and the
+GroupNorm wrapper the inputs it had to make channels-last
+(`gn.layout_copies`).
 """
 
 from __future__ import annotations
