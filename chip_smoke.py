@@ -8,7 +8,7 @@ With `--k1-only` it runs phase 1, decode attention's checks and timings
 of phases 2 and 7 and the K1 sweep, and stops without the result line
 (to compare two commits' K1, run it in a checkout of each, in turns).
 With `--gn-only` it runs phases 1 and 18 and prints phase 18's kernel
-entry as its JSON line.
+entry as its JSON line. With `--graphs-only` it runs phases 1 and 19.
 
 1. Device: prints the card, `nvidia-smi`'s name and power limit, the torch
    and CUDA versions; builds every CUDA kernel from
@@ -418,6 +418,21 @@ entry as its JSON line.
    summed over each path's sites, and the flagship decode chunk profiled.
    The JSON line gains `group_norm` (its times at [128, 128, 256, 256],
    the decoder's `norm_out`; launches a flagship decode chunk).
+
+19. The 2-level sampler's depth call replayed from CUDA graphs
+   (`sampling/engine.py::_DepthGraphs`), after phase 18: the tiny config
+   (bf16, batch 8) in the `parallel` depth mode with top-k 16, with top-p
+   0.9 and with bisect3, and in the `bidirectional` and `top2bot` modes;
+   the flagship (bf16 serving weights, batch 64, top-k 2048, T 0.95) and
+   CC15M text-to-image (batch 32, caption ids); each model under two
+   seeded weights dicts, three calls each. Every call runs once eagerly
+   (inside `tracing.recording()`, where the depth is never replayed) and
+   once from graphs with the generator seeded alike: codes and pixels
+   equal, the generator left at the same offset, K2 launches counted as
+   the eager call counts them (none with top-p, whose draws leave K2). A
+   key's first call captures its graph at its second position, so the
+   first call of each weights dict checks the eager step, the capture and
+   the replays together.
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
@@ -2662,8 +2677,10 @@ def nucleus_draws():
     """Every top-p draw while the context is open, checked on the card:
     the code has a weight above zero in the plain filter's renormalised
     probabilities (`nucleus_probs`, the kept set). Yields a list that
-    receives the count of draws and of codes outside the kept set."""
+    receives the count of draws and of codes outside the kept set. The
+    depth runs eagerly meanwhile (`tracing.recording()`)."""
     from hqtransformer_tpu_torch.ops import topk_topp
+    from hqtransformer_tpu_torch.utils import tracing
     real = topk_topp.inverse_cdf_draw
     outside = torch.zeros((), dtype=torch.long, device='cuda')
     draws = [0]
@@ -2676,7 +2693,8 @@ def nucleus_draws():
     topk_topp.inverse_cdf_draw = spy
     result = []
     try:
-        yield result
+        with tracing.recording():    # eager: a graph's replay calls no spy
+            yield result
     finally:
         topk_topp.inverse_cdf_draw = real
         result += [draws[0], int(outside)]
@@ -4975,8 +4993,10 @@ def draws_kept(record=None, replay=None, layout=None):
     `record`, or replaced by the next of the `replay` draws (whole
     batches, cut to `layout`'s dp rows); the kernel still draws, so the
     launches and the generator's stream stay as they were (a spy on the
-    name `engine.sample_from_logits`)."""
+    name `engine.sample_from_logits`). The depth runs eagerly meanwhile
+    (`tracing.recording()`: a graph's replay calls no spy)."""
     from hqtransformer_tpu_torch.sampling import engine
+    from hqtransformer_tpu_torch.utils import tracing
     real = engine.sample_from_logits
     given = iter(replay or ())
 
@@ -4991,7 +5011,8 @@ def draws_kept(record=None, replay=None, layout=None):
         return out
     engine.sample_from_logits = spy
     try:
-        yield
+        with tracing.recording():
+            yield
     finally:
         engine.sample_from_logits = real
 
@@ -5224,8 +5245,11 @@ def logits_one_step_off(seed):
     """While open, every draw of the samplers takes its bf16 logits each
     moved one bf16 step up or down in magnitude, at random (seeded; zeros
     stay): the witness of how far a rounding of the logits moves the draws
-    (a spy on the name `engine.sample_from_logits`)."""
+    (a spy on the name `engine.sample_from_logits`). The depth runs
+    eagerly meanwhile (`tracing.recording()`): a graph can neither call
+    the spy nor draw from its generator."""
     from hqtransformer_tpu_torch.sampling import engine
+    from hqtransformer_tpu_torch.utils import tracing
     real = engine.sample_from_logits
     g = torch.Generator(device='cuda').manual_seed(seed)
 
@@ -5233,7 +5257,8 @@ def logits_one_step_off(seed):
         return real(generator, one_step_off(logits, g), **kwargs)
     engine.sample_from_logits = moved
     try:
-        yield
+        with tracing.recording():
+            yield
     finally:
         engine.sample_from_logits = real
 
@@ -5248,7 +5273,9 @@ def float_row_outputs_one_step_off(stage2, seed):
     are those of the float row-parallel layers' partial sums (the
     depth-first step's, the cell embedding's), at most about a step each,
     which the int8 quantizers after them carry further than a logit's
-    rounding (forward hooks)."""
+    rounding (forward hooks; the depth eager, as under
+    `logits_one_step_off`)."""
+    from hqtransformer_tpu_torch.utils import tracing
     g = torch.Generator(device='cuda').manual_seed(seed)
 
     def moved(module, args, kwargs, out):
@@ -5258,7 +5285,8 @@ def float_row_outputs_one_step_off(stage2, seed):
                for name, m in stage2.named_modules()
                if name.endswith(('attn.proj', 'mlp.2'))]
     try:
-        yield
+        with tracing.recording():
+            yield
     finally:
         for h in handles:
             h.remove()
@@ -5813,6 +5841,84 @@ def run_group_norm():
 
 
 
+def graphs_case(model, weights_dicts, labels, params, name, calls=3):
+    """Phase 19's check of one model: each call of `make_pixel_sampler`
+    eagerly and from graphs, the generator seeded alike."""
+    from hqtransformer_tpu_torch.utils import tracing
+
+    sampler = model.make_pixel_sampler(params=params)
+    gen = torch.Generator(device='cuda')
+    for w, weights in enumerate(weights_dicts):
+        for call in range(calls):
+            gen.manual_seed(1000 * w + call)
+            reset_counts('k2.launches')
+            with tracing.recording():
+                want_px, want = sampler(weights, gen, labels)
+            want_k2 = since_reset('k2.launches')
+            want_state = gen.get_state()
+            gen.manual_seed(1000 * w + call)
+            reset_counts('k2.launches')
+            px, got = sampler(weights, gen, labels)
+            torch.cuda.synchronize()
+            what = f'{name}, weights {w}, call {call}'
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f'{what}: graphed codes differ from the eager ones')
+            require(torch.equal(px, want_px),
+                    f'{what}: graphed pixels differ from the eager ones')
+            require(torch.equal(gen.get_state(), want_state),
+                    f'{what}: the generator moved otherwise than eagerly')
+            k2 = since_reset('k2.launches')
+            require(k2 == want_k2,
+                    f'{what}: K2 launches {k2}, eagerly {want_k2}')
+    print(f'depth graphs {name}: {len(weights_dicts)} x {calls} calls equal '
+          f'to the eager ones')
+
+
+def run_depth_graphs():
+    """Phase 19 (see the module docstring)."""
+    from hqtransformer_tpu_torch.config import build_twostage_config
+    from hqtransformer_tpu_torch.models.twostage import (TwoStageModel,
+                                                         serving_bf16_params)
+    from hqtransformer_tpu_torch.sampling.engine import SamplingParams
+
+    def weights_dicts(model):
+        return [{s: {k: v.cuda() for k, v in serving_bf16_params(w).items()}
+                 for s, w in model.init_weights(seed=seed).items()}
+                for seed in (0, 1)]
+
+    t0 = time.perf_counter()
+    tiny = SamplingParams(top_k_top=16, top_k_bot=16)
+    cases = (('parallel', 'hq-transformer/parallel', tiny),
+             ('parallel top-p', 'hq-transformer/parallel',
+              SamplingParams(top_p_top=0.9, top_p_bot=0.9)),
+             ('parallel bisect3', 'hq-transformer/parallel',
+              SamplingParams(top_k_top=16, top_k_bot=16, bisect3=True)),
+             ('bidirectional', 'hq-transformer/bidirectional4', tiny),
+             ('top2bot', 'hq-transformer', tiny))
+    for name, kind, params in cases:
+        cfg = build_twostage_config(str(TINY))
+        cfg.stage2.type = kind
+        model = TwoStageModel(cfg, dtype=torch.bfloat16)
+        labels = (torch.arange(8) % cfg.stage2.hparams.n_classes).cuda()
+        graphs_case(model, weights_dicts(model), labels, params,
+                    f'tiny {name}')
+    flagship = dict(top_k_top=2048, top_k_bot=2048, temperature_top=0.95,
+                    temperature_bot=0.95)
+    for name, path, labels_of in (
+            ('flagship', FLAGSHIP,
+             lambda cfg: torch.arange(64) % cfg.stage2.hparams.n_classes),
+            ('cc15m text', ROOT / 'configs/cc15m/stage2/'
+             'hqtransformer-l12-cc15m.yaml',
+             lambda cfg: caption_ids(cfg.stage2.hparams.ctx_len_txt)[:32])):
+        cfg = build_twostage_config(str(path))
+        model = TwoStageModel(cfg, dtype=torch.bfloat16)
+        graphs_case(model, weights_dicts(model), labels_of(cfg).cuda(),
+                    SamplingParams(**flagship), name)
+        del model
+        torch.cuda.empty_cache()
+    print(f'phase 19 (depth graphs): {time.perf_counter() - t0:.1f} s')
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(
         description='Smoke test of the PyTorch/CUDA port on one GPU; with '
@@ -5823,6 +5929,9 @@ def parse_args(argv):
     ap.add_argument('--gn-only', action='store_true',
                     help='build the kernels, run phase 18 (GroupNorm-swish) '
                     'and stop (its kernel entry is the result line)')
+    ap.add_argument('--graphs-only', action='store_true',
+                    help='build the kernels, run phase 19 (the depth '
+                    'graphs) and stop (no result line)')
     ap.add_argument('--tp-worker', nargs=2, type=int, metavar=('RANK', 'PORT'),
                     help='run as one rank of phase 17 (started by the '
                     'script itself)')
@@ -5876,6 +5985,10 @@ def main(argv=None) -> int:
         print(json.dumps({'kernels': [run_group_norm()]}))
         print('chip_smoke --gn-only: every GroupNorm check passed')
         return 0
+    if args.graphs_only:
+        run_depth_graphs()
+        print('chip_smoke --graphs-only: every depth graph check passed')
+        return 0
 
     k1_err = check_decode_attention(da)
     k2_err, k2_frac = check_sample_topk(st)
@@ -5915,6 +6028,7 @@ def main(argv=None) -> int:
     k3t1_launches, k3t1_err, k3t1_times = run_stage1_training(vq, da, st)
     k1_tp = run_tensor_parallel(da, st, vq)
     gn_entry = run_group_norm()
+    run_depth_graphs()
     require(k3_shapes[K3_D256][5] == 0 and k3f_shapes[K3_D256][5] == 0,
             'K3 at the avgpool / conv2 top differs from plain')
     check_small_reference(vq)

@@ -8,7 +8,9 @@ on their packed-cache path. Where the JAX package compiles the whole loop
 into one `lax.scan`, the port runs it eagerly: one spatial step per
 position (12 launches of the decode attention kernel at the flagship
 depth), then the depth draws (2 launches of the sampling kernel in the
-`parallel` depth mode).
+`parallel` depth mode). The 2-level sampler replays each position's
+depth call from a CUDA graph on the card (`_DepthGraphs`), with the
+eager call's codes.
 
 Loop order, as in the JAX sampler: prefill the conditioning prefix (its
 sos_len tokens: 1, or a caption's ctx_len_txt) at cache rows [0, sos_len),
@@ -231,6 +233,107 @@ _DEPTH_SAMPLERS = {
 }
 
 Model = Union[HierarchicalGPT, MultiLevelHQTransformer, IGPT, Transformer1d]
+MAX_DEPTH_GRAPHS = 8     # captured depth calls a sampler keeps
+
+
+class _DepthGraphs:
+    """The 2-level sampler's depth call, replayed as a CUDA graph.
+
+    A position's depth call is some 300 small launches whose shapes and
+    arguments do not change from one position to the next, so at batch 512
+    the host, not the card, sets the pace of an eager AR loop. One graph per
+    (h's shape and dtype, generator) holds them, and a replay runs them
+    from one host call. A key's first call runs eagerly (every kernel
+    loaded before a capture); its second is captured and then replayed,
+    as are all later ones.
+
+    What a graph reads is fixed at its capture: h is copied into the
+    graph's input, and the model's tensors are read where they lie, so
+    `start` drops every graph when one of them moved (another weights
+    dict). The depth layers' fused QKV and K/V weights, which
+    `HierarchicalGPT.serving` makes anew for each call, are made inside
+    the graph instead, from the same weights by the same concatenation.
+    The generator is registered with its graphs, so a replay draws the
+    uniforms the eager call would have drawn and advances the generator as
+    far. The counters a capture counted (the draws' `k2.launches`) are
+    taken back and counted at each replay instead.
+
+    Eager whenever a graph cannot hold the call or should not: off the
+    card, while spans record (`tracing.active()`: a replay records none),
+    with given top codes, under any int8 switch, or on a model with a
+    layout (its collectives). A function patched into the depth path is
+    captured with it and not called at a replay: one that reads a tensor
+    on the host or draws from another generator has to run inside
+    `tracing.recording()`."""
+
+    def __init__(self, model: HierarchicalGPT, depth_fn: Callable,
+                 params: SamplingParams, int8: Int8Serving,
+                 shard: Tuple[int, int]):
+        self.model, self.depth_fn = model, depth_fn
+        self.params, self.int8, self.shard = params, int8, shard
+        self.enabled = (int8 == Int8Serving() and
+                        getattr(model, 'layout', None) is None)
+        self.graphs = {}      # key -> None (run once) or a captured entry
+        self.tensors = None   # where the model's tensors lay at capture
+
+    def start(self) -> None:
+        """Before a sampler call's loop."""
+        if not self.enabled:
+            return
+        tensors = tuple(t.data_ptr() for t in (*self.model.parameters(),
+                                               *self.model.buffers()))
+        if tensors != self.tensors:
+            self.graphs.clear()
+            self.tensors = tensors
+
+    def _eager(self, h: torch.Tensor, generator: torch.Generator,
+               given_top: Optional[torch.Tensor] = None):
+        return self.depth_fn(self.model, h, generator, self.params,
+                             given_top, self.int8.depth_gemms, self.shard)
+
+    def __call__(self, h: torch.Tensor, generator: torch.Generator,
+                 given_top: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if not (self.enabled and h.is_cuda and given_top is None) or \
+                tracing.active():
+            return self._eager(h, generator, given_top)
+        key = (tuple(h.shape), h.dtype, id(generator))
+        if key not in self.graphs:
+            if len(self.graphs) >= MAX_DEPTH_GRAPHS:
+                self.graphs.clear()
+            self.graphs[key] = None
+            return self._eager(h, generator)
+        entry = self.graphs[key] or self._capture(key, h, generator)
+        graph, h_in, out, counted, _ = entry
+        h_in.copy_(h)
+        graph.replay()
+        for name, n in counted.items():
+            tracing.count(name, n)
+        return out[0].clone(), out[1].clone()
+
+    def _capture(self, key, h, generator):
+        depths = self.model.depths
+        live = [blk.attn.serving for blk in depths]
+        h_in = h.clone()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        before = tracing.counts()
+        try:
+            for blk in depths:
+                blk.attn.serving = None
+            with torch.cuda.graph(graph):
+                out = self._eager(h_in, generator)
+        finally:
+            for blk, s in zip(depths, live):
+                blk.attn.serving = s
+        counted = {name: n - before.get(name, 0)
+                   for name, n in tracing.counts().items()
+                   if n != before.get(name, 0)}
+        for name, n in counted.items():    # counted again at each replay
+            tracing.count(name, -n)
+        entry = (graph, h_in, out, counted, generator)
+        self.graphs[key] = entry
+        return entry
 
 
 def _caches(model: Model, sos: torch.Tensor, max_seq_len: int,
@@ -258,14 +361,18 @@ def _serving_loop(model: Model, labels: torch.Tensor, max_seq_len: int,
     bottoms [B, ratio]) for 2 levels, (top, mids [B, 4], bottoms
     [B, 16]) for 3, (code [B],) for the flat baselines), and embed them
     for the next spatial step. Returns ([out of every position],
-    (k_caches, v_caches)). Each position's spatial step and depth call are
-    the spans `ar.spatial` and `ar.depth` (`utils/tracing.py`)."""
+    (k_caches, v_caches)). The prefix's embedding, the caches and the
+    prefill are the span `ar.prefill`, which counts the prefix rows it
+    prefilled in `ar.prefill_rows`; each position's spatial step and depth
+    call are the spans `ar.spatial` and `ar.depth` (`utils/tracing.py`)."""
     B = labels.shape[0]
     with model.serving(int8, scales):
-        sos = model.sos_tokens(B, labels)
-        sos_len = sos.shape[1]
-        kc, vc = _caches(model, sos, max_seq_len, int8)
-        h = model.spatial_prefill(sos, kc, vc, int8.spatial_gemms)
+        with tracing.span('ar.prefill'):
+            sos = model.sos_tokens(B, labels)
+            sos_len = sos.shape[1]
+            kc, vc = _caches(model, sos, max_seq_len, int8)
+            h = model.spatial_prefill(sos, kc, vc, int8.spatial_gemms)
+        tracing.count('ar.prefill_rows', B * sos_len)
         outs = []
         for i in range(max_seq_len):
             if i:
@@ -302,12 +409,15 @@ def make_hierarchical_sampler(model: HierarchicalGPT, max_seq_len: int = 64,
     The packed [L, T, B, D] KV cache (T = sos_len + N - 1), int8 with
     `int8.kv_cache` and else in the activation dtype, is allocated once
     per call, and the weights' concatenations and quantizations are done
-    once per call (`HierarchicalGPT.serving`). The JAX sampler's
+    once per call (`HierarchicalGPT.serving`). On the card each
+    position's depth call is replayed from a CUDA graph (`_DepthGraphs`),
+    with the codes and the generator's stream of the eager call. The JAX
+    sampler's
     `n_segments` and `t_compute` are not needed: they bound the
     static-shape compute of the TPU kernel, while the CUDA kernel's loop
     already stops at the current position."""
-    depth_fn = _DEPTH_SAMPLERS[model.depth_mode]
-    shard = _shard(model)
+    depth_fn = _DepthGraphs(model, _DEPTH_SAMPLERS[model.depth_mode],
+                            params, int8, _shard(model))
 
     @torch.inference_mode()
     def sample(generator: torch.Generator, labels: torch.Tensor,
@@ -319,11 +429,11 @@ def make_hierarchical_sampler(model: HierarchicalGPT, max_seq_len: int = 64,
         if use_given_top:
             given_top_codes = _rows(model, given_top_codes).to(
                 labels.device, torch.int32)
+        depth_fn.start()
 
         def depth(i, h):
             given = given_top_codes[:, i] if use_given_top else None
-            top, bot = depth_fn(model, h, generator, params, given,
-                                int8.depth_gemms, shard)
+            top, bot = depth_fn(h, generator, given)
             return (top, bot), (top, bot)
 
         outs, caches = _serving_loop(model, labels, max_seq_len, int8,

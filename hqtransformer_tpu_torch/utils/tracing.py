@@ -1,8 +1,8 @@
 """The port's spans and counters.
 
 Spans mark the layer boundaries of the sampling and training paths
-(`sample` > `ar.spatial`, `ar.depth` > `ar.draw`, `decode`; `train.step` >
-`train.stage1_codes`, `train.forward`, `train.backward`,
+(`sample` > `ar.prefill`, `ar.spatial`, `ar.depth` > `ar.draw`, `decode`;
+`train.step` > `train.stage1_codes`, `train.forward`, `train.backward`,
 `train.optimizer`):
 
     with tracing.span('ar.depth'):
@@ -22,15 +22,21 @@ profile is recording; otherwise it costs a flag test, with no allocation,
 clock read, synchronisation or `record_function`. It never reads a
 tensor. Times are `time.time_ns()`, the clock the profiler stamps its
 events with, so spans and a profiler trace line up; `chrome_events` gives
-them as Chrome-trace events on a trace file's time base.
+them as Chrome-trace events on a trace file's time base. `active()` says
+whether spans record now: code replayed from a CUDA graph records no
+span, so the samplers replay only while nothing records.
 
 Counters: `count(name, n)` adds to a process-wide table that is always on,
-`counter(name)` reads it. The kernel wrappers count their launches there
+`counter(name)` reads it, `counts()` copies the table. The AR loop counts
+the conditioning prefix's rows that `ar.prefill` prefills there
+(`ar.prefill_rows`: batch x prefix length a call, the prefix 1 row or a
+caption's ctx_len_txt tokens), the kernel wrappers their launches
 (`k1.launches`, `k1.int8_launches`, `k2.launches`, `k2.bisect3_launches`,
 `k3.launches`, `gn.launches`: one a GroupNorm's kernel pair), the int8
 products theirs (`int8.matmul_launches`, `int8.conv2d_launches`), and the
 GroupNorm wrapper the inputs it had to make channels-last
-(`gn.layout_copies`).
+(`gn.layout_copies`). A launch replayed from a CUDA graph is counted by
+whoever replays it, as the eager call would have counted it.
 """
 
 from __future__ import annotations
@@ -129,6 +135,11 @@ def recording() -> Iterator[None]:
         _recording -= 1
 
 
+def active() -> bool:
+    """Whether spans record now: inside `recording()` or a profile."""
+    return bool(_recording or _profiler._is_profiler_enabled)
+
+
 def spans() -> List[SpanRecord]:
     """The recorded spans, the oldest first (the buffer keeps the newest
     MAX_SPANS), each appended as it closed."""
@@ -146,6 +157,11 @@ def count(name: str, n: int = 1) -> None:
 
 def counter(name: str) -> int:
     return _counts.get(name, 0)
+
+
+def counts() -> Dict[str, int]:
+    """A copy of every counter."""
+    return dict(_counts)
 
 
 def chrome_events(records: Optional[List[SpanRecord]] = None,

@@ -130,17 +130,18 @@ def _profiled(levels):
 
 @pytest.mark.parametrize('levels', [2, 3])
 def test_sampler_call_records_its_layer_spans(levels):
-    """One call under the profiler: 1 `sample`, N - 1 `ar.spatial`, N
-    `ar.depth`, N x draws `ar.draw` (2 or 3 a position) and 1 `decode`;
-    the loop's and the decode's spans children of `sample`, every draw a
-    child of a depth span, all under one call id; each span's interval
-    holds the profiler's events of an operation it ran (the k-th draw's
-    `aten::rand`, the k-th spatial step's `aten::mean`, the decode's
-    convolutions), within 0.2 ms."""
+    """One call under the profiler: 1 `sample`, 1 `ar.prefill`, N - 1
+    `ar.spatial`, N `ar.depth`, N x draws `ar.draw` (2 or 3 a position)
+    and 1 `decode`; the loop's and the decode's spans children of
+    `sample`, every draw a child of a depth span, all under one call id;
+    each span's interval holds the profiler's events of an operation it
+    ran (the k-th draw's `aten::rand`, the k-th spatial step's
+    `aten::mean`, the decode's convolutions), within 0.2 ms."""
     spans, events = _profiled(levels)
     names = collections.Counter(r.name for r in spans)
-    assert names == {'sample': 1, 'ar.spatial': N_TOP - 1, 'ar.depth': N_TOP,
-                     'ar.draw': levels * N_TOP, 'decode': 1}
+    assert names == {'sample': 1, 'ar.prefill': 1, 'ar.spatial': N_TOP - 1,
+                     'ar.depth': N_TOP, 'ar.draw': levels * N_TOP,
+                     'decode': 1}
     by_id = {r.id: r for r in spans}
     (root,) = [r for r in spans if r.name == 'sample']
     assert root.parent is None and {r.call for r in spans} == {root.id}
@@ -239,11 +240,11 @@ def test_measure_throughput_profile_holds_the_program_spans(tmp_path):
         f'model_path={TWO_LEVEL}', 'batch_size=2', 'top_resolution=4',
         'samples_per_loop=2', 'n_loop=2', 'device=cpu', 'dtype=float32',
         f'profile={tmp_path}']) == 0
-    for name, want in (('ar', {'ar.spatial': N_TOP - 1, 'ar.depth': N_TOP,
-                               'ar.draw': 2 * N_TOP}),
-                       ('e2e', {'sample': 1, 'ar.spatial': N_TOP - 1,
-                                'ar.depth': N_TOP, 'ar.draw': 2 * N_TOP,
-                                'decode': 1})):
+    for name, want in (('ar', {'ar.prefill': 1, 'ar.spatial': N_TOP - 1,
+                               'ar.depth': N_TOP, 'ar.draw': 2 * N_TOP}),
+                       ('e2e', {'sample': 1, 'ar.prefill': 1,
+                                'ar.spatial': N_TOP - 1, 'ar.depth': N_TOP,
+                                'ar.draw': 2 * N_TOP, 'decode': 1})):
         trace = json.loads((tmp_path / f'{name}_trace.json').read_text())
         spans = [e for e in trace['traceEvents']
                  if e.get('pid') == 'program spans' and e['ph'] == 'X']
