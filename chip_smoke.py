@@ -8,7 +8,8 @@ With `--k1-only` it runs phase 1, decode attention's checks and timings
 of phases 2 and 7 and the K1 sweep, and stops without the result line
 (to compare two commits' K1, run it in a checkout of each, in turns).
 With `--gn-only` it runs phases 1 and 18 and prints phase 18's kernel
-entry as its JSON line. With `--graphs-only` it runs phases 1 and 19.
+entry as its JSON line. With `--graphs-only` it runs phases 1 and 19;
+with `--ta-only` phases 1 and 20, its kernel entry the JSON line.
 
 1. Device: prints the card, `nvidia-smi`'s name and power limit, the torch
    and CUDA versions; builds every CUDA kernel from
@@ -433,6 +434,26 @@ entry as its JSON line. With `--graphs-only` it runs phases 1 and 19.
    key's first call captures its graph at its second position, so the
    first call of each weights dict checks the eager step, the capture and
    the replays together.
+
+20. Depth attention (`ops/tiny_attention.py`, `csrc/tiny_attention.cu`),
+   after phase 19: the kernel against its plain version at the depth
+   chains' shapes (`TA_SHAPES`: level3.sample.b512's bottom and mid phases
+   under their level-3 rows, the 2-level depth-second chain at batch 1024
+   and 512, 16 bottoms a group, the tp 2 and tp 4 widths) at batch 1, 3
+   and the served one, bf16 and f32, and at edge shapes (Tq/Tk 1/1, 32/32,
+   7/30; hd 16 and 128), held as the CPU tests' `assert_close_to_plain`
+   holds them (only the f32 sums' order differs, so a weight may round the
+   other way): in bf16 99% equal and each element within 2^-7 of
+   (sum_j w_j |v_j| + |y|), in f32 within 2e-6 of max(1, sum_j w_j
+   |v_j|); the kernel repeats itself. Then each shape
+   timed in bf16 beside its plain version and the bytes bound (q, k, v
+   read once, y written once, at 3.35 TB/s; inputs rotated past L2), every
+   heads-a-block plan swept at the level-3 shapes, and the level-3 AR loop
+   at batch 512 run with the plain version and with the kernel, each timed
+   and profiled for tiny_attention's share of device time: 512 launches a
+   call (`ta.launches`). The 2-level flagship AR loop at batch 1024 counts
+   256 a call, eager and replayed from graphs. The JSON line gains
+   `tiny_attention` (the level-3 bottom phase's times).
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises, so the script exits
@@ -5919,6 +5940,283 @@ def run_depth_graphs():
     print(f'phase 19 (depth graphs): {time.perf_counter() - t0:.1f} s')
 
 
+# ------------------------------------------- depth attention (phase 20)
+
+# The depth chains' tiny_attention launches: (name, B, Tq, Tk, level-3
+# mask rows (t_past, t) or None, D, heads). level3.sample.b512's bottom
+# and mid phases, the 2-level depth-second chain at b1024 (and at the text
+# cell's 512), 2-level models with 16 bottoms a group, and the tp 2 and
+# tp 4 ranks' widths.
+TA_SHAPES = (('level3 bottom phase', 512, 16, 21, (5, 16), 1536, 24),
+             ('level3 mid phase', 512, 4, 5, (1, 4), 1536, 24),
+             ('b1024 depth-second', 1024, 4, 5, None, 1536, 24),
+             ('cc15m depth-second', 512, 4, 5, None, 1536, 24),
+             ('16 bottoms a group', 128, 16, 17, None, 1536, 24),
+             ('tp 2 bottom phase', 512, 16, 21, (5, 16), 768, 12),
+             ('tp 4 bottom phase', 512, 16, 21, (5, 16), 384, 6))
+TA_L2_BYTES = 150 * 2**20   # input sets a timing rotates through: > L2
+TA_LAUNCHES_LEVEL3 = 4 * 2 * 64   # depth layers x phases 1, 2 x positions
+TA_LAUNCHES_2LEVEL = 4 * 64       # depth layers x positions
+
+
+def ta_inputs(b, tq, tk, d, dtype, seed):
+    """q a view of a fused [B, Tq, 3D] product (as the depth phases pass
+    it), k and v contiguous, seeded, on the card."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    qkv = torch.randn(b, tq, 3 * d, generator=g, device='cuda').to(dtype)
+    k, v = (torch.randn(b, tk, d, generator=g, device='cuda').to(dtype)
+            for _ in range(2))
+    return qkv[..., :d], k, v
+
+
+def ta_mask(rows):
+    from hqtransformer_tpu_torch.ops import masks
+    return None if rows is None else masks.level3_decode(
+        'parallel', rows[0], rows[1], torch.device('cuda'))
+
+
+def ta_bytes(b, tq, tk, d, dtype):
+    """Bytes the function must move: q, k and v read once, y written
+    once."""
+    return (2 * tq + 2 * tk) * d * b * dtype.itemsize
+
+
+def ta_compare(ta, b, tq, tk, rows, d, nh, dtype, seed):
+    """The kernel against the plain version, as
+    tests/test_torch_tiny_attention.py::assert_close_to_plain holds them:
+    in bf16 99% of the elements equal and each within 2^-7 of
+    (sum_j w_j |v_j| + |y|), in f32 within 2e-6 of max(1, sum_j w_j
+    |v_j|) (only the order of the f32 sums differs, so a weight may round
+    the other way). Returns (the largest difference over its limit, the
+    share of equal elements)."""
+    q, k, v = ta_inputs(b, tq, tk, d, dtype, seed)
+    m = ta_mask(rows)
+    got = ta.tiny_attention(q, k, v, nh, m)
+    want = ta.tiny_attention_plain(q, k, v, nh, m)
+    scale = ta.tiny_attention_plain(q, k, v.abs(), nh, m).double()
+    equal = float((got == want).double().mean())
+    diff = (got.double() - want.double()).abs()
+    if dtype == torch.bfloat16:
+        limit = 2.0 ** -7 * (scale + want.double().abs())
+    else:
+        limit = 2e-6 * scale.clamp_min(1.0)
+    worst = float((diff / limit).max())
+    require(worst <= 1 and (dtype != torch.bfloat16 or equal >= 0.99),
+            f'tiny_attention [{b}, {tq}/{tk}, {d}/{nh}] {dtype} mask {rows}: '
+            f'{worst:.3f} of the limit, {equal:.4%} equal')
+    return worst, equal
+
+
+def ta_rotating(b, tq, tk, d, dtype):
+    """Input sets enough to exceed L2, so that no timed call finds its
+    inputs there."""
+    n = max(1, -(-TA_L2_BYTES // ta_bytes(b, tq, tk, d, dtype)))
+    return [ta_inputs(b, tq, tk, d, dtype, 700 + i) for i in range(n)]
+
+
+def time_tiny_attention(ta):
+    """Kernel and plain version at each TA_SHAPES entry in bf16, beside the
+    bytes bound. Returns {name: (ms, plain ms, bound ms)}."""
+    out = {}
+    print('tiny_attention times (ms a call; bound: q, k, v read once and y '
+          'written once at 3.35 TB/s):')
+    for name, b, tq, tk, rows, d, nh in TA_SHAPES:
+        sets, m = ta_rotating(b, tq, tk, d, torch.bfloat16), ta_mask(rows)
+        n = len(sets)
+        ms = time_ms(lambda i: ta.tiny_attention(*sets[i % n], nh, m), 50)
+        plain = time_ms(lambda i: ta.tiny_attention_plain(*sets[i % n], nh,
+                                                          m), 5)
+        bnd = ta_bytes(b, tq, tk, d, torch.bfloat16) / HBM_BYTES_PER_S * 1e3
+        plan = ta.launch_plan(b, tq, tk, d, nh, torch.bfloat16,
+                              torch.cuda.get_device_properties(0)
+                              .multi_processor_count)
+        print(f'  {name} [B {b}, Tq {tq}, Tk {tk}, d {d}, {nh} heads] '
+              f'bf16: kernel {ms:.5f} ({bnd / ms:.1%} of the bound), plain '
+              f'{plain:.4f} ({plain / ms:.1f}x), bound {bnd:.5f}; plan '
+              f'(heads, threads, smem) {plan}')
+        out[name] = (ms, plain, bnd)
+        del sets
+    return out
+
+
+def sweep_tiny_attention_plans(ta):
+    """The kernel at the level-3 phases under every heads-a-block plan that
+    fits, to show where the wrapper's plan sits among them."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, b, tq, tk, rows, d, nh in TA_SHAPES[:3]:
+        sets, m = ta_rotating(b, tq, tk, d, torch.bfloat16), ta_mask(rows)
+        n = len(sets)
+        chosen = ta.launch_plan(b, tq, tk, d, nh, torch.bfloat16, n_sms)
+        bnd = ta_bytes(b, tq, tk, d, torch.bfloat16) / HBM_BYTES_PER_S * 1e3
+        parts = []
+        for g in (g for g in range(1, nh + 1) if nh % g == 0):
+            smem = ta.smem_bytes(g, d // nh, tq, tk, torch.bfloat16)
+            threads = -(-2 * g * tq // 32) * 32
+            if threads > 256 or smem > ta.MAX_SMEM:
+                continue
+            plan = (g, threads, smem)
+            ms = time_ms(lambda i: ta.launch(*sets[i % n], nh, m, plan), 50)
+            parts.append(f'{g}: {ms:.5f} ({bnd / ms:.1%})'
+                         f'{" (chosen)" if plan == chosen else ""}')
+        print(f'tiny_attention plans, {name}, heads a block: ' +
+              ', '.join(parts))
+        del sets
+
+
+def ta_profiled_call(ml, fn, sampler, gen, labels, name):
+    """One sampler call with `fn` as the depth phases' tiny_attention,
+    timed on the host, then profiled with each call of it in a
+    `record_function` scope: the device time under those scopes and the
+    device's busy time. Returns (wall ms, tiny_attention ms, busy ms)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def scoped(*args):
+        with record_function('tiny_attention'):
+            return fn(*args)
+
+    inner = ml.tiny_attention
+    ml.tiny_attention = scoped
+    try:
+        sampler(gen, labels)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sampler(gen, labels)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sampler(gen, labels)
+            torch.cuda.synchronize()
+    finally:
+        ml.tiny_attention = inner
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    busy = sum(e.time_range.elapsed_us() for e in events
+               if e.device_type == cuda) / 1e3
+    scopes = [e for e in events
+              if e.name == 'tiny_attention' and e.device_type != cuda]
+    # the plain version's kernels hang under its scopes; the kernel's own
+    # launch (through ctypes, no PyTorch op) is found by its name
+    scoped_ms = max(sum(e.device_time_total
+                        if hasattr(e, 'device_time_total')
+                        else e.cuda_time_total for e in scopes),
+                    sum(e.time_range.elapsed_us() for e in events
+                        if e.device_type == cuda and
+                        'tiny_attention_kernel' in e.name)) / 1e3
+    print(f'{name}: {min(walls):.1f} ms wall (best of 2), device busy '
+          f'{busy:.1f} ms, tiny_attention {scoped_ms:.1f} ms of it '
+          f'({scoped_ms / max(busy, 1e-9):.1%}) in {len(scopes)} scopes')
+    return min(walls), scoped_ms, busy
+
+
+def ta_main_paths(ta):
+    """level3.sample.b512's AR loop with the plain version and with the
+    kernel, profiled (ROADMAP A4's first measure: tiny_attention's share of
+    busy time), and the launches a call; then the 2-level flagship AR loop
+    at b1024, eager and replayed from graphs, counting its launches."""
+    from hqtransformer_tpu_torch.models.stage2 import multilevel as ml
+    from hqtransformer_tpu_torch.sampling.engine import (
+        LevelSampling, SamplingParams, make_hierarchical_sampler,
+        make_multilevel_sampler)
+
+    model, weights, labels = bf16_model(
+        LEVEL3_S2, lambda cfg: torch.arange(512) % cfg.stage2.hparams.n_classes)
+    model.load_weights(weights)
+    n = model.top_res
+    sampler = make_multilevel_sampler(model.stage2, n * n, tuple(
+        LevelSampling(top_k=2048, temperature=1.0) for _ in range(3)))
+    gen = torch.Generator(device='cuda').manual_seed(20)
+    out = {}
+    for label, fn in (('plain', ta.tiny_attention_plain),
+                      ('kernel', ta.tiny_attention)):
+        out[label] = ta_profiled_call(
+            ml, fn, sampler, gen, labels,
+            f'level3 b512 AR loop, tiny_attention {label}')
+    reset_counts('ta.launches')
+    sampler(gen, labels)
+    torch.cuda.synchronize()
+    n3 = since_reset('ta.launches')
+    require(n3 == TA_LAUNCHES_LEVEL3, f'level3 b512 call: {n3} tiny_attention '
+            f'launches, expected {TA_LAUNCHES_LEVEL3}')
+    wall = (out['plain'][0], out['kernel'][0])
+    print(f'level3 b512 AR loop: {wall[0]:.1f} -> {wall[1]:.1f} ms '
+          f'({wall[0] / wall[1]:.3f}x); busy {out["plain"][2]:.1f} -> '
+          f'{out["kernel"][2]:.1f} ms; tiny_attention {out["plain"][1]:.1f} '
+          f'-> {out["kernel"][1]:.1f} ms; {n3} launches a call')
+    del model, weights, sampler
+    torch.cuda.empty_cache()
+
+    model, weights, labels = bf16_model(
+        FLAGSHIP, lambda cfg: torch.arange(B_LARGE) %
+        cfg.stage2.hparams.n_classes)
+    model.load_weights(weights)
+    sampler = make_hierarchical_sampler(model.stage2, 64,
+                                        SamplingParams(**SAMPLING_2048))
+    counts = []
+    for call in range(2):      # the first captures, the second replays
+        reset_counts('ta.launches')
+        t0 = time.perf_counter()
+        sampler(gen, labels)
+        torch.cuda.synchronize()
+        counts.append(since_reset('ta.launches'))
+        print(f'b1024 AR loop call {call + 1}: '
+              f'{(time.perf_counter() - t0) * 1e3:.1f} ms, {counts[-1]} '
+              f'tiny_attention launches')
+    require(counts == [TA_LAUNCHES_2LEVEL] * 2, f'b1024 calls: '
+            f'tiny_attention launches {counts}, expected '
+            f'{TA_LAUNCHES_2LEVEL} each, graph replays included')
+    del model, weights, sampler
+    torch.cuda.empty_cache()
+    return n3, out
+
+
+def run_tiny_attention():
+    """Phase 20: the depth-attention kernel against its plain version at
+    the depth chains' shapes and widths, both dtypes, its times beside the
+    bound and the plain version's, the plans swept, and the level-3 and
+    b1024 AR loops profiled and counted. Returns the result line's
+    entry."""
+    from hqtransformer_tpu_torch.ops import tiny_attention as ta
+
+    t0 = time.perf_counter()
+    err = 0.0
+    for i, (name, b, tq, tk, rows, d, nh) in enumerate(TA_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            for bb in (1, 3, b):
+                worst, equal = ta_compare(ta, bb, tq, tk, rows, d, nh, dtype,
+                                          seed=100 * i + bb)
+                err = max(err, worst)
+            print(f'tiny_attention check {name} {str(dtype)[6:]}: B 1, 3, '
+                  f'{b} within the limit (at B {b}: {worst:.3f} of it, '
+                  f'{equal:.4%} equal)')
+    for tq, tk, d, nh in ((1, 1, 64, 4), (32, 32, 1024, 8), (7, 30, 3072, 24),
+                          (16, 21, 64, 4)):
+        for dtype in (torch.bfloat16, torch.float32):
+            ta_compare(ta, 5, tq, tk, None, d, nh, dtype, seed=tq * tk)
+    print('tiny_attention edge shapes (Tq/Tk 1/1, 32/32, 7/30; hd 16, 128) '
+          'within tolerance')
+    q, k, v = ta_inputs(512, 16, 21, 1536, torch.bfloat16, 5)
+    m = ta_mask((5, 16))
+    first = ta.tiny_attention(q, k, v, 24, m)
+    require(all(torch.equal(first, ta.tiny_attention(q, k, v, 24, m))
+                for _ in range(3)), 'tiny_attention does not repeat itself')
+    del q, k, v, first
+    times = time_tiny_attention(ta)
+    sweep_tiny_attention_plans(ta)
+    launches, _ = ta_main_paths(ta)
+    print(f'phase 20 (tiny_attention): {time.perf_counter() - t0:.1f} s')
+    ms, plain, bnd = times['level3 bottom phase']
+    return {'name': 'tiny_attention', 'route': 'cuda',
+            'source': 'hqtransformer_tpu_torch/csrc/tiny_attention.cu',
+            'replaces': None, 'launches': launches,
+            'max_err_over_limit': err,
+            'ms': ms, 'kernel_ms': ms, 'plain_ms': plain, 'bound_ms': bnd,
+            'bound_by': 'bytes', 'library_ms': None,
+            'shape': [512, 16, 21, 1536]}
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(
         description='Smoke test of the PyTorch/CUDA port on one GPU; with '
@@ -5932,6 +6230,9 @@ def parse_args(argv):
     ap.add_argument('--graphs-only', action='store_true',
                     help='build the kernels, run phase 19 (the depth '
                     'graphs) and stop (no result line)')
+    ap.add_argument('--ta-only', action='store_true',
+                    help='build the kernels, run phase 20 (depth attention) '
+                    'and stop (its kernel entry is the result line)')
     ap.add_argument('--tp-worker', nargs=2, type=int, metavar=('RANK', 'PORT'),
                     help='run as one rank of phase 17 (started by the '
                     'script itself)')
@@ -5989,6 +6290,10 @@ def main(argv=None) -> int:
         run_depth_graphs()
         print('chip_smoke --graphs-only: every depth graph check passed')
         return 0
+    if args.ta_only:
+        print(json.dumps({'kernels': [run_tiny_attention()]}))
+        print('chip_smoke --ta-only: every tiny_attention check passed')
+        return 0
 
     k1_err = check_decode_attention(da)
     k2_err, k2_frac = check_sample_topk(st)
@@ -6029,6 +6334,7 @@ def main(argv=None) -> int:
     k1_tp = run_tensor_parallel(da, st, vq)
     gn_entry = run_group_norm()
     run_depth_graphs()
+    ta_entry = run_tiny_attention()
     require(k3_shapes[K3_D256][5] == 0 and k3f_shapes[K3_D256][5] == 0,
             'K3 at the avgpool / conv2 top differs from plain')
     check_small_reference(vq)
@@ -6093,6 +6399,7 @@ def main(argv=None) -> int:
     for entry, per_step in zip(kernels[-2:], (2, 4)):
         entry.update(dtype='float32', launches_per_step=per_step)
     kernels.append(gn_entry)
+    kernels.append(ta_entry)
     print(f'K2 rows differing from plain at most {k2_frac:.4f}; main path '
           f'{samples_per_s:.2f} samples/s at batch {B}; 3-level sampling '
           f'{level3_samples_per_s:.2f} samples/s at batch {B}; encode slice '

@@ -58,8 +58,8 @@ from torch import nn
 from ...ops import masks as M
 from ...ops.decode_attention import decode_attention_step
 from ...ops.int8 import Int8Weight, quantize_rows
+from ...ops.tiny_attention import NEG_INF, tiny_attention  # noqa: F401
 
-NEG_INF = -1e10
 ACT_SCALES_NEEDED = ('int8 gemms need calibrated activation scales: run '
                      'TwoStageModel.calibrate_stage2_int8() and pass its '
                      'scales to the sampler')
@@ -205,30 +205,6 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         att = att.masked_fill(~mask, NEG_INF)
     att = torch.softmax(att, dim=-1)
     return torch.matmul(att.to(v.dtype), v)
-
-
-def tiny_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   n_heads: int,
-                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Multi-head attention over the short depth chains (Tq, Tk <= 21) in
-    the flat [B, T, D] layout, with the JAX package's `tiny_attention`
-    roundings: the products q * k in the activation dtype, summed per head
-    in f32, scaled and masked (`mask` bool [Tq, Tk], True = attend), the
-    softmax over the keys in f32; the weights cast to q's dtype, broadcast
-    over each head's channels, and sum(weight * v) over the keys in f32
-    (XLA fuses that product into the sum: it is not rounded), cast to q's
-    dtype. In bf16 this gives the JAX function's output bit for bit."""
-    B, Tq, D = q.shape
-    Tk = k.shape[1]
-    hd = D // n_heads
-    P = q[:, :, None, :] * k[:, None, :, :]                 # [B, Tq, Tk, D]
-    s = P.reshape(B, Tq, Tk, n_heads, hd).sum(-1, dtype=torch.float32)
-    s = s * (1.0 / math.sqrt(hd))
-    if mask is not None:
-        s = s.masked_fill(~mask[None, :, :, None], NEG_INF)
-    att = torch.softmax(s, dim=2).to(q.dtype).float()       # [B, Tq, Tk, nh]
-    y = att[..., None] * v.float().reshape(B, 1, Tk, n_heads, hd)
-    return y.sum(2).reshape(B, Tq, D).to(q.dtype)
 
 
 class SelfAttention(nn.Module):

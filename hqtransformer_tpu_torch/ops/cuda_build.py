@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 CSRC_DIR = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 KERNEL_SOURCES = ('decode_attention', 'sample_topk', 'vq_argmin',
-                  'group_norm')
+                  'group_norm', 'tiny_attention')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 

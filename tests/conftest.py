@@ -20,3 +20,9 @@ import jax  # noqa: E402
 jax.config.update('jax_platforms', 'cpu')
 assert jax.devices()[0].platform == 'cpu', jax.devices()
 assert jax.device_count() == 8, jax.devices()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'card: needs a CUDA card and skips without one (run on '
+        'the card with --noconftest, since this file imports JAX)')
